@@ -1,0 +1,360 @@
+#!/usr/bin/env python3
+"""Card check of the PyTorch/H100 port (``dynmm_tpu_torch``).
+
+Run from the root of a checkout on a machine with one NVIDIA GPU:
+
+    python3 chip_smoke.py
+
+1. Device and build: prints the card's name and power limit, builds every
+   CUDA source of the port with ``nvcc`` (sm_90a) and prints the seconds.
+2. Kernels: calls each kernel's wrapper at the shapes the flagship's forward
+   gives it at B=8, 480×640, and holds the result against its plain PyTorch
+   version on the same seeded inputs: max abs error and max abs error over
+   max |plain| (≤ 1e-4 in fp32: the summation orders differ). Times the
+   kernel, the plain version and, where one PyTorch call computes the same
+   function, that call, with CUDA events after warm-up.
+3. Serve: builds the 480×640 flagship with seeded random weights, serves 3
+   batches of 8 and 3 of 1 through ``dynmm_tpu_torch.serve.serve`` with
+   every launch count at 0 before, checks the counts of each forward, then
+   runs the same requests with ``use_kernels=False`` (plain versions, same
+   weights): identical gate choices, logits within 1e-3 relative, class
+   maps identical on ≥ 99.9 % of pixels.
+4. Prints the kernels' JSON line, the card line, and last
+   ``{"ok": true, "device": {...}}``.
+
+TF32 is switched off for cuDNN convolutions and matmuls here, so the kernels
+and their plain versions compare in fp32. Any failure exits non-zero before
+the last line; without a card, or outside a checkout, it fails at once.
+Details go to ``chiprun_out/chip_smoke.json`` beside this script.
+"""
+
+from __future__ import annotations
+
+import json
+import math
+import sys
+import time
+from pathlib import Path
+
+import torch
+
+ROOT = Path(__file__).resolve().parent
+BATCH = 8
+HEIGHT, WIDTH, CLASSES = 480, 640, 40
+# H100 SXM data-sheet peaks: HBM3 bytes/s and fp32 (non-tensor) FLOP/s
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_FP32_FLOPS = 67e12
+KERNEL_TOL = 1e-4
+# launches of one dense hard-gate forward of the flagship
+EXPECTED = {"nbt1d_pair": 70, "channel_sums": 5, "stem_fuse_pool": 1,
+            "se_fuse_mixed": 4, "learned_upsample": 5}
+SOURCES = {
+    "nbt1d_pair": ("nbt1d.cu", "dynmm_tpu/kernels/nbt1d.py:246"),
+    "channel_sums": ("se.cu", "dynmm_tpu/kernels/stem_fuse.py:85"),
+    "stem_fuse_pool": ("stem_fuse.cu", "dynmm_tpu/kernels/stem_fuse.py:198"),
+    "learned_upsample": ("upsample.cu", "dynmm_tpu/kernels/upsample.py:130"),
+    "se_fuse_mixed": ("se.cu", "dynmm_tpu/kernels/se.py:66"),
+}
+
+
+def time_ms(fn, warmup: int = 2, iters: int = 10) -> float:
+    """Mean device time of ``fn`` over ``iters`` back-to-back calls."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def bound(n_bytes: float, n_flops: float) -> tuple[float, str]:
+    t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = n_flops / PEAK_FP32_FLOPS * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+class Inputs:
+    """Seeded inputs on the card."""
+
+    def __init__(self, seed: int):
+        self.g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def randn(self, *shape, scale=1.0, shift=0.0):
+        return torch.randn(shape, generator=self.g, device="cuda") * scale + shift
+
+    def rand(self, *shape, lo=0.0, hi=1.0):
+        return lo + (hi - lo) * torch.rand(shape, generator=self.g,
+                                           device="cuda")
+
+
+def upsample_library_weight(taps: torch.Tensor) -> torch.Tensor:
+    """Nearest ×2 + zero-padded depthwise 3×3 as one depthwise transposed
+    conv (stride 2, padding 1): the 3×3 taps phase-merged into a 4×4 kernel
+    (the JAX package's ``_UPSAMPLE_PHASE_MERGE``), flipped."""
+    a = torch.tensor([[1.0, 0, 0], [1, 1, 0], [0, 1, 1], [0, 0, 1]],
+                     device=taps.device)
+    kt = torch.einsum("us,stc,vt->cuv", a, taps, a)  # (C, 4, 4)
+    return kt.flip(1, 2).unsqueeze(1).contiguous()
+
+
+def kernel_cases(inp: Inputs):
+    """(kernel name, shape label, calls per B=8 forward, kernel fn, plain fn,
+    library fn or None, bytes, flops) for every shape of the main path."""
+    from dynmm_tpu_torch.kernels import nbt1d, se, stem_fuse, upsample
+
+    b = BATCH
+    cases = []
+    # K1: 13 stride-1 blocks per encoder, 9 in the decoder; two pairs each
+    for c, h, w, blocks in ((64, 120, 160, 6), (128, 60, 80, 9),
+                            (256, 30, 40, 13), (512, 15, 20, 7)):
+        x, idn = inp.randn(b, h, w, c), inp.randn(b, h, w, c)
+        std = math.sqrt(2.0 / (3 * c))
+        wr, wc = inp.randn(3, c, c, scale=std), inp.randn(3, c, c, scale=std)
+        br, bc = inp.randn(c, scale=0.05), inp.randn(c, scale=0.05)
+        s, t = inp.rand(c, lo=0.5, hi=1.0), inp.randn(c, scale=0.1)
+        vol = b * h * w * c * 4
+        for form, extra in (("pair1", {}), ("pair2", {"identity": idn})):
+            args = (x, wr, br, wc, bc, s, t)
+            n_bytes = vol * (3 if extra else 2) + 2 * 3 * c * c * 4 + 4 * c * 4
+            cases.append((
+                "nbt1d_pair", f"{form} {b}x{h}x{w}x{c}", blocks,
+                lambda a=args, e=extra: nbt1d.nbt1d_pair(*a, **e),
+                lambda a=args, e=extra: nbt1d.nbt1d_pair_plain(*a, **e),
+                None, n_bytes, 12.0 * c * c * b * h * w))
+    # channel sums: the stem cell and the four fusion cells
+    for c, h, w in ((64, 240, 320), (64, 120, 160), (128, 60, 80),
+                    (256, 30, 40), (512, 15, 20)):
+        r, d = inp.randn(b, h, w, c), inp.randn(b, h, w, c)
+        n = b * h * w * c
+        cases.append(("channel_sums", f"{b}x{h}x{w}x{c}", 1,
+                      lambda r=r, d=d: se.channel_sums(r, d),
+                      lambda r=r, d=d: se.channel_sums_plain(r, d),
+                      None, 2 * n * 4 + 2 * b * c * 4, 2.0 * n))
+    # K2: stem scale-add + dual max-pool
+    c, h, w = 64, 240, 320
+    r, d = inp.randn(b, h, w, c), inp.randn(b, h, w, c)
+    s_r, s_d = inp.rand(b, c), inp.rand(b, c)
+    n = b * h * w * c
+    args = (r, d, s_r, s_d)
+    cases.append(("stem_fuse_pool", f"{b}x{h}x{w}x{c}", 1,
+                  lambda a=args: stem_fuse.stem_fuse_pool(*a),
+                  lambda a=args: stem_fuse.stem_fuse_pool_plain(*a),
+                  None, (2 * n + 2 * n // 4) * 4, 3.0 * n + 18.0 * n / 4))
+    # K3: three decoder-module upsamples and the two logits upsamples
+    for c, h, w in ((512, 15, 20), (256, 30, 40), (128, 60, 80),
+                    (40, 120, 160), (40, 240, 320)):
+        x = inp.randn(b, h, w, c)
+        taps, bias = inp.randn(3, 3, c, scale=0.3), inp.randn(c, scale=0.1)
+        wt = upsample_library_weight(taps)
+        n = b * h * w * c
+        cases.append((
+            "learned_upsample", f"{b}x{h}x{w}x{c}", 1,
+            lambda x=x, k=taps, bb=bias: upsample.learned_upsample(x, k, bb),
+            lambda x=x, k=taps, bb=bias: upsample.learned_upsample_plain(x, k, bb),
+            lambda x=x, wt=wt, bb=bias, c=c: torch.nn.functional.conv_transpose2d(
+                x.permute(0, 3, 1, 2), wt, bb, stride=2, padding=1,
+                groups=c).permute(0, 2, 3, 1),
+            (n + 4 * n) * 4 + 10 * c * 4, 8.0 * 4 * n))
+    # K4: the four gate-mixed SE fusion cells (channel sums + mix)
+    for c, h, w in ((64, 120, 160), (128, 60, 80), (256, 30, 40),
+                    (512, 15, 20)):
+        r, d = inp.randn(b, h, w, c), inp.randn(b, h, w, c)
+        cr = c // 16
+        wts = []
+        for _ in range(2):
+            wts += [inp.randn(c, cr, scale=1 / math.sqrt(c)),
+                    inp.randn(cr, scale=0.1),
+                    inp.randn(cr, c, scale=1 / math.sqrt(cr)),
+                    inp.randn(c, scale=0.1)]
+        w_rgb = inp.rand(b)
+        n = b * h * w * c
+        cases.append((
+            "se_fuse_mixed", f"{b}x{h}x{w}x{c}", 1,
+            lambda r=r, d=d, wr=w_rgb, ws=wts: se.se_fuse_mixed(r, d, wr, *ws),
+            lambda r=r, d=d, wr=w_rgb, ws=wts: se.se_fuse_mixed_plain(r, d, wr, *ws),
+            None, 3 * n * 4, 5.0 * n))
+    return cases
+
+
+def check_kernels(report: dict) -> list[dict]:
+    per_kernel: dict[str, dict] = {}
+    inp = Inputs(seed=0)
+    for name, label, calls, kern, plain, lib, n_bytes, n_flops in kernel_cases(inp):
+        with torch.inference_mode():
+            out_k, out_p = kern(), plain()
+            torch.cuda.synchronize()
+            outs_k = out_k if isinstance(out_k, tuple) else (out_k,)
+            outs_p = out_p if isinstance(out_p, tuple) else (out_p,)
+            err = max((a - p).abs().max().item() for a, p in zip(outs_k, outs_p))
+            scale = max(p.abs().max().item() for p in outs_p)
+            rel = err / scale
+            if not all(torch.isfinite(a).all() for a in outs_k):
+                raise RuntimeError(f"{name} {label}: non-finite output")
+            if rel > KERNEL_TOL:
+                raise RuntimeError(f"{name} {label}: max abs err {err:.3g} is "
+                                   f"{rel:.3g} of max |plain| > {KERNEL_TOL}")
+            lib_ms = None
+            if lib is not None:
+                lib_err = (lib() - outs_p[0]).abs().max().item() / scale
+                if lib_err > KERNEL_TOL:
+                    raise RuntimeError(f"{name} {label}: library call differs "
+                                       f"({lib_err:.3g})")
+                lib_ms = time_ms(lib)
+            ms, plain_ms = time_ms(kern), time_ms(plain)
+        b_ms, b_by = bound(n_bytes, n_flops)
+        row = {"kernel": name, "shape": label, "calls_per_forward": calls,
+               "max_abs_err": err, "max_rel_err": rel, "ms": ms,
+               "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": b_ms,
+               "bound_by": b_by}
+        report["kernel_cases"].append(row)
+        print(f"  {name:16s} {label:22s} x{calls:<2d} err {err:.3g} "
+              f"(rel {rel:.3g})  kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  "
+              f"library {'-' if lib_ms is None else f'{lib_ms:.4f} ms'}  "
+              f"bound {b_ms:.4f} ms ({b_by})", flush=True)
+        agg = per_kernel.setdefault(name, {
+            "name": name, "route": "cuda",
+            "source": f"dynmm_tpu_torch/kernels/csrc/{SOURCES[name][0]}",
+            "replaces": SOURCES[name][1], "launches": 0, "max_abs_err": 0.0,
+            "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "bound_by": b_by,
+            "library_ms": 0.0 if lib_ms is not None else None})
+        agg["max_abs_err"] = max(agg["max_abs_err"], err)
+        # per-forward totals: each shape's time times its calls per forward
+        agg["ms"] += ms * calls
+        agg["plain_ms"] += plain_ms * calls
+        agg["bound_ms"] += b_ms * calls
+        if lib_ms is not None:
+            agg["library_ms"] += lib_ms * calls
+    return list(per_kernel.values())
+
+
+def check_serve(report: dict) -> dict:
+    from dynmm_tpu_torch.kernels import LAUNCHES, reset_launches
+    from dynmm_tpu_torch.nn.layers import first_argmax
+    from dynmm_tpu_torch.serve import build_flagship, serve
+
+    t0 = time.perf_counter()
+    model = build_flagship(HEIGHT, WIDTH, CLASSES, seed=0)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"  flagship built in {time.perf_counter() - t0:.2f} s "
+          f"({n_params} parameters)", flush=True)
+    inp = Inputs(seed=1)
+    requests = [(inp.randn(b, HEIGHT, WIDTH, 3), inp.randn(b, HEIGHT, WIDTH, 1))
+                for b in (BATCH,) * 3 + (1,) * 3]
+    # warm-up of both paths (cuDNN picks its algorithms), not counted
+    for i, use_kernels in ((0, True), (3, True), (0, False), (3, False)):
+        serve(model, *requests[i], use_kernels=use_kernels)
+    torch.cuda.synchronize()
+
+    # the main path's run: counts at 0 just before, read just after
+    reset_launches()
+    served = []
+    for rgb, depth in requests:
+        before = dict(LAUNCHES)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        class_map, weight = serve(model, rgb, depth)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        delta = {k: LAUNCHES[k] - before.get(k, 0) for k in LAUNCHES}
+        if delta != EXPECTED:
+            raise RuntimeError(f"launches of one forward {delta} != {EXPECTED}")
+        served.append((class_map, weight, ms))
+        print(f"  request B={rgb.shape[0]}: {ms:.2f} ms, paths "
+              f"{weight.argmax(1).tolist()}", flush=True)
+    launches = dict(LAUNCHES)
+    for name, n in EXPECTED.items():
+        if launches.get(name, 0) != n * len(requests):
+            raise RuntimeError(f"{name}: {launches.get(name, 0)} launches in "
+                               f"the served run, expected {n * len(requests)}")
+
+    # the same requests through the plain versions, same weights
+    for (rgb, depth), (class_map, weight, ms) in zip(requests, served):
+        with torch.inference_mode():
+            logits_k = model(rgb, depth, hard=True, use_kernels=True)
+            logits_p, weight_p = model(rgb, depth, hard=True,
+                                       return_weight=True, use_kernels=False)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            serve(model, rgb, depth, use_kernels=False)
+            torch.cuda.synchronize()
+            plain_ms = (time.perf_counter() - t0) * 1e3
+        b = rgb.shape[0]
+        if logits_k.shape != (b, HEIGHT, WIDTH, CLASSES) or not bool(
+                torch.isfinite(logits_k).all()):
+            raise RuntimeError("served logits are not finite or mis-shaped")
+        if class_map.shape != (b, HEIGHT, WIDTH) or class_map.dtype != torch.int32:
+            raise RuntimeError("class map is mis-shaped")
+        rel = ((logits_k - logits_p).abs().max()
+               / logits_p.abs().max()).item()
+        agree = (class_map == first_argmax(logits_p)).float().mean().item()
+        same_gate = bool(torch.equal(weight, weight_p))
+        row = {"batch": b, "ms": ms, "plain_ms": plain_ms,
+               "paths": weight.argmax(1).tolist(), "logits_rel_err": rel,
+               "class_map_agreement": agree, "same_gate": same_gate}
+        report["serve"].append(row)
+        print(f"  B={b}: kernels {ms:.2f} ms vs plain {plain_ms:.2f} ms; "
+              f"logits rel err {rel:.3g}, class maps agree on "
+              f"{agree * 100:.4f} %, gate choices identical: {same_gate}",
+              flush=True)
+        if not same_gate or rel > 1e-3 or agree < 0.999:
+            raise RuntimeError("kernel path disagrees with the plain path")
+    return launches
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this check runs on the card",
+              file=sys.stderr)
+        return 1
+    if not (ROOT / "dynmm_tpu_torch" / "kernels" / "csrc").is_dir():
+        print(f"chip_smoke: no dynmm_tpu_torch package beside {__file__}; "
+              "run it from the root of a checkout", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(ROOT))
+    from dynmm_tpu_torch.kernels import build_all
+    from dynmm_tpu_torch.utils.device import card_line
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    card = card_line()
+    print(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
+    print("TF32 off for cuDNN convolutions and matmuls: kernels and plain "
+          "versions compare in fp32", flush=True)
+    report = {"card": card, "torch": torch.__version__, "kernel_cases": [],
+              "serve": []}
+
+    print("[1] build", flush=True)
+    report["build_s"] = build_all(verbose=True)
+    print(f"  built the kernels in {report['build_s']:.2f} s", flush=True)
+
+    print(f"[2] kernels vs plain versions at the flagship's shapes, B={BATCH}",
+          flush=True)
+    kernels = check_kernels(report)
+
+    print(f"[3] serve the {HEIGHT}x{WIDTH} flagship", flush=True)
+    launches = check_serve(report)
+    for k in kernels:
+        k["launches"] = launches[k["name"]]
+        if k["launches"] == 0:
+            raise RuntimeError(f"{k['name']} never launched on the main path")
+    report["kernels"] = kernels
+
+    out = ROOT / "chiprun_out" / "chip_smoke.json"
+    out.parent.mkdir(exist_ok=True)
+    out.write_text(json.dumps(report, indent=1))
+    print(json.dumps({"kernels": kernels}))
+    print(card)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,56 @@
+"""Differentiable gate ops with straight-through gradients (port of
+``dynmm_tpu/core/gates.py``).
+
+``straight_through`` is ``y_hard - y_soft.detach() + y_soft``: the value of
+the hard one-hot with the gradient of the soft distribution. Randomness
+takes an explicit ``torch.Generator``.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+
+def straight_through(y_hard: torch.Tensor, y_soft: torch.Tensor
+                     ) -> torch.Tensor:
+    """Value of ``y_hard``, gradient of ``y_soft``."""
+    return y_hard - y_soft.detach() + y_soft
+
+
+def hard_one_hot(y_soft: torch.Tensor, dim: int = -1) -> torch.Tensor:
+    """One-hot of the argmax along ``dim`` (ties go to the first index),
+    same shape and dtype as ``y_soft``."""
+    index = y_soft.argmax(dim=dim, keepdim=True)
+    return torch.zeros_like(y_soft).scatter_(dim, index, 1.0)
+
+
+def diff_softmax(logits: torch.Tensor, tau: float = 1.0, hard: bool = False,
+                 dim: int = -1) -> torch.Tensor:
+    """Temperature softmax with optional straight-through hard one-hot."""
+    y_soft = F.softmax(logits / tau, dim=dim)
+    if not hard:
+        return y_soft
+    return straight_through(hard_one_hot(y_soft, dim=dim), y_soft)
+
+
+def sample_gumbel(shape, generator: torch.Generator, dtype=torch.float32,
+                  device=None) -> torch.Tensor:
+    """Standard Gumbel(0, 1) noise, ``-log(-log(U))``."""
+    u = torch.rand(shape, generator=generator, dtype=dtype, device=device)
+    u = u.clamp_min(1e-20)
+    return -torch.log(-torch.log(u))
+
+
+def gumbel_softmax(logits: torch.Tensor, generator: torch.Generator,
+                   tau: float = 1.0, hard: bool = False, dim: int = -1
+                   ) -> torch.Tensor:
+    """Gumbel-softmax sample with optional straight-through hard one-hot,
+    drawing its noise from ``generator``."""
+    g = sample_gumbel(logits.shape, generator,
+                      dtype=torch.promote_types(logits.dtype, torch.float32),
+                      device=logits.device)
+    y_soft = F.softmax((logits + g.to(logits.dtype)) / tau, dim=dim)
+    if not hard:
+        return y_soft
+    return straight_through(hard_one_hot(y_soft, dim=dim), y_soft)

@@ -1,0 +1,191 @@
+"""Run the port's CUDA sources on the CPU, for tests on machines without a
+card or ``nvcc``.
+
+Each ``csrc/<name>.cu`` is rewritten into host C++ (launches ``k<<<g, b, s,
+st>>>(args)`` become calls of an emulated launcher, dynamic shared memory a
+per-block buffer) and compiled with the host's ``g++`` against a small
+header that provides the CUDA names the sources use. Blocks run one after
+another; a kernel that calls ``__syncthreads`` runs each block's threads as
+``std::thread``s meeting at a ``std::barrier``, any other kernel runs its
+threads in a loop. Indexing, masking, tiling and the arithmetic are the
+sources' own; what only the card shows (timing, races between warps, limits
+on registers and shared memory) is not emulated.
+
+    with emulated(build(tmp_dir)):
+        nbt1d_pair(x_cpu, ...)   # launches the emulated kernel on CPU memory
+
+Nothing here runs at import.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import ctypes
+import re
+import shutil
+import subprocess
+from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
+
+from dynmm_tpu_torch.kernels import _build
+
+SHIM = r"""
+#pragma once
+#include <math.h>
+#include <barrier>
+#include <cmath>
+#include <cstddef>
+#include <thread>
+#include <vector>
+struct dim3 {
+  unsigned x, y, z;
+  dim3(unsigned a = 1, unsigned b = 1, unsigned c = 1) : x(a), y(b), z(c) {}
+};
+struct uint3 { unsigned x, y, z; };
+inline thread_local uint3 threadIdx, blockIdx;
+inline dim3 blockDim, gridDim;
+inline std::barrier<>* emu_bar = nullptr;
+inline void __syncthreads() { emu_bar->arrive_and_wait(); }
+inline std::vector<char> emu_smem;
+typedef void* cudaStream_t;
+typedef int cudaError_t;
+enum { cudaSuccess = 0 };
+enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize };
+template <class F>
+inline cudaError_t cudaFuncSetAttribute(F, cudaFuncAttribute, int) { return 0; }
+inline cudaError_t cudaGetLastError() { return 0; }
+struct alignas(16) float4 { float x, y, z, w; };
+inline float4 make_float4(float a, float b, float c, float d) { return {a, b, c, d}; }
+#define __global__
+#define __device__
+#define __forceinline__ inline
+#define __restrict__ __restrict
+#define __launch_bounds__(x)
+#define CUDART_INF_F INFINITY
+template <class F>
+void emu_launch(bool barrier, dim3 g, dim3 b, size_t smem, F&& f) {
+  gridDim = g;
+  blockDim = b;
+  const unsigned nt = b.x * b.y * b.z;
+  auto at = [&](unsigned t) {
+    threadIdx = {t % b.x, (t / b.x) % b.y, t / (b.x * b.y)};
+  };
+  for (unsigned z = 0; z < g.z; ++z)
+    for (unsigned y = 0; y < g.y; ++y)
+      for (unsigned x = 0; x < g.x; ++x) {
+        emu_smem.assign(smem + 64, (char)0x7f);  // stale-looking contents
+        blockIdx = {x, y, z};
+        if (!barrier) {
+          for (unsigned t = 0; t < nt; ++t) { at(t); f(); }
+          continue;
+        }
+        std::barrier<> bar(nt);
+        emu_bar = &bar;
+        std::vector<std::thread> ts;
+        ts.reserve(nt);
+        for (unsigned t = 0; t < nt; ++t)
+          ts.emplace_back([&, t, x, y, z] { blockIdx = {x, y, z}; at(t); f(); });
+        for (auto& th : ts) th.join();
+      }
+}
+"""
+
+
+def _split_top(s: str) -> list[str]:
+    parts, depth, cur = [], 0, ""
+    for ch in s:
+        depth += ch in "([{"
+        depth -= ch in ")]}"
+        if ch == "," and depth == 0:
+            parts.append(cur.strip())
+            cur = ""
+        else:
+            cur += ch
+    return parts + [cur.strip()]
+
+
+def _kernel_bodies(src: str) -> dict[str, str]:
+    """name → text of each ``__global__`` function (up to the next one)."""
+    heads = list(re.finditer(
+        r"__global__\s+void\s+(?:__launch_bounds__\(\d+\)\s*)?(\w+)\s*\(", src))
+    return {m.group(1): src[m.start():(heads[i + 1].start()
+                                        if i + 1 < len(heads) else len(src))]
+            for i, m in enumerate(heads)}
+
+
+def to_host_cpp(src: str) -> str:
+    """Rewrite one CUDA source for the emulation header."""
+    bodies = _kernel_bodies(src)
+    src = re.sub(r"#include <(cuda_runtime|math_constants)\.h>\n", "", src)
+    src = re.sub(r"extern __shared__ (\w+) (\w+)\[\];",
+                 r"\1* \2 = reinterpret_cast<\1*>(emu_smem.data());", src)
+    out = ""
+    while (i := src.find("<<<")) >= 0:
+        m = re.search(r"([\w:]+(?:<[^<>]*>)?)\s*$", src[:i])
+        name = m.group(1)
+        j = src.find(">>>", i)
+        cfg = _split_top(src[i + 3:j])
+        k = src.index("(", j)
+        depth, p = 0, k
+        while True:
+            depth += src[p] == "("
+            depth -= src[p] == ")"
+            if depth == 0:
+                break
+            p += 1
+        base = re.sub(r"<[^<>]*>$", "", name)
+        barrier = "true" if "__syncthreads" in bodies.get(base, "") else "false"
+        smem = cfg[2] if len(cfg) > 2 else "0"
+        out += (src[:m.start(1)] + f"emu_launch({barrier}, {cfg[0]}, {cfg[1]}, "
+                f"{smem}, [&] {{ {name}({src[k + 1:p]}); }})")
+        src = src[p + 1:]
+    return out + src
+
+
+def build(out_dir: Path) -> dict[str, ctypes.CDLL]:
+    """Compile every source for the CPU into ``out_dir`` (in parallel)."""
+    cxx = shutil.which("g++")
+    if cxx is None:
+        raise RuntimeError("g++ not found")
+    out_dir = Path(out_dir)
+    out_dir.mkdir(parents=True, exist_ok=True)
+    shim = out_dir / "cuda_host_shim.h"
+    shim.write_text(SHIM)
+
+    def one(name: str) -> ctypes.CDLL:
+        cpp = out_dir / f"{name}.cpp"
+        cpp.write_text(to_host_cpp((_build.CSRC / f"{name}.cu").read_text()))
+        so = out_dir / f"lib{name}.so"
+        subprocess.run([cxx, "-std=c++20", "-O1", "-shared", "-fPIC",
+                        "-pthread", "-include", str(shim), "-o", str(so),
+                        str(cpp)], check=True, capture_output=True, text=True)
+        return ctypes.CDLL(str(so))
+
+    with ThreadPoolExecutor(len(_build.SOURCES)) as pool:
+        return dict(zip(_build.SOURCES, pool.map(one, _build.SOURCES)))
+
+
+@contextlib.contextmanager
+def emulated(libs: dict[str, ctypes.CDLL]):
+    """Within the block, wrappers given CPU tensors launch the emulated
+    kernels (and count their launches) instead of the plain versions."""
+    saved = _build.function, _build.on_card, _build.stream
+
+    def function(lib, name, n_ptr, n_int):
+        fn = getattr(libs[lib], name)
+        fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int
+                       + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        return fn
+
+    def on_card(*tensors):
+        if any(t is not None and t.device.type != "cpu" for t in tensors):
+            raise ValueError("emulated kernels take CPU tensors")
+        return True
+
+    _build.function, _build.on_card, _build.stream = (function, on_card,
+                                                      lambda: None)
+    try:
+        yield
+    finally:
+        _build.function, _build.on_card, _build.stream = saved

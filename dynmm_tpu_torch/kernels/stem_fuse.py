@@ -1,0 +1,74 @@
+"""Stem SE-fusion + dual max-pool kernel (``csrc/stem_fuse.cu``).
+
+Port of ``dynmm_tpu/kernels/stem_fuse.py``. The stem cell of the main path
+(``SkipGateESANet._stems``) at (B, 240, 320, 64) runs in three steps:
+
+1. ``channel_sums`` of both stem maps in one launch (``kernels/se.py``);
+2. the tiny SE MLP on (B, 64) in PyTorch ops (``se_gate_from_sums``), as the
+   JAX cell leaves it to XLA;
+3. ``stem_fuse_pool``: one launch that scale-adds the maps and max-pools
+   (3×3, stride 2, pad 1, −inf padding) both the fused map and raw depth,
+   writing only the two pooled maps.
+
+Maps are NHWC fp32; C % 4 == 0 on the card.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from dynmm_tpu_torch.kernels import _build
+from dynmm_tpu_torch.kernels.se import channel_sums, channel_sums_plain, se_scale
+
+
+def _max_pool_nhwc(x: torch.Tensor) -> torch.Tensor:
+    return F.max_pool2d(x.permute(0, 3, 1, 2), 3, 2, 1).permute(0, 2, 3, 1)
+
+
+def stem_fuse_pool_plain(rgb, depth, s_r, s_d):
+    fused = rgb * s_r[:, None, None, :] + depth * s_d[:, None, None, :]
+    return _max_pool_nhwc(fused), _max_pool_nhwc(depth)
+
+
+def stem_fuse_pool(rgb: torch.Tensor, depth: torch.Tensor,
+                   s_r: torch.Tensor, s_d: torch.Tensor):
+    """(maxpool(rgb·s_r + depth·s_d), maxpool(depth)) for (B, H, W, C) maps
+    and (B, C) scale vectors; pooled maps are (B, ⌈H/2⌉, ⌈W/2⌉, C)."""
+    if not _build.on_card(rgb, depth, s_r, s_d):
+        return stem_fuse_pool_plain(rgb, depth, s_r, s_d)
+    b, h, w, c = rgb.shape
+    _build.require(rgb, "rgb")
+    _build.require(depth, "depth", (b, h, w, c))
+    _build.require(s_r, "s_r", (b, c))
+    _build.require(s_d, "s_d", (b, c))
+    if c % 4:
+        raise ValueError(f"stem_fuse_pool takes C % 4 == 0, got {c}")
+    oh, ow = (h - 1) // 2 + 1, (w - 1) // 2 + 1
+    out_f = torch.empty((b, oh, ow, c), device=rgb.device, dtype=rgb.dtype)
+    out_d = torch.empty_like(out_f)
+    fn = _build.function("stem_fuse", "dynmm_stem_fuse_pool", 6, 4)
+    _build.check(fn(_build.ptr(rgb), _build.ptr(depth), _build.ptr(s_r),
+                    _build.ptr(s_d), _build.ptr(out_f), _build.ptr(out_d),
+                    b, h, w, c, _build.stream()), "stem_fuse_pool")
+    _build.LAUNCHES["stem_fuse_pool"] += 1
+    return out_f, out_d
+
+
+def se_gate_from_sums(sums, hw: int, w1, b1, w2, b2):
+    """sigmoid(relu(mean @ w1 + b1) @ w2 + b2) — the SE MLP on (B, C)."""
+    return se_scale(sums / float(hw), w1, b1, w2, b2)
+
+
+def stem_se_fusion_pool(rgb, depth, wr1, br1, wr2, br2, wd1, bd1, wd2, bd2,
+                        use_kernels: bool = True):
+    """The whole stem cell (JAX signature): SE-recalibrated add + both
+    max-pools. ``use_kernels=False`` runs the plain versions wherever the
+    tensors lie."""
+    b, h, w, _ = rgb.shape
+    sums = channel_sums if use_kernels else channel_sums_plain
+    pool = stem_fuse_pool if use_kernels else stem_fuse_pool_plain
+    sums_r, sums_d = sums(rgb, depth)
+    s_r = se_gate_from_sums(sums_r, h * w, wr1, br1, wr2, br2)
+    s_d = se_gate_from_sums(sums_d, h * w, wd1, bd1, wd2, bd2)
+    return pool(rgb, depth, s_r.contiguous(), s_d.contiguous())

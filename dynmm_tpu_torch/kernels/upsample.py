@@ -1,0 +1,48 @@
+"""Learned ×2 upsample kernel (``csrc/upsample.cu``).
+
+Port of ``dynmm_tpu/kernels/upsample.py::fused_learned_upsample``: nearest
+×2 then a zero-padded depthwise 3×3 conv plus bias ('learned-3x3-zeropad'),
+computed as four 2×2 polyphase stencils over the source so the 4× nearest
+intermediate is never written. Covers all five upsample sites of the main
+path, the 40-channel logits maps included.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from dynmm_tpu_torch.kernels import _build
+
+
+def learned_upsample_plain(x: torch.Tensor, kernel: torch.Tensor,
+                           bias: torch.Tensor) -> torch.Tensor:
+    """Nearest ×2 then depthwise 3×3 with padding 1. x (N, H, W, C),
+    kernel (3, 3, C), bias (C,)."""
+    c = x.shape[-1]
+    up = x.permute(0, 3, 1, 2).repeat_interleave(2, dim=2)
+    up = up.repeat_interleave(2, dim=3)
+    w = kernel.permute(2, 0, 1).unsqueeze(1)  # (C, 1, 3, 3)
+    return F.conv2d(up, w, bias, padding=1, groups=c).permute(0, 2, 3, 1)
+
+
+def learned_upsample(x: torch.Tensor, kernel: torch.Tensor,
+                     bias: torch.Tensor) -> torch.Tensor:
+    """x (H, W, C) or (N, H, W, C); kernel (3, 3, C); bias (C,) →
+    (..., 2H, 2W, C)."""
+    squeeze = x.dim() == 3
+    xb = x[None] if squeeze else x
+    if not _build.on_card(xb, kernel, bias):
+        out = learned_upsample_plain(xb, kernel, bias)
+        return out[0] if squeeze else out
+    n, h, w, c = xb.shape
+    _build.require(xb, "x")
+    _build.require(kernel, "kernel", (3, 3, c))
+    _build.require(bias, "bias", (c,))
+    out = torch.empty((n, 2 * h, 2 * w, c), device=xb.device, dtype=xb.dtype)
+    fn = _build.function("upsample", "dynmm_learned_upsample", 4, 4)
+    _build.check(fn(_build.ptr(xb), _build.ptr(kernel), _build.ptr(bias),
+                    _build.ptr(out), n, h, w, c, _build.stream()),
+                 "learned_upsample")
+    _build.LAUNCHES["learned_upsample"] += 1
+    return out[0] if squeeze else out

@@ -1,0 +1,142 @@
+"""The port's CUDA sources, run on the CPU, against their plain versions.
+
+``dynmm_tpu_torch.kernels.emulate`` compiles each ``csrc/*.cu`` with the
+host's C++ compiler against a small CUDA emulation, so the kernels'
+indexing, tiling, masks and arithmetic are exercised here, where there is
+no card and no ``nvcc``. Shapes are chosen to reach every code path: each
+NBt1D tile width (16, 20, 8 and a ragged edge), partial channel chunks,
+blocks with more threads than channels, odd pooled sizes and C = 40
+upsamples. The whole small model is served through the emulated kernels
+with the launch counts of its forward. On the card, ``chip_smoke.py`` holds
+the same sources, built by ``nvcc``, against the same plain versions.
+"""
+
+import shutil
+
+import pytest
+import torch
+
+from dynmm_tpu_torch.kernels import LAUNCHES, emulate, reset_launches
+from dynmm_tpu_torch.kernels import nbt1d, se, stem_fuse, upsample
+from dynmm_tpu_torch.models.esanet import ESANetConfig
+from dynmm_tpu_torch.models.skip_gate import SkipGateESANet
+from dynmm_tpu_torch.serve import init_weights, serve
+
+
+@pytest.fixture(scope="module")
+def libs(tmp_path_factory):
+    if shutil.which("g++") is None:
+        pytest.skip("no host C++ compiler to emulate the CUDA sources with")
+    return emulate.build(tmp_path_factory.mktemp("emulated_kernels"))
+
+
+def _gen(seed):
+    return torch.Generator().manual_seed(seed)
+
+
+def _randn(g, *shape, scale=1.0):
+    return torch.randn(shape, generator=g) * scale
+
+
+def _both(libs, fn, *args, **kwargs):
+    """(emulated kernel, plain version) on the same CPU tensors."""
+    reset_launches()
+    with emulate.emulated(libs):
+        out = fn(*args, **kwargs)
+    assert sum(LAUNCHES.values()) >= 1
+    return out, fn(*args, **kwargs)
+
+
+def _close(out, ref):
+    for o, r in zip(*((out, ref) if isinstance(out, tuple) else ((out,), (ref,)))):
+        assert o.shape == r.shape
+        torch.testing.assert_close(o, r, rtol=1e-5,
+                                   atol=1e-5 * float(r.abs().max()))
+
+
+@pytest.mark.parametrize("n,h,w,c", [
+    (2, 5, 16, 32),   # tile width 16
+    (1, 2, 40, 64),   # tile width 20, two full chunks of input channels
+    (2, 3, 8, 40),    # tile width 8; 64 threads for 40 channels
+    (2, 5, 12, 32),   # ragged edge masked
+    (1, 4, 3, 33),    # narrower than a tile, odd channel count
+])
+@pytest.mark.parametrize("with_identity", [False, True])
+def test_nbt1d_pair(libs, n, h, w, c, with_identity):
+    g = _gen(h * w + c)
+    x = _randn(g, n, h, w, c)
+    p = [_randn(g, 3, c, c, scale=0.2), _randn(g, c), _randn(g, 3, c, c, scale=0.2),
+         _randn(g, c), torch.rand(c, generator=g) + 0.5, _randn(g, c)]
+    idn = _randn(g, n, h, w, c) if with_identity else None
+    _close(*_both(libs, nbt1d.nbt1d_pair, x, *p, identity=idn))
+    assert dict(LAUNCHES) == {"nbt1d_pair": 1}  # the plain call counts none
+
+
+@pytest.mark.parametrize("b,h,w,c", [(2, 5, 7, 12), (2, 3, 4, 40),
+                                     (1, 6, 6, 300)])
+def test_channel_sums(libs, b, h, w, c):
+    g = _gen(c)
+    _close(*_both(libs, se.channel_sums, _randn(g, b, h, w, c),
+                  _randn(g, b, h, w, c)))
+
+
+@pytest.mark.parametrize("b,h,w,c,cr", [(2, 5, 6, 32, 2), (3, 4, 4, 64, 4)])
+def test_se_fuse_mixed_and_fused_se(libs, b, h, w, c, cr):
+    g = _gen(c)
+    ws = [_randn(g, c, cr, scale=0.3), _randn(g, cr), _randn(g, cr, c, scale=0.3),
+          _randn(g, c)]
+    wd = [_randn(g, c, cr, scale=0.3), _randn(g, cr), _randn(g, cr, c, scale=0.3),
+          _randn(g, c)]
+    rgb, depth = _randn(g, b, h, w, c), _randn(g, b, h, w, c)
+    w_rgb = torch.rand(b, generator=g)
+    _close(*_both(libs, se.se_fuse_mixed, rgb, depth, w_rgb, *ws, *wd))
+    _close(*_both(libs, se.fused_se, _randn(g, b, h * w, c), *ws))
+    _close(*_both(libs, se.fused_se, _randn(g, h * w, c), *ws))
+
+
+@pytest.mark.parametrize("b,h,w,c", [(2, 9, 10, 8), (1, 8, 12, 4)])
+@pytest.mark.parametrize("negative", [False, True])
+def test_stem_fuse_pool(libs, b, h, w, c, negative):
+    g = _gen(h * w)
+    rgb, depth = _randn(g, b, h, w, c), _randn(g, b, h, w, c)
+    if negative:  # padding must never win the max
+        rgb, depth = -rgb.abs() - 1, -depth.abs() - 1
+    _close(*_both(libs, stem_fuse.stem_fuse_pool, rgb, depth,
+                  torch.rand(b, c, generator=g), torch.rand(b, c, generator=g)))
+
+
+@pytest.mark.parametrize("shape", [(2, 3, 5, 6), (1, 4, 4, 40), (5, 3, 8)])
+def test_learned_upsample(libs, shape):
+    g = _gen(sum(shape))
+    c = shape[-1]
+    _close(*_both(libs, upsample.learned_upsample, _randn(g, *shape),
+                  _randn(g, 3, 3, c), _randn(g, c)))
+
+
+def test_small_model_serves_through_emulated_kernels(libs):
+    """Every kernel site of the forward, with the launch counts of the
+    small config: resnet18 has 5 stride-1 NBt1D blocks per encoder, the
+    decoder 3, so 26 pairs."""
+    cfg = ESANetConfig(height=64, width=64, num_classes=5,
+                       encoder_rgb="resnet18", encoder_depth="resnet18",
+                       channels_decoder=(32, 32, 32), nr_decoder_blocks=(1, 1, 1))
+    model = SkipGateESANet(cfg)
+    init_weights(model, _gen(0))
+    model = model.to(memory_format=torch.channels_last).eval()
+    g = _gen(1)
+    rgb, depth = _randn(g, 1, 64, 64, 3), _randn(g, 1, 64, 64, 1)
+    reset_launches()
+    with emulate.emulated(libs):
+        class_map, weight = serve(model, rgb, depth)
+    assert dict(LAUNCHES) == {"nbt1d_pair": 26, "channel_sums": 5,
+                              "stem_fuse_pool": 1, "se_fuse_mixed": 4,
+                              "learned_upsample": 5}
+    with torch.inference_mode():
+        with emulate.emulated(libs):
+            logits = model(rgb, depth, hard=True)
+        ref, ref_w = model(rgb, depth, hard=True, return_weight=True,
+                           use_kernels=False)
+    torch.testing.assert_close(weight, ref_w, rtol=0, atol=0)
+    torch.testing.assert_close(logits, ref, rtol=1e-5,
+                               atol=1e-5 * float(ref.abs().max()))
+    assert (class_map == ref.argmax(-1)).float().mean() >= 0.999
