@@ -8,19 +8,30 @@ Run from the root of a checkout on a machine with one NVIDIA GPU:
 1. Device and build: prints the card's name and power limit, builds every
    CUDA source of the port with ``nvcc`` (sm_90a) and prints the seconds.
 2. Kernels: calls each kernel's wrapper at the shapes the flagship's forward
-   gives it at B=8, 480×640, and holds the result against its plain PyTorch
-   version on the same seeded inputs: max abs error and max abs error over
-   max |plain| (≤ 1e-4 in fp32: the summation orders differ). Times the
-   kernel, the plain version and, where one PyTorch call computes the same
-   function, that call, with CUDA events after warm-up.
-3. Serve: builds the 480×640 flagship with seeded random weights, serves 3
-   batches of 8 and 3 of 1 through ``dynmm_tpu_torch.serve.serve`` with
-   every launch count at 0 before, checks the counts of each forward, then
-   runs the same requests with ``use_kernels=False`` (plain versions, same
-   weights): identical gate choices, logits within 1e-3 relative, class
-   maps identical on ≥ 99.9 % of pixels.
-4. Prints the kernels' JSON line, the card line, and last
-   ``{"ok": true, "device": {...}}``.
+   gives it at B=8, 480×640 (the one-launch NBt1D block at B=1 too), and
+   holds the result against its plain PyTorch version on the same seeded
+   inputs: max abs error and max abs error over max |plain| (≤ 1e-4 in
+   fp32: the summation orders differ). Times the kernel, the plain version
+   and, where one PyTorch call computes the same function, that call, with
+   CUDA events after warm-up; the one-launch block also beside two
+   ``nbt1d_pair`` launches on the same inputs.
+3. Serve, dense: builds the 480×640 flagship with seeded random weights,
+   serves 3 batches of 8 and 3 of 1 through ``dynmm_tpu_torch.serve.serve``
+   (``mode="dense"``) with every launch count at 0 before, checks the
+   counts of each forward, then runs the same requests with
+   ``use_kernels=False`` (plain versions, same weights): identical gate
+   choices, logits within 1e-3 relative, class maps identical on ≥ 99.9 %
+   of pixels.
+4. Serve, routed: the same model with a gate override that hands out fixed
+   per-sample paths serves B=8 through ``batchmax`` and ``compact`` (the
+   default ladder, ``capacity_schedule``'s per-stage ladders, a strict
+   schedule that covers the batch), B=1 through ``switch`` for every path
+   and with the live gate, and B=8 at ``low_res``. Counts at 0 before; each
+   forward's launches must equal the counts its paths give (a skipped depth
+   stage launches nothing), and each request must agree with the dense
+   forward on the same paths as in phase 3.
+5. Prints the kernels' JSON line (launches summed over phases 3 and 4), the
+   card line, and last ``{"ok": true, "device": {...}}``.
 
 TF32 is switched off for cuDNN convolutions and matmuls here, so the kernels
 and their plain versions compare in fp32. Any failure exits non-zero before
@@ -45,31 +56,22 @@ HEIGHT, WIDTH, CLASSES = 480, 640, 40
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_FLOPS = 67e12
 KERNEL_TOL = 1e-4
-# launches of one dense hard-gate forward of the flagship
-EXPECTED = {"nbt1d_pair": 70, "channel_sums": 5, "stem_fuse_pool": 1,
-            "se_fuse_mixed": 4, "learned_upsample": 5}
+# launches of one dense hard-gate forward of the flagship: its 6 stride-1
+# NBt1D blocks at C = 64 take one launch each, its 29 wider ones two
+EXPECTED = {"nbt1d_fused": 6, "nbt1d_pair": 58, "channel_sums": 5,
+            "stem_fuse_pool": 1, "se_fuse_mixed": 4, "learned_upsample": 5}
+# the flagship's stride-1 NBt1D blocks by channel count: in each encoder
+# stage (stage i at 64·2^(i-1) channels) and in the decoder
+ENCODER_BLOCKS = ((64, 3), (128, 3), (256, 5), (512, 2))
+DECODER_BLOCKS = ((512, 3), (256, 3), (128, 3))
 SOURCES = {
+    "nbt1d_fused": ("nbt1d_block.cu", "dynmm_tpu/kernels/nbt1d.py:154"),
     "nbt1d_pair": ("nbt1d.cu", "dynmm_tpu/kernels/nbt1d.py:246"),
     "channel_sums": ("se.cu", "dynmm_tpu/kernels/stem_fuse.py:85"),
     "stem_fuse_pool": ("stem_fuse.cu", "dynmm_tpu/kernels/stem_fuse.py:198"),
     "learned_upsample": ("upsample.cu", "dynmm_tpu/kernels/upsample.py:130"),
     "se_fuse_mixed": ("se.cu", "dynmm_tpu/kernels/se.py:66"),
 }
-
-
-def time_ms(fn, warmup: int = 2, iters: int = 10) -> float:
-    """Mean device time of ``fn`` over ``iters`` back-to-back calls."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / iters
 
 
 def bound(n_bytes: float, n_flops: float) -> tuple[float, str]:
@@ -104,28 +106,50 @@ def upsample_library_weight(taps: torch.Tensor) -> torch.Tensor:
 
 def kernel_cases(inp: Inputs):
     """(kernel name, shape label, calls per B=8 forward, kernel fn, plain fn,
-    library fn or None, bytes, flops) for every shape of the main path."""
+    library fn or None, bytes, flops, comparison fn or None) for every shape
+    of the main path."""
     from dynmm_tpu_torch.kernels import nbt1d, se, stem_fuse, upsample
 
     b = BATCH
     cases = []
-    # K1: 13 stride-1 blocks per encoder, 9 in the decoder; two pairs each
-    for c, h, w, blocks in ((64, 120, 160, 6), (128, 60, 80, 9),
-                            (256, 30, 40, 13), (512, 15, 20, 7)):
-        x, idn = inp.randn(b, h, w, c), inp.randn(b, h, w, c)
+    # K1: 13 stride-1 blocks per encoder, 9 in the decoder: one launch each
+    # up to NBT1D_FUSED_MAX_C channels, two pairs each above
+    per_level = {c: 2 * n for c, n in ENCODER_BLOCKS}
+    for c, n in DECODER_BLOCKS:
+        per_level[c] += n
+    for c, h, w in ((64, 120, 160), (128, 60, 80), (256, 30, 40),
+                    (512, 15, 20)):
+        blocks = per_level[c]
         std = math.sqrt(2.0 / (3 * c))
-        wr, wc = inp.randn(3, c, c, scale=std), inp.randn(3, c, c, scale=std)
-        br, bc = inp.randn(c, scale=0.05), inp.randn(c, scale=0.05)
-        s, t = inp.rand(c, lo=0.5, hi=1.0), inp.randn(c, scale=0.1)
+        params = []
+        for _ in range(2):
+            params += [inp.randn(3, c, c, scale=std), inp.randn(c, scale=0.05),
+                       inp.randn(3, c, c, scale=std), inp.randn(c, scale=0.05),
+                       inp.rand(c, lo=0.5, hi=1.0), inp.randn(c, scale=0.1)]
+        fused = c <= nbt1d.NBT1D_FUSED_MAX_C
+        x, idn = inp.randn(b, h, w, c), inp.randn(b, h, w, c)
         vol = b * h * w * c * 4
         for form, extra in (("pair1", {}), ("pair2", {"identity": idn})):
-            args = (x, wr, br, wc, bc, s, t)
+            args = (x, *params[:6])
             n_bytes = vol * (3 if extra else 2) + 2 * 3 * c * c * 4 + 4 * c * 4
             cases.append((
-                "nbt1d_pair", f"{form} {b}x{h}x{w}x{c}", blocks,
+                "nbt1d_pair", f"{form} {b}x{h}x{w}x{c}", 0 if fused else blocks,
                 lambda a=args, e=extra: nbt1d.nbt1d_pair(*a, **e),
                 lambda a=args, e=extra: nbt1d.nbt1d_pair_plain(*a, **e),
-                None, n_bytes, 12.0 * c * c * b * h * w))
+                None, n_bytes, 12.0 * c * c * b * h * w, None))
+        if not fused:
+            continue
+        for bb in (b, 1):
+            xb = x[:bb].contiguous()
+            args = (xb, *params)
+            cases.append((
+                "nbt1d_fused", f"{bb}x{h}x{w}x{c}", blocks if bb == b else 0,
+                lambda a=args: nbt1d.nbt1d_fused(*a),
+                lambda a=args: nbt1d.nbt1d_fused_plain(*a),
+                None, 2 * bb * h * w * c * 4 + 4 * 3 * c * c * 4 + 8 * c * 4,
+                24.0 * c * c * bb * h * w,
+                lambda a=args: nbt1d.nbt1d_pair(
+                    nbt1d.nbt1d_pair(*a[:7]), *a[7:], identity=a[0])))
     # channel sums: the stem cell and the four fusion cells
     for c, h, w in ((64, 240, 320), (64, 120, 160), (128, 60, 80),
                     (256, 30, 40), (512, 15, 20)):
@@ -134,7 +158,7 @@ def kernel_cases(inp: Inputs):
         cases.append(("channel_sums", f"{b}x{h}x{w}x{c}", 1,
                       lambda r=r, d=d: se.channel_sums(r, d),
                       lambda r=r, d=d: se.channel_sums_plain(r, d),
-                      None, 2 * n * 4 + 2 * b * c * 4, 2.0 * n))
+                      None, 2 * n * 4 + 2 * b * c * 4, 2.0 * n, None))
     # K2: stem scale-add + dual max-pool
     c, h, w = 64, 240, 320
     r, d = inp.randn(b, h, w, c), inp.randn(b, h, w, c)
@@ -144,7 +168,7 @@ def kernel_cases(inp: Inputs):
     cases.append(("stem_fuse_pool", f"{b}x{h}x{w}x{c}", 1,
                   lambda a=args: stem_fuse.stem_fuse_pool(*a),
                   lambda a=args: stem_fuse.stem_fuse_pool_plain(*a),
-                  None, (2 * n + 2 * n // 4) * 4, 3.0 * n + 18.0 * n / 4))
+                  None, (2 * n + 2 * n // 4) * 4, 3.0 * n + 18.0 * n / 4, None))
     # K3: three decoder-module upsamples and the two logits upsamples
     for c, h, w in ((512, 15, 20), (256, 30, 40), (128, 60, 80),
                     (40, 120, 160), (40, 240, 320)):
@@ -159,7 +183,7 @@ def kernel_cases(inp: Inputs):
             lambda x=x, wt=wt, bb=bias, c=c: torch.nn.functional.conv_transpose2d(
                 x.permute(0, 3, 1, 2), wt, bb, stride=2, padding=1,
                 groups=c).permute(0, 2, 3, 1),
-            (n + 4 * n) * 4 + 10 * c * 4, 8.0 * 4 * n))
+            (n + 4 * n) * 4 + 10 * c * 4, 8.0 * 4 * n, None))
     # K4: the four gate-mixed SE fusion cells (channel sums + mix)
     for c, h, w in ((64, 120, 160), (128, 60, 80), (256, 30, 40),
                     (512, 15, 20)):
@@ -177,14 +201,17 @@ def kernel_cases(inp: Inputs):
             "se_fuse_mixed", f"{b}x{h}x{w}x{c}", 1,
             lambda r=r, d=d, wr=w_rgb, ws=wts: se.se_fuse_mixed(r, d, wr, *ws),
             lambda r=r, d=d, wr=w_rgb, ws=wts: se.se_fuse_mixed_plain(r, d, wr, *ws),
-            None, 3 * n * 4, 5.0 * n))
+            None, 3 * n * 4, 5.0 * n, None))
     return cases
 
 
 def check_kernels(report: dict) -> list[dict]:
+    from dynmm_tpu_torch.utils.device import time_ms
+
     per_kernel: dict[str, dict] = {}
     inp = Inputs(seed=0)
-    for name, label, calls, kern, plain, lib, n_bytes, n_flops in kernel_cases(inp):
+    for (name, label, calls, kern, plain, lib, n_bytes, n_flops,
+         alt) in kernel_cases(inp):
         with torch.inference_mode():
             out_k, out_p = kern(), plain()
             torch.cuda.synchronize()
@@ -206,16 +233,21 @@ def check_kernels(report: dict) -> list[dict]:
                                        f"({lib_err:.3g})")
                 lib_ms = time_ms(lib)
             ms, plain_ms = time_ms(kern), time_ms(plain)
+            alt_ms = None if alt is None else time_ms(alt)
         b_ms, b_by = bound(n_bytes, n_flops)
         row = {"kernel": name, "shape": label, "calls_per_forward": calls,
                "max_abs_err": err, "max_rel_err": rel, "ms": ms,
                "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": b_ms,
                "bound_by": b_by}
+        if alt is not None:
+            row["two_pair_ms"] = alt_ms
         report["kernel_cases"].append(row)
         print(f"  {name:16s} {label:22s} x{calls:<2d} err {err:.3g} "
               f"(rel {rel:.3g})  kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  "
               f"library {'-' if lib_ms is None else f'{lib_ms:.4f} ms'}  "
-              f"bound {b_ms:.4f} ms ({b_by})", flush=True)
+              f"bound {b_ms:.4f} ms ({b_by})"
+              + ("" if alt is None else f"  two nbt1d_pair {alt_ms:.4f} ms"),
+              flush=True)
         agg = per_kernel.setdefault(name, {
             "name": name, "route": "cuda",
             "source": f"dynmm_tpu_torch/kernels/csrc/{SOURCES[name][0]}",
@@ -232,7 +264,7 @@ def check_kernels(report: dict) -> list[dict]:
     return list(per_kernel.values())
 
 
-def check_serve(report: dict) -> dict:
+def check_serve(report: dict):
     from dynmm_tpu_torch.kernels import LAUNCHES, reset_launches
     from dynmm_tpu_torch.nn.layers import first_argmax
     from dynmm_tpu_torch.serve import build_flagship, serve
@@ -248,9 +280,12 @@ def check_serve(report: dict) -> dict:
                 for b in (BATCH,) * 3 + (1,) * 3]
     # warm-up of both paths (cuDNN picks its algorithms), not counted
     for i, use_kernels in ((0, True), (3, True), (0, False), (3, False)):
-        serve(model, *requests[i], use_kernels=use_kernels)
+        serve(model, *requests[i], mode="dense", use_kernels=use_kernels)
     torch.cuda.synchronize()
 
+    if path_launches([True] * 4, low_res=False) != EXPECTED:
+        raise RuntimeError("EXPECTED disagrees with the block tables and "
+                           "NBT1D_FUSED_MAX_C")
     # the main path's run: counts at 0 just before, read just after
     reset_launches()
     served = []
@@ -258,7 +293,7 @@ def check_serve(report: dict) -> dict:
         before = dict(LAUNCHES)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        class_map, weight = serve(model, rgb, depth)
+        class_map, weight = serve(model, rgb, depth, mode="dense")
         torch.cuda.synchronize()
         ms = (time.perf_counter() - t0) * 1e3
         delta = {k: LAUNCHES[k] - before.get(k, 0) for k in LAUNCHES}
@@ -281,7 +316,7 @@ def check_serve(report: dict) -> dict:
                                        return_weight=True, use_kernels=False)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            serve(model, rgb, depth, use_kernels=False)
+            serve(model, rgb, depth, mode="dense", use_kernels=False)
             torch.cuda.synchronize()
             plain_ms = (time.perf_counter() - t0) * 1e3
         b = rgb.shape[0]
@@ -304,6 +339,180 @@ def check_serve(report: dict) -> dict:
               flush=True)
         if not same_gate or rel > 1e-3 or agree < 0.999:
             raise RuntimeError("kernel path disagrees with the plain path")
+    return model, launches
+
+
+class PathGate:
+    """Gate override of one model (the JAX tests' ``FixedGateNet``): hands
+    out the fixed per-sample ``paths`` as one-hot weights, or runs the live
+    gate while ``paths`` is None."""
+
+    def __init__(self, model):
+        self.live = model.gate_weights
+        self.paths = None
+        model.gate_weights = self
+
+    def __call__(self, rgb, depth, temp=1.0, hard=False, baseline=False):
+        if self.paths is None:
+            return self.live(rgb, depth, temp=temp, hard=hard,
+                             baseline=baseline)
+        idx = torch.tensor(self.paths[:rgb.shape[0]], device=rgb.device)
+        return torch.nn.functional.one_hot(idx, 5).to(rgb.dtype)
+
+
+def path_launches(ran: list[bool], low_res: bool) -> dict:
+    """Launches of one flagship forward whose depth stages 1-4 ran as
+    ``ran`` says. Always: the rgb encoder's and the decoder's stride-1
+    blocks (one ``nbt1d_fused`` each up to ``NBT1D_FUSED_MAX_C`` channels,
+    two ``nbt1d_pair`` above), the stem cell (``stem_fuse_pool`` and its
+    ``channel_sums``), 5 upsamples (3 at ``low_res``). A depth stage that
+    ran adds its blocks and one fusion cell with its channel sums."""
+    from dynmm_tpu_torch.kernels.nbt1d import NBT1D_FUSED_MAX_C
+
+    counts = {"nbt1d_fused": 0, "nbt1d_pair": 0, "channel_sums": 1,
+              "stem_fuse_pool": 1, "se_fuse_mixed": 0,
+              "learned_upsample": 3 if low_res else 5}
+
+    def blocks(c, n):
+        if c <= NBT1D_FUSED_MAX_C:
+            counts["nbt1d_fused"] += n
+        else:
+            counts["nbt1d_pair"] += 2 * n
+
+    for (c, n), r in zip(ENCODER_BLOCKS, ran):
+        blocks(c, n * (1 + int(r)))
+        counts["se_fuse_mixed"] += int(r)
+        counts["channel_sums"] += int(r)
+    for c, n in DECODER_BLOCKS:
+        blocks(c, n)
+    return {k: v for k, v in counts.items() if v}
+
+
+def stages_run(mode: str, paths: list[int], kw: dict) -> list[bool]:
+    """Which depth stages a routed forward runs: stages 1..K (K the largest
+    path, or ``force_path``) for batchmax and switch; for compact, the
+    stages whose ladder rung for the n_i participants is above 0."""
+    if mode != "compact":
+        k = kw.get("force_path", max(paths))
+        return [k >= i for i in range(1, 5)]
+    from dynmm_tpu_torch.models.skip_gate import _stage_ladders
+
+    ladders = _stage_ladders(kw.get("caps"), len(paths),
+                             kw.get("strict_caps", False))
+    ran = []
+    for i, ladder in enumerate(ladders, start=1):
+        n = sum(p >= i for p in paths)
+        ran.append(next((c for c in ladder if n <= c), ladder[-1]) > 0)
+    return ran
+
+
+def check_routed(model, report: dict) -> dict:
+    from dynmm_tpu_torch.kernels import LAUNCHES, reset_launches
+    from dynmm_tpu_torch.nn.layers import first_argmax
+    from dynmm_tpu_torch.serve import capacity_schedule, serve
+
+    gate = PathGate(model)
+    inp = Inputs(seed=2)
+    big = (inp.randn(BATCH, HEIGHT, WIDTH, 3), inp.randn(BATCH, HEIGHT, WIDTH, 1))
+    one = (big[0][:1].contiguous(), big[1][:1].contiguous())
+    mixed = [0, 4, 2, 1, 3, 0, 1, 2]
+    gate.paths = mixed
+    per_stage = capacity_schedule(model, [big], BATCH)
+    strict = capacity_schedule(model, [big], BATCH, capacity_factor=1.25)
+    print(f"  capacity_schedule over paths {mixed}: per-stage {per_stage}, "
+          f"strict x1.25 {strict}", flush=True)
+    # (label, mode, paths (None: the live gate), images, serve kwargs)
+    requests = [
+        ("batchmax", "batchmax", mixed, big, {}),
+        ("batchmax K=2", "batchmax", [2, 0, 1, 2, 0, 0, 1, 2], big, {}),
+        ("compact", "compact", mixed, big, {}),
+        ("compact per-stage", "compact", mixed, big, {"caps": per_stage}),
+        ("compact strict", "compact", mixed, big,
+         {"caps": strict, "strict_caps": True}),
+        ("compact cheap", "compact", [0, 1, 0, 1, 0, 0, 1, 0], big, {}),
+        *((f"switch k={k}", "switch", [k], one, {"force_path": k})
+          for k in range(5)),
+        ("switch live gate", "switch", None, one, {}),
+        ("compact low_res", "compact", mixed, big, {"low_res": True}),
+    ]
+
+    def run(req, mode=None, use_kernels=True):
+        label, m, paths, images, kw = req
+        gate.paths = paths
+        if mode == "dense":
+            kw = {"low_res": kw.get("low_res", False)}
+        return serve(model, *images, mode=mode or m, use_kernels=use_kernels,
+                     **kw)
+
+    # warm-up (cuDNN picks algorithms per batch size and capacity), not counted
+    for req in requests:
+        run(req)
+        run(req, "dense")
+    torch.cuda.synchronize()
+
+    # the routed path's run: counts at 0 just before, read just after
+    reset_launches()
+    served = []
+    for req in requests:
+        label, mode, paths, images, kw = req
+        before = dict(LAUNCHES)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        class_map, weight = run(req)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        delta = {k: LAUNCHES[k] - before.get(k, 0) for k in LAUNCHES}
+        delta = {k: v for k, v in delta.items() if v}
+        chosen = weight.argmax(1).tolist()
+        ran = stages_run(mode, chosen if paths is None else paths, kw)
+        expected = path_launches(ran, kw.get("low_res", False))
+        if delta != expected:
+            raise RuntimeError(f"{label}: launches {delta} != {expected} "
+                               f"(depth stages run {ran})")
+        served.append((class_map, weight, ms, ran))
+    launches = dict(LAUNCHES)
+
+    # each request against the dense forward on the same paths
+    methods = {"batchmax": "forward_switch_batched",
+               "compact": "forward_routed_compact", "switch": "forward_switch"}
+    for req, (class_map, weight, ms, ran) in zip(requests, served):
+        label, mode, paths, (rgb, depth), kw = req
+        low_res = kw.get("low_res", False)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        dense_map, dense_w = run(req, "dense")
+        torch.cuda.synchronize()
+        dense_ms = (time.perf_counter() - t0) * 1e3
+        with torch.inference_mode():
+            logits = getattr(model, methods[mode])(
+                rgb, depth, **kw)
+            logits_d = model(rgb, depth, hard=True, low_res=low_res)
+        rel = ((logits - logits_d).abs().max() / logits_d.abs().max()).item()
+        agree = (class_map == dense_map).float().mean().item()
+        agree_logits = (first_argmax(logits_d) == first_argmax(logits)
+                        ).float().mean().item()
+        same_gate = bool(torch.equal(weight, dense_w))
+        finite = bool(torch.isfinite(logits).all())
+        b = rgb.shape[0]
+        shape_ok = (class_map.shape == (b, HEIGHT, WIDTH) and logits.shape
+                    == (b, HEIGHT // (4 if low_res else 1),
+                        WIDTH // (4 if low_res else 1), CLASSES))
+        row = {"request": label, "mode": mode, "batch": b,
+               "paths": weight.argmax(1).tolist(), "depth_stages_run": ran,
+               "serve_kwargs": dict(kw), "ms": ms,
+               "dense_ms": dense_ms, "logits_rel_err": rel,
+               "class_map_agreement": agree, "same_gate": same_gate,
+               "launches": path_launches(ran, low_res)}
+        report["routed"].append(row)
+        print(f"  {label:18s} B={b} paths {row['paths']} stages run "
+              f"{[int(r) for r in ran]}: {ms:.2f} ms vs dense {dense_ms:.2f} "
+              f"ms; logits rel err {rel:.3g}, class maps agree on "
+              f"{agree * 100:.4f} %, gate choices identical: {same_gate}",
+              flush=True)
+        if (not same_gate or not finite or not shape_ok or rel > 1e-3
+                or agree < 0.999 or agree_logits < 0.999):
+            raise RuntimeError(f"{label}: routed serving disagrees with the "
+                               "dense forward")
     return launches
 
 
@@ -327,7 +536,7 @@ def main() -> int:
     print("TF32 off for cuDNN convolutions and matmuls: kernels and plain "
           "versions compare in fp32", flush=True)
     report = {"card": card, "torch": torch.__version__, "kernel_cases": [],
-              "serve": []}
+              "serve": [], "routed": []}
 
     print("[1] build", flush=True)
     report["build_s"] = build_all(verbose=True)
@@ -337,10 +546,13 @@ def main() -> int:
           flush=True)
     kernels = check_kernels(report)
 
-    print(f"[3] serve the {HEIGHT}x{WIDTH} flagship", flush=True)
-    launches = check_serve(report)
+    print(f"[3] serve the {HEIGHT}x{WIDTH} flagship, dense", flush=True)
+    model, launches = check_serve(report)
+    print(f"[4] serve the {HEIGHT}x{WIDTH} flagship through the routed "
+          "strategies", flush=True)
+    routed = check_routed(model, report)
     for k in kernels:
-        k["launches"] = launches[k["name"]]
+        k["launches"] = launches.get(k["name"], 0) + routed.get(k["name"], 0)
         if k["launches"] == 0:
             raise RuntimeError(f"{k['name']} never launched on the main path")
     report["kernels"] = kernels

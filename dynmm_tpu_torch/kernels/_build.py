@@ -32,7 +32,7 @@ from pathlib import Path
 import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("se", "stem_fuse", "upsample", "nbt1d")
+SOURCES = ("se", "stem_fuse", "upsample", "nbt1d", "nbt1d_block")
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "dynmm_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")

@@ -49,7 +49,7 @@ inline void __syncthreads() { emu_bar->arrive_and_wait(); }
 inline std::vector<char> emu_smem;
 typedef void* cudaStream_t;
 typedef int cudaError_t;
-enum { cudaSuccess = 0 };
+enum { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
 enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize };
 template <class F>
 inline cudaError_t cudaFuncSetAttribute(F, cudaFuncAttribute, int) { return 0; }

@@ -1,15 +1,18 @@
-"""NonBottleneck1D conv-pair kernel (``csrc/nbt1d.cu``).
+"""NonBottleneck1D block kernels (``csrc/nbt1d_block.cu``, ``csrc/nbt1d.cu``).
 
-Port of ``dynmm_tpu/kernels/nbt1d.py::fused_nbt1d_twopass``: a stride-1
-NonBottleneck1D block in eval is two conv pairs,
+A stride-1 NonBottleneck1D block in eval is two conv pairs,
 
     pair 1: h   = relu((1×3(relu(3×1(x) + b1)) + b2)·s1 + t1)
     pair 2: out = relu((1×3(relu(3×1(h) + b3)) + b4)·s2 + t2 + x)
 
-each one launch. Taps are packed (3, C_in, C_out) — ``w[d]`` is the tap at
-row (3×1) or column (1×3) offset d−1 — and BN is folded into the affine
-(s, t) with eps 1e-3 (``fold_bn``). Both conversions happen once, when the
-weights are loaded. Maps are NHWC fp32.
+``nbt1d_fused`` (port of ``dynmm_tpu/kernels/nbt1d.py::fused_nbt1d``) runs
+the whole block in one launch with h kept in shared memory;
+``nbt1d_pair`` (port of ``fused_nbt1d_twopass``'s ``_run_pair``) runs one
+pair per launch. ``nbt1d_block`` picks between them by channel count. Taps
+are packed (3, C_in, C_out) — ``w[d]`` is the tap at row (3×1) or column
+(1×3) offset d−1 — and BN is folded into the affine (s, t) with eps 1e-3
+(``fold_bn``). Both conversions happen once, when the weights are loaded.
+Maps are NHWC fp32.
 """
 
 from __future__ import annotations
@@ -18,6 +21,20 @@ import torch
 import torch.nn.functional as F
 
 from dynmm_tpu_torch.kernels import _build
+
+# Widest block ``nbt1d_block`` sends to the one-launch kernel. Shared memory
+# would let it go further: the kernel holds a ring of three h rows, a row
+# buffer and an x chunk, 3·C·HP + C·AP + 3·32·AP floats (HP = TW+2,
+# AP = TW+4, rounded up to 4), which is 28,160 bytes at C = 64 (TW = 16),
+# 107,520 at C = 256 (TW = 20) and 205,824 at C = 512, all under the 232,448
+# a Hopper block can opt into. Speed sets the limit instead. On an NVIDIA
+# H100 80GB HBM3 at 700 W (``chip_smoke.py``, ``bench_nbt1d.py``) one launch
+# took 1.30×, 1.52× and 1.47× the time of two ``nbt1d_pair`` launches at
+# C = 64, 128 and 256 (B=8): it computes the pair-1 halo rows and columns
+# twice, and at C ≥ 128 its grids are small (30 blocks at B=1, 30×40). So
+# only the C = 64 level (6 of the flagship's 35 stride-1 blocks, 600 blocks
+# a launch at B=1) takes one launch; the wider blocks take two.
+NBT1D_FUSED_MAX_C = 64
 
 
 def fold_bn(scale, bias, mean, var, eps: float = 1e-3):
@@ -64,11 +81,44 @@ def nbt1d_pair(x: torch.Tensor, wr: torch.Tensor, br: torch.Tensor,
     return out
 
 
+def nbt1d_fused_plain(x, w1, b1, w2, b2, s1, t1, w3, b3, w4, b4, s2, t2):
+    """The whole block in PyTorch convs (JAX ``reference_nbt1d``)."""
+    h = nbt1d_pair_plain(x, w1, b1, w2, b2, s1, t1)
+    return nbt1d_pair_plain(h, w3, b3, w4, b4, s2, t2, identity=x)
+
+
+def nbt1d_fused(x: torch.Tensor, w1, b1, w2, b2, s1, t1, w3, b3, w4, b4,
+                s2, t2, band_rows: int = 0) -> torch.Tensor:
+    """Whole stride-1 block on x (N, H, W, C) or (H, W, C) in one launch
+    (JAX ``fused_nbt1d`` signature). ``band_rows``: output rows per thread
+    block; 0 lets the kernel pick them from the grid size."""
+    params = (w1, b1, w2, b2, s1, t1, w3, b3, w4, b4, s2, t2)
+    if x.dim() == 3:
+        return nbt1d_fused(x[None], *params, band_rows=band_rows)[0]
+    if not _build.on_card(x, *params):
+        return nbt1d_fused_plain(x, *params)
+    n, h, w, c = x.shape
+    _build.require(x, "x")
+    for i, a in enumerate(params):
+        _build.require(a, f"block parameter {i}",
+                       (3, c, c) if i in (0, 2, 6, 8) else (c,))
+    out = torch.empty_like(x)
+    fn = _build.function("nbt1d_block", "dynmm_nbt1d_block", 14, 5)
+    _build.check(fn(_build.ptr(x), *map(_build.ptr, params), _build.ptr(out),
+                    n, h, w, c, band_rows, _build.stream()), "nbt1d_fused")
+    _build.LAUNCHES["nbt1d_fused"] += 1
+    return out
+
+
 def nbt1d_block(x, w1, b1, w2, b2, s1, t1, w3, b3, w4, b4, s2, t2,
                 use_kernels: bool = True):
-    """Stride-1 NonBottleneck1D block (JAX ``fused_nbt1d_twopass``
-    signature) as two pairs. ``use_kernels=False`` runs the plain versions
-    wherever the tensors lie."""
+    """Stride-1 NonBottleneck1D block on x (N, H, W, C): one
+    ``nbt1d_fused`` launch up to ``NBT1D_FUSED_MAX_C`` channels, two
+    ``nbt1d_pair`` launches above. ``use_kernels=False`` runs the plain
+    versions wherever the tensors lie."""
+    if x.shape[-1] <= NBT1D_FUSED_MAX_C:
+        block = nbt1d_fused if use_kernels else nbt1d_fused_plain
+        return block(x, w1, b1, w2, b2, s1, t1, w3, b3, w4, b4, s2, t2)
     pair = nbt1d_pair if use_kernels else nbt1d_pair_plain
     h = pair(x, w1, b1, w2, b2, s1, t1)
     return pair(h, w3, b3, w4, b4, s2, t2, identity=x)

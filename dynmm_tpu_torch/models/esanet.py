@@ -2,11 +2,10 @@
 ``dynmm_tpu/models/esanet.py``): config, decoder, encoders, fusion cells,
 skip projections and context module.
 
-Eval forward only in this slice: the decoder's ``side_output`` convs exist
-(their weights load) but run only in training, which is not ported yet, nor
-are the ``low_res`` serving path, the static ``ESANet`` and ``fuse`` (the
-unmixed fusion of the routed strategies). The port builds the flagship's
-family: SE-add fusion, additive skips and a PPM context module.
+Eval forward only: the decoder's ``side_output`` convs exist (their
+weights load) but run only in training, which is not ported yet, nor is the
+static ``ESANet``. ``low_res`` returns the H/4 logits. The port builds the
+flagship's family: SE-add fusion, additive skips and a PPM context module.
 """
 
 from __future__ import annotations
@@ -79,12 +78,17 @@ class Decoder(nn.Module):
         self.upsample1 = Upsample(upsampling_mode, num_classes)
         self.upsample2 = Upsample(upsampling_mode, num_classes)
 
-    def forward(self, enc_outs, use_kernels: bool = True):
+    def forward(self, enc_outs, use_kernels: bool = True,
+                low_res: bool = False):
+        """Logits at full resolution, or with ``low_res`` the H/4 logits
+        after ``conv_out`` (the two 40-channel upsamples skipped)."""
         out, skip_16, skip_8, skip_4 = enc_outs
         out = self.decoder_module_1(out, skip_16, use_kernels)
         out = self.decoder_module_2(out, skip_8, use_kernels)
         out = self.decoder_module_3(out, skip_4, use_kernels)
         out = self.conv_out(out)
+        if low_res:
+            return out
         out = self.upsample1(out, use_kernels=use_kernels)
         return self.upsample2(out, use_kernels=use_kernels)
 
@@ -132,11 +136,16 @@ class _DualEncoderParts(nn.Module):
         self.decoder = Decoder(cd[0], cd, cfg.nr_decoder_blocks,
                                cfg.num_classes, cfg.upsampling, cfg.activation)
 
+    def fuse(self, idx: int, rgb, depth, use_kernels: bool = True):
+        """Unmixed SE-add fusion ``se(rgb) + se(depth)`` of stage ``idx``."""
+        return getattr(self, f"se_layer{idx}")(rgb, depth, use_kernels)
+
     def skip(self, idx: int, fused):
         layer = getattr(self, f"skip_layer{idx}")
         return fused if layer is None else layer(fused)
 
-    def head(self, fused, skips, use_kernels: bool = True):
+    def head(self, fused, skips, use_kernels: bool = True,
+             low_res: bool = False):
         """Context module + decoder over the stage-4 fusion and skips 3..1."""
         return self.decoder([self.context_module(fused), skips[2], skips[1],
-                             skips[0]], use_kernels)
+                             skips[0]], use_kernels, low_res)

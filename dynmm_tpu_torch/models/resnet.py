@@ -3,8 +3,10 @@
 
 ``ResNet.stem`` is the raw 7×7/2 conv + BN + act (the caller max-pools);
 ``layer1..layer4`` run the four stages. Every stride-1 NonBottleneck1D block
-without a downsample runs as two ``nbt1d_pair`` kernel launches on packed
-weights; the stride-2 block0s stay plain torch convs. Modules take NCHW
+without a downsample runs on packed weights through ``nbt1d_block``: one
+``nbt1d_fused`` launch up to ``NBT1D_FUSED_MAX_C`` (64) channels, two
+``nbt1d_pair`` launches above; the stride-2 block0s stay plain torch convs.
+Modules take NCHW
 (channels_last) tensors.
 
 ``BasicBlock``, ``Bottleneck`` (resnet50) and the space-to-depth packed stem

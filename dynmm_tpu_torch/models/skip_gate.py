@@ -1,32 +1,130 @@
 """SkipGateESANet — fusion-level DynMM with a global 5-way gate (port of
-``dynmm_tpu/models/skip_gate.py``, dense eval forward).
+``dynmm_tpu/models/skip_gate.py``, eval).
 
 One gate, computed after the stem from both modality maps, weights 5 paths
 ("fuse depth for the first k stages", k ∈ {0..4}). The dense forward
 computes every branch and mixes with cumulative gate weights: block i's
 unfused rgb branch gets ``Σ_{j<i} w_j`` for i = 1..3, and block 4 takes
 ``1 − w_4`` (the reference's quirk, kept as it is). With the hard gate the
-one-hot weights make the mix exact, which is the served path.
+one-hot weights make the mix exact.
 
-Kernel sites on that path: the stem cell (``channel_sums`` +
-``stem_fuse_pool``), every stride-1 NonBottleneck1D block (two
-``nbt1d_pair``), the four gate-mixed SE fusion cells (``se_fuse_mixed``) and
-the five learned upsamples (``learned_upsample``). ``use_kernels=False``
-runs the plain PyTorch version of each instead, on the same weights.
+Execution strategies, all hard-gate eval and all equal to the dense forward
+(``forward_routed_compact`` in ``strict_caps`` mode only where no rung
+overflows):
 
-``forward_switch*``, ``forward_routed_compact``, training (the resource
-loss and its ``FLOP_TABLES``) and ``ini_stage`` exploration are not ported
-yet.
+* ``forward`` — dense: every depth stage on every sample.
+* ``forward_switch_batched`` — depth stages 1..max(k) over the batch.
+* ``forward_routed_compact`` — depth sorted into descending-path order,
+  stage i run on a prefix sized from a capacity ladder, its output
+  scattered back to caller order before the fusion.
+* ``forward_switch`` — batch 1: depth stages 1..k, unmixed fusion.
+
+The JAX package picks the executed branch inside the compiled graph with
+``lax.cond``/``lax.switch``. Eager PyTorch uses Python ``if``s on values
+read to the host once per request: one ``.tolist()``/``int()`` of the gate's
+choices right after the gate, which waits for the stems and the gate to
+finish on the card. A skipped depth stage launches nothing.
+
+Kernel sites: the stem cell (``channel_sums`` + ``stem_fuse_pool``), every
+stride-1 NonBottleneck1D block (one ``nbt1d_fused`` up to 64 channels, two
+``nbt1d_pair`` above), each fusion cell that runs (``se_fuse_mixed``, in
+the unmixed form with w = 0) and the learned upsamples
+(``learned_upsample``; three with ``low_res``). ``use_kernels=False`` runs
+the plain PyTorch version of each instead, on the same weights.
+
+Training (the resource loss) and ``ini_stage`` exploration are not ported
+yet; ``FLOP_TABLES`` and ``capacity_ladders`` are kept here as numpy.
 """
 
 from __future__ import annotations
 
+from typing import Optional
+
+import numpy as np
 import torch
 import torch.nn as nn
 
 from dynmm_tpu_torch.core.gates import diff_softmax
+from dynmm_tpu_torch.core.routing import permute_rows, scatter_rows
 from dynmm_tpu_torch.models.esanet import ESANetConfig, _DualEncoderParts
-from dynmm_tpu_torch.nn.layers import BatchNorm2d, nchw
+from dynmm_tpu_torch.nn.layers import BatchNorm2d, nchw, nhwc
+
+# Analytic per-path GFLOP tables (reference model_skip_mod_globalgate.py
+# :217-223). depth_enc: cost of the depth encoder under hard path k;
+# total: whole-network cost per hard path.
+FLOP_TABLES = {
+    "resnet34": {
+        "gate": np.array([0.0, 3.27, 7.27, 13.15, 16.02]),
+        "depth_enc": np.array([0.2506752, 3.1113216, 6.9470208, 12.66432,
+                               15.538944]),
+        "total": np.array([22.37101509, 25.23166149, 29.06736069,
+                           34.78465989, 37.65928389]),
+    },
+    "resnet50": {
+        "depth_enc": np.array([0.2506752, 4.39420573, 10.72382115,
+                               19.71582947, 24.679084]),
+        "total": np.array([32.5854654, 36.728995928, 43.058611352,
+                           52.050619672, 57.0138742]),
+    },
+}
+
+
+def flop_table(encoder_rgb: str, key: str = "depth_enc") -> np.ndarray:
+    name = "resnet34" if encoder_rgb == "resnet34" else "resnet50"
+    return FLOP_TABLES[name][key]
+
+
+def capacity_ladders(branch_ratios, bs: int,
+                     capacity_factor: Optional[float] = None) -> tuple:
+    """Per-stage capacity schedule for ``forward_routed_compact`` from a
+    gate's branch ratios (5,).
+
+    Stage i's expected participant count is ``bs · P(k ≥ i)``: its ladder
+    is that count rounded up plus the ``bs`` rung that keeps any batch
+    exact, ``(bs,)`` for an always-on stage. With ``capacity_factor`` it is
+    a strict single-rung schedule (pass ``strict_caps=True``): rung i is
+    ``ceil(bs · P(k ≥ i) · factor)`` clipped to ``bs`` and made
+    non-increasing across stages, so a row dropped at one stage never
+    re-enters a later one; a live stage keeps a rung ≥ 1."""
+    r = np.asarray(branch_ratios, dtype=np.float64)
+    assert r.shape == (5,)
+    if capacity_factor is not None:
+        rungs = []
+        for i in range(1, 5):
+            p = float(r[i:].sum())
+            c = 0 if p <= 0 else min(
+                bs, int(np.ceil(p * bs * capacity_factor - 1e-9)))
+            if rungs:
+                c = min(c, rungs[-1])
+            rungs.append(c)
+        return tuple((c,) for c in rungs)
+    out = []
+    for i in range(1, 5):
+        exp = int(np.ceil(float(r[i:].sum()) * bs - 1e-9))
+        out.append((bs,) if exp >= bs else (exp, bs))
+    return tuple(out)
+
+
+def _stage_ladders(caps, bs: int, strict_caps: bool) -> list[list[int]]:
+    """Four sorted ladders (one per depth stage) from a shared ladder, four
+    ladders or ``None`` (``(0, bs//2, bs)``); raises where the JAX model
+    asserts."""
+    if caps is None:
+        caps = (0, bs // 2, bs)
+    if isinstance(caps[0], (tuple, list)):
+        if len(caps) != 4:
+            raise ValueError("per-stage caps need 4 ladders (stages 1-4)")
+        ladders = [sorted(set(c)) for c in caps]
+    else:
+        ladders = [sorted(set(caps))] * 4
+    for lad in ladders:
+        if lad[0] < 0 or lad[-1] > bs:
+            raise ValueError(f"capacity ladder {lad} outside [0, {bs}]")
+        if not strict_caps and lad[-1] != bs:
+            raise ValueError(
+                "exact mode needs the bs fallback rung; pass "
+                "strict_caps=True for capacity-factor drop semantics")
+    return ladders
 
 
 class GlobalGate(nn.Module):
@@ -72,6 +170,35 @@ class SkipGateESANet(_DualEncoderParts):
         return getattr(self, f"se_layer{i}").fuse_mixed(rgb, depth, w_rgb,
                                                          use_kernels)
 
+    @staticmethod
+    def _rgb_weight(weight, i: int):
+        """Block i's unfused-rgb weight (B,): the cumulative probability
+        that the gate stopped fusing before i, ``Σ_{j<i} w_j``, for i = 1..3;
+        ``1 − w_4`` for block 4 (the reference's quirk)."""
+        return weight[:, :i].sum(dim=1) if i < 4 else 1.0 - weight[:, 4]
+
+    def _fuse_mixed_scatter(self, i: int, rgb, d_p, w_rgb, order,
+                            use_kernels: bool = True):
+        """``_fuse_mixed`` for the compacted depth layout: ``rgb`` is the
+        whole batch in caller order, ``d_p`` the depth stage's output on the
+        sorted prefix (original samples ``order[:cap]``), ``w_rgb`` the
+        caller-order weights. ``d_p`` is scattered into a zero batch and the
+        fusion cell runs as in the dense forward: rows outside the prefix
+        have depth 0, and rows inside it that do not fuse (prefix padding)
+        have w = 1, so neither adds a depth term — the JAX
+        ``rgb·s_r' + scatter(d_p·s_d')`` exactly. An overflowed participant
+        (strict caps) keeps ``rgb·s_r`` and loses only its depth term."""
+        depth = nchw(scatter_rows(nhwc(d_p), order, rgb.shape[0]))
+        return self._fuse_mixed(i, rgb, depth, w_rgb, use_kernels)
+
+    def _zero_depth(self, i: int, like: torch.Tensor) -> torch.Tensor:
+        """Zero depth map of stage ``i``'s output shape (batch and size of
+        ``like``), channels_last."""
+        c = self.encoder_depth.down_channels[4 * 2 ** (i - 1)]
+        b, _, h, w = like.shape
+        return torch.zeros((b, c, h, w), device=like.device, dtype=like.dtype
+                           ).to(memory_format=torch.channels_last)
+
     def gate_weights(self, rgb, depth, temp: float = 1.0, hard: bool = False,
                      baseline: bool = False):
         """(B, 5) path weights from the pooled stem maps; ``baseline``
@@ -91,22 +218,155 @@ class SkipGateESANet(_DualEncoderParts):
 
     def forward(self, rgb, depth, temp: float = 1.0, hard: bool = False,
                 baseline: bool = False, return_weight: bool = False,
-                use_kernels: bool = True):
-        """Dense eval forward. Returns NHWC logits, or ``(logits, weight)``."""
+                low_res: bool = False, use_kernels: bool = True):
+        """Dense eval forward. Returns NHWC logits (H/4 with ``low_res``),
+        or ``(logits, weight)``."""
         rgb, depth = self._stems(rgb, depth, use_kernels)
         weight = self.gate_weights(rgb, depth, temp=temp, hard=hard,
                                    baseline=baseline)
         skips = []
         fused = rgb
-        for i in (1, 2, 3):
+        for i in (1, 2, 3, 4):
             rgb = getattr(self.encoder_rgb, f"layer{i}")(fused, use_kernels)
             depth = getattr(self.encoder_depth, f"layer{i}")(depth, use_kernels)
-            # cumulative probability that the gate stopped fusing before i
-            fused = self._fuse_mixed(i, rgb, depth, weight[:, :i].sum(dim=1),
-                                     use_kernels)
-            skips.append(self.skip(i, fused))
-        rgb = self.encoder_rgb.layer4(fused, use_kernels)
-        depth = self.encoder_depth.layer4(depth, use_kernels)
-        fused = self._fuse_mixed(4, rgb, depth, 1.0 - weight[:, 4], use_kernels)
-        out = self.head(fused, skips, use_kernels).permute(0, 2, 3, 1)
+            fused = self._fuse_mixed(i, rgb, depth,
+                                     self._rgb_weight(weight, i), use_kernels)
+            if i < 4:
+                skips.append(self.skip(i, fused))
+        return self._out(fused, skips, weight, return_weight, low_res,
+                         use_kernels)
+
+    def _out(self, fused, skips, weight, return_weight, low_res, use_kernels):
+        out = self.head(fused, skips, use_kernels, low_res).permute(0, 2, 3, 1)
         return (out, weight) if return_weight else out
+
+    # ------------------------------------------------ batched adaptive skips
+    def forward_switch_batched(self, rgb, depth, temp: float = 1.0,
+                               baseline: bool = False,
+                               return_weight: bool = False,
+                               force_path: Optional[int] = None,
+                               low_res: bool = False,
+                               use_kernels: bool = True):
+        """Hard-gate batched inference that runs depth stages 1..K only,
+        K = the batch's largest path (``force_path`` sets every sample's
+        path to it). Per-sample mixing is the dense forward's, so results
+        are equal to it; stages beyond K, where every sample's depth weight
+        is 0, are skipped. K is read to the host once, after the gate."""
+        rgb, depth = self._stems(rgb, depth, use_kernels)
+        weight = self.gate_weights(rgb, depth, temp=temp, hard=True,
+                                   baseline=baseline)
+        if force_path is not None:
+            weight = torch.zeros_like(weight)
+            weight[:, force_path] = 1.0
+            k_max = int(force_path)
+        else:
+            k_max = int(weight.argmax(dim=-1).max())
+        fused = rgb
+        skips = []
+        for i in (1, 2, 3, 4):
+            r = getattr(self.encoder_rgb, f"layer{i}")(fused, use_kernels)
+            if k_max >= i:
+                depth = getattr(self.encoder_depth, f"layer{i}")(depth,
+                                                                 use_kernels)
+                fused = self._fuse_mixed(i, r, depth,
+                                         self._rgb_weight(weight, i),
+                                         use_kernels)
+            else:  # no later stage reads depth again (K is monotone)
+                fused = r
+            if i < 4:
+                skips.append(self.skip(i, fused))
+        return self._out(fused, skips, weight, return_weight, low_res,
+                         use_kernels)
+
+    # ------------------------------- per-sample bucket-compacted routing
+    def forward_routed_compact(self, rgb, depth, temp: float = 1.0,
+                               baseline: bool = False,
+                               return_weight: bool = False, caps=None,
+                               low_res: bool = False,
+                               strict_caps: bool = False,
+                               use_kernels: bool = True):
+        """Hard-gate batched inference with per-sample depth skipping.
+
+        Only the depth stream is permuted into descending-path order (a
+        stable sort, as ``jnp.argsort``), so stage i's participants
+        (k ≥ i) are a prefix of it. Stage i runs on ``cap`` rows, the
+        smallest rung of its ladder that holds the n_i participants (the
+        last rung when none does), and its output is scattered back to
+        caller order for the fusion (``_fuse_mixed_scatter``); rgb, skips,
+        decoder and logits stay in caller order. The depth buffer is padded
+        back to the batch with zero rows after each stage; a cap-0 stage
+        returns rgb unfused, launches nothing, and threads a zero buffer.
+
+        ``caps``: one ladder for every stage (default ``(0, bs//2, bs)``)
+        or four, one per stage (``capacity_ladders``). Any ladder that ends
+        at ``bs`` is exact. ``strict_caps``: ladders may end below ``bs``;
+        participants beyond the last rung lose that stage's depth term
+        (MoE capacity-factor drop semantics). The participant counts are
+        read to the host once, after the gate."""
+        rgb, depth = self._stems(rgb, depth, use_kernels)
+        weight = self.gate_weights(rgb, depth, temp=temp, hard=True,
+                                   baseline=baseline)
+        bs = rgb.shape[0]
+        k = weight.argmax(dim=-1)
+        paths = k.tolist()
+        counts = [sum(p >= i for p in paths) for i in range(1, 5)]
+        order = torch.argsort(-k, stable=True)  # participants first
+        depth_buf = nchw(permute_rows(nhwc(depth), order))
+        ladders = _stage_ladders(caps, bs, strict_caps)
+        fused = rgb
+        skips = []
+        for i in (1, 2, 3, 4):
+            r = getattr(self.encoder_rgb, f"layer{i}")(fused, use_kernels)
+            ladder = ladders[i - 1]
+            cap = next((c for c in ladder if counts[i - 1] <= c), ladder[-1])
+            if cap == 0:  # n_i == 0 (or a strict 0 rung): rgb unfused
+                fused = r
+                depth_buf = self._zero_depth(i, r)
+            else:
+                d_p = getattr(self.encoder_depth, f"layer{i}")(
+                    depth_buf[:cap], use_kernels)
+                fused = self._fuse_mixed_scatter(
+                    i, r, d_p, self._rgb_weight(weight, i), order, use_kernels)
+                depth_buf = d_p
+                if cap < bs:
+                    depth_buf = self._zero_depth(i, r)
+                    depth_buf[:cap] = d_p
+            if i < 4:
+                skips.append(self.skip(i, fused))
+        return self._out(fused, skips, weight, return_weight, low_res,
+                         use_kernels)
+
+    # ------------------------------------------------------ hard, real skips
+    def forward_switch(self, rgb, depth, temp: float = 1.0,
+                       baseline: bool = False, return_weight: bool = False,
+                       force_path: Optional[int] = None,
+                       low_res: bool = False, use_kernels: bool = True):
+        """Hard-gate inference that runs depth stages 1..k only and fuses
+        them unmixed (``fuse``), k = sample 0's path or ``force_path``
+        (which does not change the returned weights). Meant for batch 1:
+        a larger batch raises unless ``force_path`` is given."""
+        if force_path is None and rgb.shape[0] != 1:
+            raise ValueError(
+                "forward_switch routes the WHOLE batch by sample 0's gate "
+                f"decision; got batch={rgb.shape[0]}. Use batch=1, pass "
+                "force_path, or use forward_switch_batched / "
+                "forward_routed_compact for per-sample batched routing.")
+        rgb, depth = self._stems(rgb, depth, use_kernels)
+        weight = self.gate_weights(rgb, depth, temp=temp, hard=True,
+                                   baseline=baseline)
+        k = int(force_path) if force_path is not None else int(
+            weight[0].argmax())
+        fused = rgb
+        skips = []
+        for i in (1, 2, 3, 4):
+            r = getattr(self.encoder_rgb, f"layer{i}")(fused, use_kernels)
+            if k >= i:
+                depth = getattr(self.encoder_depth, f"layer{i}")(depth,
+                                                                 use_kernels)
+                fused = self.fuse(i, r, depth, use_kernels)
+            else:
+                fused = r
+            if i < 4:
+                skips.append(self.skip(i, fused))
+        return self._out(fused, skips, weight, return_weight, low_res,
+                         use_kernels)

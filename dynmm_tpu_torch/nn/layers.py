@@ -187,8 +187,13 @@ class SqueezeAndExciteFusionAdd(nn.Module):
         self.se_depth = SqueezeAndExcitation(channels, activation=activation)
         self.relu = activation.lower() == "relu"
 
-    def forward(self, rgb, depth):
-        return self.se_rgb(rgb) + self.se_depth(depth)
+    def forward(self, rgb, depth, use_kernels: bool = True):
+        """``se(rgb) + se(depth)`` (NCHW), the unmixed fusion of
+        ``forward_switch``. With ``use_kernels`` it is the ``se_fuse_mixed``
+        cell at w = 0, which is exactly that sum."""
+        if not use_kernels:
+            return self.se_rgb(rgb) + self.se_depth(depth)
+        return self.fuse_mixed(rgb, depth, rgb.new_zeros(rgb.shape[0]))
 
     def _require_relu(self):
         if not self.relu:

@@ -1,20 +1,23 @@
 """Where a served flagship forward spends its card time.
 
-    python3 -m dynmm_tpu_torch.profile_serve
+    python3 -m dynmm_tpu_torch.profile_serve [--mode MODE] [--low_res]
 
 Builds the 480×640 flagship with seeded random weights on the card, warms
-up, then traces 3 served requests at B=8 and 3 at B=1 with
-``torch.profiler``. It prints the card's name and power limit and, for
+up, then traces 3 requests at B=8 and 3 at B=1 served through ``--mode``
+(``serve``'s modes; ``dense`` by default, the switch modes at B=1 only)
+with ``torch.profiler``. It prints the card's name and power limit and, for
 each batch size, the host-clock latency (profiler on),
 the device's busy share of the traced window (union of kernel intervals
 over the window) and device time by kernel, grouped into the port's
 kernels, cuDNN/cuBLAS convolutions and other PyTorch ops. Writes the same to
-``chiprun_out/profile_serve.json`` at the root of the checkout. TF32 is off
-for convolutions and matmuls, as in ``chip_smoke.py``.
+``chiprun_out/profile_serve_<mode>[_low_res].json`` at the root of the
+checkout. TF32 is off for convolutions and matmuls, as in
+``chip_smoke.py``.
 """
 
 from __future__ import annotations
 
+import argparse
 import json
 import sys
 import time
@@ -25,11 +28,11 @@ import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
-from dynmm_tpu_torch.serve import build_flagship, serve
+from dynmm_tpu_torch.serve import SERVE_MODES, build_flagship, serve
 from dynmm_tpu_torch.utils.device import card_line
 
-PORT_KERNELS = ("nbt1d_pair_kernel", "sums_partial_kernel",
-                "sums_finalize_kernel", "se_mix_kernel",
+PORT_KERNELS = ("nbt1d_block_kernel", "nbt1d_pair_kernel",
+                "sums_partial_kernel", "sums_finalize_kernel", "se_mix_kernel",
                 "stem_fuse_pool_kernel", "learned_upsample_kernel")
 CONV_MARKS = ("conv", "cudnn", "xmma", "gemm", "implicit", "winograd", "fft")
 
@@ -54,13 +57,13 @@ def _busy_us(intervals) -> float:
     return total
 
 
-def profile_batch(model, batch: int, n: int = 3) -> dict:
+def profile_batch(model, batch: int, n: int = 3, **serve_kw) -> dict:
     g = torch.Generator(device="cuda").manual_seed(batch)
     reqs = [(torch.randn(batch, 480, 640, 3, generator=g, device="cuda"),
              torch.randn(batch, 480, 640, 1, generator=g, device="cuda"))
             for _ in range(n)]
     for rgb, depth in reqs[:2]:
-        serve(model, rgb, depth)
+        serve(model, rgb, depth, **serve_kw)
     torch.cuda.synchronize()
     lat = []
     with profile(activities=[ProfilerActivity.CPU,
@@ -68,7 +71,7 @@ def profile_batch(model, batch: int, n: int = 3) -> dict:
         t_start = time.perf_counter()
         for rgb, depth in reqs:
             t0 = time.perf_counter()
-            serve(model, rgb, depth)
+            serve(model, rgb, depth, **serve_kw)
             torch.cuda.synchronize()
             lat.append((time.perf_counter() - t0) * 1e3)
         wall_us = (time.perf_counter() - t_start) * 1e6
@@ -98,13 +101,21 @@ def profile_batch(model, batch: int, n: int = 3) -> dict:
     }
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--mode", default="dense", choices=SERVE_MODES)
+    ap.add_argument("--low_res", action="store_true",
+                    help="serve from the H/4 logits")
+    args = ap.parse_args(argv)
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     card = card_line()
-    print(f"card: {card}; torch {torch.__version__}", flush=True)
+    print(f"card: {card}; torch {torch.__version__}; mode {args.mode}"
+          f"{', low_res' if args.low_res else ''}", flush=True)
     model = build_flagship(seed=0)
-    results = [profile_batch(model, b) for b in (8, 1)]
+    batches = (1,) if args.mode.startswith("switch") else (8, 1)
+    results = [profile_batch(model, b, mode=args.mode, low_res=args.low_res)
+               for b in batches]
     for r in results:
         print(f"B={r['batch']}: latency {[round(x, 2) for x in r['latency_ms']]}"
               f" ms; device busy {r['device_busy_share'] * 100:.1f} % of the "
@@ -115,8 +126,10 @@ def main() -> int:
             print(f"     {t['ms']:8.3f} ms  x{t['launches']:<4d} {t['name'][:90]}")
     out = Path(__file__).resolve().parents[1] / "chiprun_out"
     out.mkdir(exist_ok=True)
-    (out / "profile_serve.json").write_text(
-        json.dumps({"card": card, "results": results}, indent=1))
+    name = f"profile_serve_{args.mode}{'_low_res' if args.low_res else ''}"
+    (out / f"{name}.json").write_text(json.dumps(
+        {"card": card, "mode": args.mode, "low_res": args.low_res,
+         "results": results}, indent=1))
     return 0
 
 

@@ -1,5 +1,6 @@
 """Serve the flagship: the port's counterpart of ``__graft_entry__._flagship``
-/ ``entry`` and of predict.py's dense hard-gate step.
+/ ``entry`` and of predict.py's serving step (``--serve_mode``,
+``--output_res quarter``, ``--capacity_factor``).
 
 The flagship is SkipGateESANet with ResNet34-NonBottleneck1D encoders for
 RGB (3-ch) and depth (1-ch), SE-add fusion, PPM context, decoder channels
@@ -7,8 +8,10 @@ RGB (3-ch) and depth (1-ch), SE-add fusion, PPM context, decoder channels
 upsampling and 40 classes at 480×640, in fp32 eval with the hard global
 gate.
 
-    model = build_flagship()                    # on the card
-    class_map, weight = serve(model, rgb, depth)  # (B,H,W) int32, (B,5)
+    model = build_flagship()                                # on the card
+    class_map, weight = serve(model, rgb, depth)            # batchmax
+    class_map, weight = serve(model, rgb, depth, mode="compact",
+                              caps=capacity_schedule(model, calib, 8))
 """
 
 from __future__ import annotations
@@ -19,11 +22,13 @@ import torch
 import torch.nn as nn
 
 from dynmm_tpu_torch.models.esanet import ESANetConfig
-from dynmm_tpu_torch.models.skip_gate import SkipGateESANet
+from dynmm_tpu_torch.models.skip_gate import SkipGateESANet, capacity_ladders
 from dynmm_tpu_torch.nn.layers import (BatchNorm2d, Upsample,
                                        _bilinear_3x3_kernel, first_argmax,
                                        pack_weights)
 from dynmm_tpu_torch.utils.device import resolve_device
+
+SERVE_MODES = ("dense", "batchmax", "compact", "switch", "switch_host")
 
 
 @torch.no_grad()
@@ -68,10 +73,29 @@ def build_flagship(height: int = 480, width: int = 640, num_classes: int = 40,
 
 
 def serve(model: SkipGateESANet, rgb: torch.Tensor, depth: torch.Tensor,
+          mode: str = "batchmax", caps=None, strict_caps: bool = False,
+          force_path: int | None = None, low_res: bool = False,
           use_kernels: bool = True):
-    """Dense hard-gate inference on NHWC images: rgb (B,H,W,3), depth
-    (B,H,W,1), fp32 on the model's device. Returns the class map
-    (B,H,W) int32 (first index on ties) and the gate weights (B,5)."""
+    """Hard-gate inference on NHWC images: rgb (B,H,W,3), depth (B,H,W,1),
+    fp32 on the model's device. Returns the class map (B,H,W) int32 (first
+    index on ties) and the gate weights (B,5).
+
+    ``mode`` (predict.py's ``--serve_mode``): ``dense`` (every branch,
+    ``forward``), ``batchmax`` (``forward_switch_batched``, the default),
+    ``compact`` (``forward_routed_compact`` with ``caps``/``strict_caps``),
+    ``switch`` (``forward_switch``, batch 1). ``switch_host`` is the JAX
+    package's two-phase dispatch (a gate program, then one of five static
+    path programs); eager PyTorch already resolves the path on the host
+    after the gate, so it is ``switch`` here and gives the same result.
+    ``force_path`` applies to ``batchmax`` and the switch modes.
+    ``low_res``: the class map is taken from the H/4 logits and repeated
+    ×4 on both axes (predict.py's ``--output_res quarter``)."""
+    if mode not in SERVE_MODES:
+        raise ValueError(f"mode must be one of {SERVE_MODES}, got {mode!r}")
+    if force_path is not None and mode in ("dense", "compact"):
+        raise ValueError(f"force_path does not apply to mode {mode!r}")
+    if (caps is not None or strict_caps) and mode != "compact":
+        raise ValueError("caps and strict_caps apply to mode 'compact'")
     dev = next(model.parameters()).device
     for name, x, c in (("rgb", rgb, 3), ("depth", depth, 1)):
         if x.dim() != 4 or x.shape[-1] != c or x.dtype != torch.float32:
@@ -79,8 +103,41 @@ def serve(model: SkipGateESANet, rgb: torch.Tensor, depth: torch.Tensor,
                              f"{x.dtype} {tuple(x.shape)}")
         if x.device != dev:
             raise ValueError(f"{name} is on {x.device}, the model on {dev}")
+    kw = dict(return_weight=True, low_res=low_res, use_kernels=use_kernels)
+    if mode == "dense":
+        fwd = model.forward
+        kw["hard"] = True
+    elif mode == "batchmax":
+        fwd = model.forward_switch_batched
+        kw["force_path"] = force_path
+    elif mode == "compact":
+        fwd = model.forward_routed_compact
+        kw.update(caps=caps, strict_caps=strict_caps)
+    else:
+        fwd = model.forward_switch
+        kw["force_path"] = force_path
     with torch.inference_mode():
-        logits, weight = model(rgb.contiguous(), depth.contiguous(),
-                               hard=True, return_weight=True,
-                               use_kernels=use_kernels)
-        return first_argmax(logits, dim=-1), weight
+        logits, weight = fwd(rgb.contiguous(), depth.contiguous(), **kw)
+        class_map = first_argmax(logits, dim=-1)
+        if low_res:
+            scale = rgb.shape[1] // class_map.shape[1]
+            class_map = class_map.repeat_interleave(scale, dim=1
+                                                    ).repeat_interleave(scale, dim=2)
+        return class_map, weight
+
+
+def capacity_schedule(model: SkipGateESANet, calib_batches, batch_size: int,
+                      capacity_factor: float | None = None,
+                      use_kernels: bool = True) -> tuple:
+    """Per-stage capacity ladders for ``serve(mode="compact")``: the branch
+    ratios of the hard gate (``gate_only``: stems and gate) over
+    ``calib_batches``, an iterable of (rgb, depth) NHWC pairs, through
+    ``capacity_ladders``. With ``capacity_factor`` the schedule is strict
+    (serve it with ``strict_caps=True``), as predict.py's
+    ``--capacity_factor``."""
+    with torch.inference_mode():
+        weights = [model.gate_only(rgb.contiguous(), depth.contiguous(),
+                                   use_kernels=use_kernels)
+                   for rgb, depth in calib_batches]
+    ratios = torch.cat(weights).double().mean(dim=0).cpu().numpy()
+    return capacity_ladders(ratios, batch_size, capacity_factor)

@@ -17,6 +17,22 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+def time_ms(fn, warmup: int = 2, iters: int = 10) -> float:
+    """Mean device time of ``fn`` over ``iters`` back-to-back calls on the
+    current stream (CUDA events, after ``warmup`` calls)."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
 def resolve_device(device=None) -> torch.device:
     """``None`` means CUDA. Without a card that raises instead of silently
     running on the CPU; pass ``device="cpu"`` to ask for the CPU."""

@@ -4,11 +4,13 @@
 host's C++ compiler against a small CUDA emulation, so the kernels'
 indexing, tiling, masks and arithmetic are exercised here, where there is
 no card and no ``nvcc``. Shapes are chosen to reach every code path: each
-NBt1D tile width (16, 20, 8 and a ragged edge), partial channel chunks,
-blocks with more threads than channels, odd pooled sizes and C = 40
-upsamples. The whole small model is served through the emulated kernels
-with the launch counts of its forward. On the card, ``chip_smoke.py`` holds
-the same sources, built by ``nvcc``, against the same plain versions.
+NBt1D tile width (16, 20, 8 and a ragged edge), bands of the one-launch
+block cut by the last image row, partial channel chunks, blocks with more
+threads than channels, odd pooled sizes and C = 40 upsamples. The whole
+small model is served through the emulated kernels, densely and through the
+routed strategies, with the launch counts of its forward. On the card,
+``chip_smoke.py`` holds the same sources, built by ``nvcc``, against the
+same plain versions.
 """
 
 import shutil
@@ -21,6 +23,7 @@ from dynmm_tpu_torch.kernels import nbt1d, se, stem_fuse, upsample
 from dynmm_tpu_torch.models.esanet import ESANetConfig
 from dynmm_tpu_torch.models.skip_gate import SkipGateESANet
 from dynmm_tpu_torch.serve import init_weights, serve
+from tests.test_torch_port_routed import FixedGate
 
 
 @pytest.fixture(scope="module")
@@ -72,6 +75,49 @@ def test_nbt1d_pair(libs, n, h, w, c, with_identity):
     assert dict(LAUNCHES) == {"nbt1d_pair": 1}  # the plain call counts none
 
 
+def _block_params(g, c):
+    """Taps, non-zero biases and a folded BN away from identity, so a wrong
+    boundary mask (relu(bias) instead of 0) changes the output."""
+    p = []
+    for _ in range(2):
+        p += [_randn(g, 3, c, c, scale=0.3), _randn(g, c, scale=0.5),
+              _randn(g, 3, c, c, scale=0.3), _randn(g, c, scale=0.5),
+              torch.rand(c, generator=g) + 0.5, _randn(g, c, scale=0.3)]
+    return p
+
+
+@pytest.mark.parametrize("n,h,w,c", [
+    (2, 5, 16, 8),    # tile width 16; the last band cut by the image
+    (1, 6, 20, 16),   # tile width 20
+    (2, 9, 12, 16),   # ragged last column tile (W not a multiple of 16)
+    (1, 3, 8, 4),     # tile width 8; one band taller than the image
+    (1, 7, 40, 12),   # two tiles of 20; channels not a multiple of 32
+    (1, 2, 5, 16),    # narrower than a tile, two rows
+])
+@pytest.mark.parametrize("band_rows", [0, 3, 8])  # 0: the kernel's choice
+def test_nbt1d_fused(libs, n, h, w, c, band_rows):
+    g = _gen(h * w + c)
+    x = _randn(g, n, h, w, c)
+    _close(*_both(libs, nbt1d.nbt1d_fused, x, *_block_params(g, c),
+                  band_rows=band_rows))
+    assert dict(LAUNCHES) == {"nbt1d_fused": 1}  # the plain call counts none
+
+
+@pytest.mark.parametrize("max_c,launches", [(16, {"nbt1d_fused": 1}),
+                                            (8, {"nbt1d_pair": 2})])
+def test_nbt1d_block_dispatch(libs, monkeypatch, max_c, launches):
+    """Either side of the one-launch kernel's channel limit, the same
+    block: one ``nbt1d_fused`` launch at or under it, two ``nbt1d_pair``
+    launches over it."""
+    monkeypatch.setattr(nbt1d, "NBT1D_FUSED_MAX_C", max_c)
+    g = _gen(5)
+    x = _randn(g, 2, 6, 10, 16)
+    p = _block_params(g, 16)
+    _close(*_both(libs, nbt1d.nbt1d_block, x, *p))
+    assert dict(LAUNCHES) == launches
+    _close(nbt1d.nbt1d_block(x, *p), nbt1d.nbt1d_fused_plain(x, *p))
+
+
 @pytest.mark.parametrize("b,h,w,c", [(2, 5, 7, 12), (2, 3, 4, 40),
                                      (1, 6, 6, 300)])
 def test_channel_sums(libs, b, h, w, c):
@@ -113,30 +159,89 @@ def test_learned_upsample(libs, shape):
                   _randn(g, 3, 3, c), _randn(g, c)))
 
 
-def test_small_model_serves_through_emulated_kernels(libs):
-    """Every kernel site of the forward, with the launch counts of the
-    small config: resnet18 has 5 stride-1 NBt1D blocks per encoder, the
-    decoder 3, so 26 pairs."""
-    cfg = ESANetConfig(height=64, width=64, num_classes=5,
-                       encoder_rgb="resnet18", encoder_depth="resnet18",
-                       channels_decoder=(32, 32, 32), nr_decoder_blocks=(1, 1, 1))
-    model = SkipGateESANet(cfg)
+SMALL_CFG = ESANetConfig(height=64, width=64, num_classes=5,
+                         encoder_rgb="resnet18", encoder_depth="resnet18",
+                         channels_decoder=(32, 32, 32),
+                         nr_decoder_blocks=(1, 1, 1))
+
+
+def _small_model(cls=SkipGateESANet):
+    model = cls(SMALL_CFG)
     init_weights(model, _gen(0))
-    model = model.to(memory_format=torch.channels_last).eval()
+    return model.to(memory_format=torch.channels_last).eval()
+
+
+def _small_launches(ran):
+    """Launches of one small-model forward whose depth stages 1-4 ran as
+    ``ran`` says. resnet18 has 2, 1, 1 and 1 stride-1 NBt1D blocks in its
+    stages at C = 64, 128, 256 and 512, the decoder 3 at C = 32; a block
+    is one ``nbt1d_fused`` launch up to ``NBT1D_FUSED_MAX_C`` channels and
+    two ``nbt1d_pair`` launches above. Every stage that ran adds its depth
+    blocks and one fusion cell (``se_fuse_mixed`` with its
+    ``channel_sums`` launch)."""
+    counts = {"nbt1d_fused": 0, "nbt1d_pair": 0, "channel_sums": 1,
+              "stem_fuse_pool": 1, "se_fuse_mixed": 0, "learned_upsample": 5}
+
+    def blocks(c, n):
+        if c <= nbt1d.NBT1D_FUSED_MAX_C:
+            counts["nbt1d_fused"] += n
+        else:
+            counts["nbt1d_pair"] += 2 * n
+
+    for (c, n), r in zip(((64, 2), (128, 1), (256, 1), (512, 1)), ran):
+        blocks(c, n * (1 + int(r)))
+        counts["se_fuse_mixed"] += int(r)
+        counts["channel_sums"] += int(r)
+    blocks(32, 3)
+    return {k: v for k, v in counts.items() if v}
+
+
+def test_small_model_serves_through_emulated_kernels(libs):
+    """Every kernel site of the dense forward, with the launch counts of
+    the small config: 13 stride-1 blocks, 7 of them at C ≤ 64."""
+    model = _small_model()
     g = _gen(1)
     rgb, depth = _randn(g, 1, 64, 64, 3), _randn(g, 1, 64, 64, 1)
     reset_launches()
     with emulate.emulated(libs):
-        class_map, weight = serve(model, rgb, depth)
-    assert dict(LAUNCHES) == {"nbt1d_pair": 26, "channel_sums": 5,
-                              "stem_fuse_pool": 1, "se_fuse_mixed": 4,
-                              "learned_upsample": 5}
+        class_map, weight = serve(model, rgb, depth, mode="dense")
+    assert dict(LAUNCHES) == _small_launches([True] * 4)
     with torch.inference_mode():
         with emulate.emulated(libs):
             logits = model(rgb, depth, hard=True)
         ref, ref_w = model(rgb, depth, hard=True, return_weight=True,
                            use_kernels=False)
     torch.testing.assert_close(weight, ref_w, rtol=0, atol=0)
+    torch.testing.assert_close(logits, ref, rtol=1e-5,
+                               atol=1e-5 * float(ref.abs().max()))
+    assert (class_map == ref.argmax(-1)).float().mean() >= 0.999
+
+
+@pytest.mark.parametrize("mode,paths,ran", [
+    ("compact", [0, 3], [True, True, True, False]),
+    ("batchmax", [0, 2], [True, True, False, False]),
+    ("switch", [4], [True] * 4),
+])
+def test_small_model_routed_through_emulated_kernels(libs, mode, paths, ran):
+    """A routed strategy through the emulated kernels: a depth stage that
+    no sample takes launches nothing, and the result is the dense one."""
+    model = _small_model(FixedGate)
+    model.paths = paths
+    g = _gen(2)
+    rgb = _randn(g, len(paths), 64, 64, 3)
+    depth = _randn(g, len(paths), 64, 64, 1)
+    reset_launches()
+    with emulate.emulated(libs):
+        class_map, weight = serve(model, rgb, depth, mode=mode)
+    assert dict(LAUNCHES) == _small_launches(ran)
+    with torch.inference_mode():
+        with emulate.emulated(libs):
+            logits, _ = getattr(model, {
+                "compact": "forward_routed_compact",
+                "batchmax": "forward_switch_batched",
+                "switch": "forward_switch"}[mode])(rgb, depth,
+                                                   return_weight=True)
+        ref = model(rgb, depth, hard=True, use_kernels=False)
     torch.testing.assert_close(logits, ref, rtol=1e-5,
                                atol=1e-5 * float(ref.abs().max()))
     assert (class_map == ref.argmax(-1)).float().mean() >= 0.999

@@ -59,6 +59,38 @@ def test_nbt1d_block_matches_pallas_and_oracle(n, h, w, c):
     _close(port, jnbt.reference_nbt1d(jnp.asarray(x), *jp))
 
 
+@pytest.mark.parametrize("shape", [(2, 12, 10, 8), (2, 30, 40, 16),
+                                   (2, 8, 6, 4), (1, 6, 18, 8), (5, 7, 4)])
+def test_nbt1d_fused_matches_pallas_and_oracle(shape):
+    """The one-launch block (W = 18: not a multiple of 16; (H, W, C): the
+    unbatched form) against the mono Pallas kernel and the oracle."""
+    rng = np.random.default_rng(sum(shape))
+    x = _np(rng, *shape)
+    params = _nbt1d_params(rng, shape[-1])
+    port = nbt1d.nbt1d_fused(torch.from_numpy(x),
+                             *map(torch.from_numpy, params))
+    assert port.shape == x.shape
+    jp = [jnp.asarray(p) for p in params]
+    _close(port, jnbt.fused_nbt1d(jnp.asarray(x), *jp, interpret=True))
+    _close(port, jnbt.reference_nbt1d(jnp.asarray(x), *jp))
+
+
+@pytest.mark.parametrize("max_c", [16, 8])
+def test_nbt1d_block_dispatch_either_side(monkeypatch, max_c):
+    """``nbt1d_block`` gives the oracle's block whether its channel count
+    is at the one-launch limit (fused) or over it (two pairs)."""
+    monkeypatch.setattr(nbt1d, "NBT1D_FUSED_MAX_C", max_c)
+    rng = np.random.default_rng(max_c)
+    x = _np(rng, 2, 6, 9, 16)
+    params = _nbt1d_params(rng, 16)
+    reset_launches()
+    port = nbt1d.nbt1d_block(torch.from_numpy(x),
+                             *map(torch.from_numpy, params))
+    assert sum(LAUNCHES.values()) == 0  # CPU tensors: plain versions
+    _close(port, jnbt.reference_nbt1d(jnp.asarray(x),
+                                      *map(jnp.asarray, params)))
+
+
 def test_nbt1d_pair_forms():
     """Pair 1 (relu after the affine) and pair 2 (+identity, relu) against
     the JAX pair kernel's two flag combinations."""
@@ -211,6 +243,11 @@ def test_wrapper_never_falls_back_off_the_cpu():
     with pytest.raises(ValueError):
         upsample.learned_upsample(x, torch.empty(3, 3, 8, device="meta"),
                                   torch.empty(8, device="meta"))
+    taps, vec = torch.empty(3, 8, 8, device="meta"), torch.empty(8, device="meta")
+    with pytest.raises(ValueError):
+        nbt1d.nbt1d_fused(x, *([taps, vec, taps, vec, vec, vec] * 2))
+    with pytest.raises(ValueError):
+        nbt1d.nbt1d_block(x, *([taps, vec, taps, vec, vec, vec] * 2))
     with pytest.raises(ValueError):
         _build.on_card(torch.empty(2), x)
 
