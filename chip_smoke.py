@@ -8,13 +8,16 @@ Run from the root of a checkout on a machine with one NVIDIA GPU:
 1. Device and build: prints the card's name and power limit, builds every
    CUDA source of the port with ``nvcc`` (sm_90a) and prints the seconds.
 2. Kernels: calls each kernel's wrapper at the shapes the flagship's forward
-   gives it at B=8, 480×640 (the one-launch NBt1D block at B=1 too), and
-   holds the result against its plain PyTorch version on the same seeded
-   inputs: max abs error and max abs error over max |plain| (≤ 1e-4 in
-   fp32: the summation orders differ). Times the kernel, the plain version
-   and, where one PyTorch call computes the same function, that call, with
-   CUDA events after warm-up; the one-launch block also beside two
-   ``nbt1d_pair`` launches on the same inputs.
+   gives it at B=8, 480×640 (the NBt1D kernels at B=1 too), and holds the
+   result against its plain PyTorch version on the same seeded inputs: max
+   abs error and max abs error over max |plain| (≤ 1e-4 in fp32: the
+   summation orders differ). Times the kernel, the plain version and, where
+   one PyTorch call computes the same function, that call, with CUDA events
+   after warm-up; the one-launch block also beside two ``nbt1d_pair`` calls
+   on the same inputs. ``nbt1d_pair`` (3xTF32 on the tensor cores) gets two
+   bounds, fp32 on CUDA cores and three TF32 products per fp32 product on
+   the tensor cores, and its fp32-equivalent TFLOP/s; the time of each NBt1D
+   kernel per dense forward is printed for B=8 and B=1.
 3. Serve, dense: builds the 480×640 flagship with seeded random weights,
    serves 3 batches of 8 and 3 of 1 through ``dynmm_tpu_torch.serve.serve``
    (``mode="dense"``) with every launch count at 0 before, checks the
@@ -46,15 +49,21 @@ import math
 import sys
 import time
 from pathlib import Path
+from typing import Callable, NamedTuple
 
 import torch
 
 ROOT = Path(__file__).resolve().parent
 BATCH = 8
 HEIGHT, WIDTH, CLASSES = 480, 640, 40
-# H100 SXM data-sheet peaks: HBM3 bytes/s and fp32 (non-tensor) FLOP/s
+# H100 SXM data-sheet peaks: HBM3 bytes/s, fp32 (non-tensor) FLOP/s and
+# dense TF32 tensor-core FLOP/s
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_FLOPS = 67e12
+PEAK_TF32_FLOPS = 495e12
+# fp32 FLOP/s of fp32-accurate work on the tensor cores in 3xTF32: three
+# TF32 products per fp32 product
+PEAK_TF32X3_FLOPS = PEAK_TF32_FLOPS / 3
 KERNEL_TOL = 1e-4
 # launches of one dense hard-gate forward of the flagship: its 6 stride-1
 # NBt1D blocks at C = 64 take one launch each, its 29 wider ones two
@@ -74,10 +83,28 @@ SOURCES = {
 }
 
 
-def bound(n_bytes: float, n_flops: float) -> tuple[float, str]:
+def bound(n_bytes: float, n_flops: float,
+          peak_flops: float = PEAK_FP32_FLOPS) -> tuple[float, str]:
     t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = n_flops / PEAK_FP32_FLOPS * 1e3
+    t_ops = n_flops / peak_flops * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+class Case(NamedTuple):
+    """One kernel at one shape of the main path: ``calls`` per forward at
+    ``batch``; ``peak`` is the FLOP/s its bound counts operations at;
+    ``alt`` another way to compute the same output, timed beside it."""
+    name: str
+    label: str
+    calls: int
+    kern: Callable
+    plain: Callable
+    lib: Callable | None
+    n_bytes: float
+    n_flops: float
+    alt: Callable | None = None
+    batch: int = BATCH
+    peak: float = PEAK_FP32_FLOPS
 
 
 class Inputs:
@@ -104,10 +131,8 @@ def upsample_library_weight(taps: torch.Tensor) -> torch.Tensor:
     return kt.flip(1, 2).unsqueeze(1).contiguous()
 
 
-def kernel_cases(inp: Inputs):
-    """(kernel name, shape label, calls per B=8 forward, kernel fn, plain fn,
-    library fn or None, bytes, flops, comparison fn or None) for every shape
-    of the main path."""
+def kernel_cases(inp: Inputs) -> list[Case]:
+    """Every shape of the main path."""
     from dynmm_tpu_torch.kernels import nbt1d, se, stem_fuse, upsample
 
     b = BATCH
@@ -128,34 +153,37 @@ def kernel_cases(inp: Inputs):
                        inp.rand(c, lo=0.5, hi=1.0), inp.randn(c, scale=0.1)]
         fused = c <= nbt1d.NBT1D_FUSED_MAX_C
         x, idn = inp.randn(b, h, w, c), inp.randn(b, h, w, c)
-        vol = b * h * w * c * 4
-        for form, extra in (("pair1", {}), ("pair2", {"identity": idn})):
-            args = (x, *params[:6])
-            n_bytes = vol * (3 if extra else 2) + 2 * 3 * c * c * 4 + 4 * c * 4
-            cases.append((
-                "nbt1d_pair", f"{form} {b}x{h}x{w}x{c}", 0 if fused else blocks,
-                lambda a=args, e=extra: nbt1d.nbt1d_pair(*a, **e),
-                lambda a=args, e=extra: nbt1d.nbt1d_pair_plain(*a, **e),
-                None, n_bytes, 12.0 * c * c * b * h * w, None))
-        if not fused:
-            continue
         for bb in (b, 1):
-            xb = x[:bb].contiguous()
-            args = (xb, *params)
-            cases.append((
-                "nbt1d_fused", f"{bb}x{h}x{w}x{c}", blocks if bb == b else 0,
-                lambda a=args: nbt1d.nbt1d_fused(*a),
-                lambda a=args: nbt1d.nbt1d_fused_plain(*a),
-                None, 2 * bb * h * w * c * 4 + 4 * 3 * c * c * 4 + 8 * c * 4,
-                24.0 * c * c * bb * h * w,
-                lambda a=args: nbt1d.nbt1d_pair(
-                    nbt1d.nbt1d_pair(*a[:7]), *a[7:], identity=a[0])))
+            xb, idb = x[:bb].contiguous(), idn[:bb].contiguous()
+            vol = bb * h * w * c * 4
+            for form, extra in (("pair1", {}), ("pair2", {"identity": idb})):
+                args = (xb, *params[:6])
+                n_bytes = (vol * (3 if extra else 2) + 2 * 3 * c * c * 4
+                           + 4 * c * 4)
+                cases.append(Case(
+                    "nbt1d_pair", f"{form} {bb}x{h}x{w}x{c}",
+                    0 if fused else blocks,
+                    lambda a=args, e=extra: nbt1d.nbt1d_pair(*a, **e),
+                    lambda a=args, e=extra: nbt1d.nbt1d_pair_plain(*a, **e),
+                    None, n_bytes, 12.0 * c * c * bb * h * w, batch=bb,
+                    peak=PEAK_TF32X3_FLOPS))
+            if fused:
+                args = (xb, *params)
+                cases.append(Case(
+                    "nbt1d_fused", f"{bb}x{h}x{w}x{c}", blocks,
+                    lambda a=args: nbt1d.nbt1d_fused(*a),
+                    lambda a=args: nbt1d.nbt1d_fused_plain(*a),
+                    None, 2 * bb * h * w * c * 4 + 4 * 3 * c * c * 4 + 8 * c * 4,
+                    24.0 * c * c * bb * h * w,
+                    lambda a=args: nbt1d.nbt1d_pair(
+                        nbt1d.nbt1d_pair(*a[:7]), *a[7:], identity=a[0]),
+                    batch=bb))
     # channel sums: the stem cell and the four fusion cells
     for c, h, w in ((64, 240, 320), (64, 120, 160), (128, 60, 80),
                     (256, 30, 40), (512, 15, 20)):
         r, d = inp.randn(b, h, w, c), inp.randn(b, h, w, c)
         n = b * h * w * c
-        cases.append(("channel_sums", f"{b}x{h}x{w}x{c}", 1,
+        cases.append(Case("channel_sums", f"{b}x{h}x{w}x{c}", 1,
                       lambda r=r, d=d: se.channel_sums(r, d),
                       lambda r=r, d=d: se.channel_sums_plain(r, d),
                       None, 2 * n * 4 + 2 * b * c * 4, 2.0 * n, None))
@@ -165,7 +193,7 @@ def kernel_cases(inp: Inputs):
     s_r, s_d = inp.rand(b, c), inp.rand(b, c)
     n = b * h * w * c
     args = (r, d, s_r, s_d)
-    cases.append(("stem_fuse_pool", f"{b}x{h}x{w}x{c}", 1,
+    cases.append(Case("stem_fuse_pool", f"{b}x{h}x{w}x{c}", 1,
                   lambda a=args: stem_fuse.stem_fuse_pool(*a),
                   lambda a=args: stem_fuse.stem_fuse_pool_plain(*a),
                   None, (2 * n + 2 * n // 4) * 4, 3.0 * n + 18.0 * n / 4, None))
@@ -176,7 +204,7 @@ def kernel_cases(inp: Inputs):
         taps, bias = inp.randn(3, 3, c, scale=0.3), inp.randn(c, scale=0.1)
         wt = upsample_library_weight(taps)
         n = b * h * w * c
-        cases.append((
+        cases.append(Case(
             "learned_upsample", f"{b}x{h}x{w}x{c}", 1,
             lambda x=x, k=taps, bb=bias: upsample.learned_upsample(x, k, bb),
             lambda x=x, k=taps, bb=bias: upsample.learned_upsample_plain(x, k, bb),
@@ -197,7 +225,7 @@ def kernel_cases(inp: Inputs):
                     inp.randn(c, scale=0.1)]
         w_rgb = inp.rand(b)
         n = b * h * w * c
-        cases.append((
+        cases.append(Case(
             "se_fuse_mixed", f"{b}x{h}x{w}x{c}", 1,
             lambda r=r, d=d, wr=w_rgb, ws=wts: se.se_fuse_mixed(r, d, wr, *ws),
             lambda r=r, d=d, wr=w_rgb, ws=wts: se.se_fuse_mixed_plain(r, d, wr, *ws),
@@ -209,11 +237,13 @@ def check_kernels(report: dict) -> list[dict]:
     from dynmm_tpu_torch.utils.device import time_ms
 
     per_kernel: dict[str, dict] = {}
+    # per kernel and batch: ms, bound ms, fp32 CUDA-core bound ms a forward
+    per_forward: dict[tuple[str, int], list[float]] = {}
     inp = Inputs(seed=0)
-    for (name, label, calls, kern, plain, lib, n_bytes, n_flops,
-         alt) in kernel_cases(inp):
+    for case in kernel_cases(inp):
+        name, label, calls = case.name, case.label, case.calls
         with torch.inference_mode():
-            out_k, out_p = kern(), plain()
+            out_k, out_p = case.kern(), case.plain()
             torch.cuda.synchronize()
             outs_k = out_k if isinstance(out_k, tuple) else (out_k,)
             outs_p = out_p if isinstance(out_p, tuple) else (out_p,)
@@ -226,28 +256,39 @@ def check_kernels(report: dict) -> list[dict]:
                 raise RuntimeError(f"{name} {label}: max abs err {err:.3g} is "
                                    f"{rel:.3g} of max |plain| > {KERNEL_TOL}")
             lib_ms = None
-            if lib is not None:
-                lib_err = (lib() - outs_p[0]).abs().max().item() / scale
+            if case.lib is not None:
+                lib_err = (case.lib() - outs_p[0]).abs().max().item() / scale
                 if lib_err > KERNEL_TOL:
                     raise RuntimeError(f"{name} {label}: library call differs "
                                        f"({lib_err:.3g})")
-                lib_ms = time_ms(lib)
-            ms, plain_ms = time_ms(kern), time_ms(plain)
-            alt_ms = None if alt is None else time_ms(alt)
-        b_ms, b_by = bound(n_bytes, n_flops)
-        row = {"kernel": name, "shape": label, "calls_per_forward": calls,
-               "max_abs_err": err, "max_rel_err": rel, "ms": ms,
-               "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": b_ms,
-               "bound_by": b_by}
-        if alt is not None:
+                lib_ms = time_ms(case.lib)
+            ms, plain_ms = time_ms(case.kern), time_ms(case.plain)
+            alt_ms = None if case.alt is None else time_ms(case.alt)
+        b_ms, b_by = bound(case.n_bytes, case.n_flops, case.peak)
+        fp32_ms, _ = bound(case.n_bytes, case.n_flops)
+        tflops = case.n_flops / ms / 1e9
+        row = {"kernel": name, "shape": label, "batch": case.batch,
+               "calls_per_forward": calls, "max_abs_err": err,
+               "max_rel_err": rel, "ms": ms, "plain_ms": plain_ms,
+               "library_ms": lib_ms, "bound_ms": b_ms, "bound_by": b_by,
+               "fp32_bound_ms": fp32_ms, "tflops": tflops}
+        if case.alt is not None:
             row["two_pair_ms"] = alt_ms
         report["kernel_cases"].append(row)
+        bounds = (f"bound {b_ms:.4f} ms ({b_by})" if case.peak == PEAK_FP32_FLOPS
+                  else f"bound 3xTF32 {b_ms:.4f} ms ({b_by}), fp32 "
+                       f"{fp32_ms:.4f} ms")
         print(f"  {name:16s} {label:22s} x{calls:<2d} err {err:.3g} "
-              f"(rel {rel:.3g})  kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  "
+              f"(rel {rel:.3g})  kernel {ms:.4f} ms ({tflops:.1f} TFLOP/s)  "
+              f"plain {plain_ms:.4f} ms  "
               f"library {'-' if lib_ms is None else f'{lib_ms:.4f} ms'}  "
-              f"bound {b_ms:.4f} ms ({b_by})"
-              + ("" if alt is None else f"  two nbt1d_pair {alt_ms:.4f} ms"),
+              + bounds
+              + ("" if case.alt is None else f"  two nbt1d_pair {alt_ms:.4f} ms"),
               flush=True)
+        tot = per_forward.setdefault((name, case.batch), [0.0, 0.0, 0.0])
+        tot[0] += ms * calls
+        tot[1] += b_ms * calls
+        tot[2] += fp32_ms * calls
         agg = per_kernel.setdefault(name, {
             "name": name, "route": "cuda",
             "source": f"dynmm_tpu_torch/kernels/csrc/{SOURCES[name][0]}",
@@ -255,12 +296,23 @@ def check_kernels(report: dict) -> list[dict]:
             "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "bound_by": b_by,
             "library_ms": 0.0 if lib_ms is not None else None})
         agg["max_abs_err"] = max(agg["max_abs_err"], err)
-        # per-forward totals: each shape's time times its calls per forward
+        if case.batch != BATCH:
+            continue
+        # per-forward totals at B=8: each shape's time times its calls
         agg["ms"] += ms * calls
         agg["plain_ms"] += plain_ms * calls
         agg["bound_ms"] += b_ms * calls
         if lib_ms is not None:
             agg["library_ms"] += lib_ms * calls
+    report["nbt1d_per_forward"] = []
+    for (name, b), (ms, b_ms, fp32_ms) in per_forward.items():
+        if not name.startswith("nbt1d"):
+            continue
+        report["nbt1d_per_forward"].append({
+            "kernel": name, "batch": b, "ms": ms, "bound_ms": b_ms,
+            "fp32_bound_ms": fp32_ms})
+        print(f"  {name} per dense B={b} forward: {ms:.3f} ms; bound "
+              f"{b_ms:.3f} ms, on fp32 CUDA cores {fp32_ms:.3f} ms", flush=True)
     return list(per_kernel.values())
 
 

@@ -4,9 +4,11 @@
 
 On the card, at the flagship's four block levels (C = 64…512 at 120×160 …
 15×20) and B = 8 and 1, with seeded inputs: ``nbt1d_fused`` at each band
-height (0 = the kernel's own choice), two ``nbt1d_pair`` launches and the
+height (0 = the kernel's own choice), two ``nbt1d_pair`` calls and the
 plain version, CUDA-event means of 10 calls after 2 warm-up, each kernel
-checked against the plain version (≤ 1e-4 of max |plain|). This is the
+checked against the plain version (≤ 1e-4 of max |plain|; the two pairs'
+error is kept). Bounds: the block's FLOP on fp32 CUDA cores, and as 3xTF32
+on the tensor cores (three TF32 products per fp32 product). This is the
 measurement behind ``NBT1D_FUSED_MAX_C`` and the kernel's band rule; it
 prints the card's name and power limit and writes
 ``chiprun_out/bench_nbt1d.json`` at the root of the checkout.
@@ -27,6 +29,7 @@ from dynmm_tpu_torch.utils.device import card_line, time_ms
 LEVELS = ((64, 120, 160), (128, 60, 80), (256, 30, 40), (512, 15, 20))
 BANDS = (0, 2, 4, 8, 16)
 PEAK_FP32_FLOPS = 67e12
+PEAK_TF32_FLOPS = 495e12
 
 
 def main() -> int:
@@ -54,22 +57,33 @@ def main() -> int:
             with torch.inference_mode():
                 ref = nbt1d.nbt1d_fused_plain(x, *p)
                 scale = ref.abs().max().item()
+                flops = 24.0 * c * c * b * h * w
+
+                def pairs():
+                    return nbt1d.nbt1d_pair(nbt1d.nbt1d_pair(x, *p[:6]), *p[6:],
+                                            identity=x)
+
                 row = {"C": c, "H": h, "W": w, "B": b,
-                       "bound_ms": 24.0 * c * c * b * h * w
-                       / PEAK_FP32_FLOPS * 1e3,
+                       "bound_ms": flops / PEAK_FP32_FLOPS * 1e3,
+                       "bound_tf32x3_ms": 3 * flops / PEAK_TF32_FLOPS * 1e3,
                        "plain_ms": time_ms(lambda: nbt1d.nbt1d_fused_plain(x, *p)),
-                       "two_pair_ms": time_ms(lambda: nbt1d.nbt1d_pair(
-                           nbt1d.nbt1d_pair(x, *p[:6]), *p[6:], identity=x))}
-                for t in BANDS:
-                    out = nbt1d.nbt1d_fused(x, *p, band_rows=t)
-                    err = (out - ref).abs().max().item() / scale
+                       "two_pair_ms": time_ms(pairs)}
+                runs = [("two nbt1d_pair", pairs)] + [
+                    (f"nbt1d_fused T={t}",
+                     lambda t=t: nbt1d.nbt1d_fused(x, *p, band_rows=t))
+                    for t in BANDS]
+                for what, fn in runs:
+                    err = (fn() - ref).abs().max().item() / scale
                     if not err <= 1e-4:
-                        raise RuntimeError(f"nbt1d_fused C={c} B={b} T={t}: "
-                                           f"error {err:.3g} of max |plain|")
-                    row[f"fused_T{t}_ms"] = time_ms(
-                        lambda t=t: nbt1d.nbt1d_fused(x, *p, band_rows=t))
+                        raise RuntimeError(f"{what} C={c} B={b}: error "
+                                           f"{err:.3g} of max |plain|")
+                    if fn is pairs:
+                        row["two_pair_rel_err"] = err
+                for t, (_, fn) in zip(BANDS, runs[1:]):
+                    row[f"fused_T{t}_ms"] = time_ms(fn)
             rows.append(row)
-            print(" ".join(f"{k}={v:.4f}" if isinstance(v, float) else
+            print(" ".join(f"{k}={v:.3g}" if k.endswith("err") else
+                           f"{k}={v:.4f}" if isinstance(v, float) else
                            f"{k}={v}" for k, v in row.items()), flush=True)
     out = Path(__file__).resolve().parents[1] / "chiprun_out"
     out.mkdir(exist_ok=True)

@@ -1,192 +1,383 @@
-// NonBottleneck1D conv-pair kernel for Hopper (sm_90a), fp32.
+// NonBottleneck1D conv pair for Hopper (sm_90a) on tensor cores, fp32-accurate.
 //
 // Replaces dynmm_tpu/kernels/nbt1d.py::_run_pair (_pair_kernel), the unit of
-// fused_nbt1d_twopass. One launch computes one conv pair of a stride-1
+// fused_nbt1d_twopass. One call computes one conv pair of a stride-1
 // NonBottleneck1D block:
-//   h   = relu(3x1 conv(x) + br), zero outside the image columns
+//   h   = relu(3x1 conv(x) + br)
 //   out = relu((1x3 conv(h) + bc) * s + t [+ identity])
 // with BN folded into (s, t) (eps 1e-3) and taps packed as (3, C_in, C_out).
-// A block is two launches: pair 1 without identity, pair 2 with +x.
+// A block is two calls: pair 1 without identity, pair 2 with +x.
 //
-// Bound on this card: operations. Each pair does 2 * 3 * C * C multiply-adds
-// per pixel (7.5 GFLOP for one pair at B=8, 120x160, C=64) against one read
-// of x (and the identity) and one write; in fp32 on CUDA cores the card's
-// 67 TFLOP/s bound it, not its 3.35 TB/s.
+// Implicit GEMM. A 3-tap conv along one axis of an NHWC map is one GEMM,
+//   out[p, co] = sum_{d<3} sum_ci src[p + shift_d, ci] * w[d, ci, co],
+// M = N*H*W pixels by C output channels over K = 3*C, where shift_d is d-1
+// rows (3x1) or d-1 columns (1x3) and a source pixel outside the image reads
+// as 0. One kernel serves both convs, so a call is two launches: launch 1
+// (rows) writes h = relu(acc + br) into a scratch map the wrapper allocates,
+// launch 2 (columns) reads h and writes the output. The zero padding gives
+// the masks the TPU kernel applies by hand (nbt1d.py:74-98): x rows outside
+// the image are 0 in launch 1, and h at a column outside the image is 0 (not
+// relu(br)) in launch 2.
 //
-// Design (simple, right first): one block per (image row, column tile of TW)
-// of one sample, one thread per output channel (blockDim = C up to 512,
-// looping above). The 3x1 conv output for the tile plus its 1-column halo
-// goes to shared memory (C x (TW+2) floats, 48 KB at C = 512, TW = 20); the
-// 1x3 conv then reads it from there. The 3x1 conv stages x in chunks of 32
-// input channels. Weights are read straight from global memory: neighbouring
-// threads read neighbouring output channels, and L2 holds the (3, C, C) taps.
-// The masks the TPU kernel needs (nbt1d.py:74-77, :82-91, :96-98) reduce to
-// two rules here: x rows and columns outside the image read as 0, and h at a
-// column outside the image is 0 (not relu(br)), because torch zero-pads the
-// activation between the two convs.
+// Bound: operations. A pair does 12*C^2 FLOP per pixel, 7.55 GFLOP at every
+// flagship level at B=8 (C^2*H*W = 78,643,200) against 20-30 MB of x, out
+// and identity (9 us at 3.35 TB/s): 113 us on fp32 CUDA cores at 67 TFLOP/s,
+// 46 us as three TF32 products per fp32 product at the tensor cores' 495
+// TFLOP/s. Why two launches and not the TPU's one pass (h kept in VMEM): the
+// h round trip adds 2*B*H*W*C*4 bytes (19.7 MB at 256@30x40, B=8: 6 us, and
+// most of it stays in the 50 MB L2), while one pass needs every output
+// channel of h in one block, which is what starved the grid at B=1. Here the
+// grid is M x C tiles.
+//
+// 3xTF32. Each fp32 operand v splits into hi = tf32(v) and lo = tf32(v - hi)
+// (cvt.rna: nearest, ties away from zero, 10 mantissa bits), and each
+// fragment product is three mma.sync.m16n8k8 TF32 products, lo*hi + hi*lo +
+// hi*hi. hi + lo carries 22 of fp32's 24 significand bits and the dropped
+// lo*lo term is below 2^-22 of the product. The tensor cores' accumulation
+// truncates, though, and its error grows with the number of mma that add
+// into one register: summed over all of K in one accumulator, the pair
+// missed the plain fp32 version by 3.4e-6 (C = 64) to 2.7e-5 (C = 512) of
+// max |plain| on an H100. So each K-chunk's 12 mma start from 0 and the
+// chunk sums add in fp32 (round to nearest): 0.7-1.2e-6 at every C, at the
+// same speed. Plain TF32 (about 3 decimal digits) would miss the 1e-4 check.
+//
+// Tiles. A block of 4 warps (2 x 2) computes BM x BN outputs, each warp
+// BM/2 x BN/2 (BM/32 x BN/16 mma tiles), walking K in chunks of 32 input
+// channels of one tap, double-buffered in shared memory through registers
+// (16-byte loads where C % 4 == 0 and the pointers allow) with rows padded
+// by 4 (A) and 8 (B) floats so that fragment reads hit 32 distinct banks.
+// Ragged pixel rows and channels past C load as 0 and are not stored. Tile
+// rule: 64 x 64 unless that gives fewer than two blocks per SM (264 on 132
+// SMs), then 32 x 32. At B=1: 128@60x80 150 -> 600 blocks, 256@30x40
+// 76 -> 304, 512@15x20 40 -> 160; at B=8 every level keeps 64 x 64 (1,200,
+// 600 and 304 blocks). On an H100 the small tile was 14-16 % faster than
+// 32 x 64 at B=1 on the two deep levels, and 32-row tiles at B=8 slower.
 
 #include <cuda_runtime.h>
+#include <cstdint>
+#ifdef DYNMM_EMULATED
+#include <cstring>
+#endif
 
 namespace {
 
-constexpr int KC = 32;  // input channels staged per step of the 3x1 conv
+constexpr int THREADS = 128;
+constexpr int BK = 32;      // input channels per K-chunk (of one tap)
+constexpr int AS = BK + 4;  // row stride of the A tile in shared memory
+constexpr int SMS = 132;
 
-template <int TW>
-struct Tile {
-  static constexpr int TH = TW + 2;              // h columns incl. halo
-  static constexpr int TP = (TH + 3) / 4 * 4;    // padded to float4
-  static size_t smem_bytes(int C) {
-    return (size_t)(C * TP + 3 * KC * TP) * sizeof(float);
-  }
-};
-
-template <int TW>
-__global__ void __launch_bounds__(512)
-    nbt1d_pair_kernel(const float* __restrict__ x,
-                      const float* __restrict__ idn,
-                      const float* __restrict__ wr,
-                      const float* __restrict__ br,
-                      const float* __restrict__ wc,
-                      const float* __restrict__ bc,
-                      const float* __restrict__ s,
-                      const float* __restrict__ t, float* __restrict__ out,
-                      int H, int W, int C) {
-  constexpr int TH = Tile<TW>::TH;
-  constexpr int TP = Tile<TW>::TP;
-  extern __shared__ float4 smem4[];
-  float* hs = reinterpret_cast<float*>(smem4);  // [C][TP]
-  float* xs = hs + (size_t)C * TP;               // [3][KC][TP]
-
-  const int c0 = blockIdx.x * TW;
-  const int y = blockIdx.y;
-  const int n = blockIdx.z;
-  const float* xn = x + (size_t)n * H * W * C;
-
-  // ---- 3x1 conv + bias + relu over columns c0-1 .. c0+TW -> hs
-  for (int co0 = 0; co0 < C; co0 += blockDim.x) {
-    const int co = co0 + threadIdx.x;
-    float acc[TP];
-#pragma unroll
-    for (int j = 0; j < TP; ++j) acc[j] = 0.f;
-    for (int ci0 = 0; ci0 < C; ci0 += KC) {
-      const int kc = C - ci0 < KC ? C - ci0 : KC;
-      __syncthreads();  // every thread is done with the previous chunk
-      for (int e = threadIdx.x; e < 3 * TP * KC; e += blockDim.x) {
-        const int k = e % KC;
-        const int j = (e / KC) % TP;
-        const int d = e / (KC * TP);
-        const int yy = y + d - 1, xx = c0 - 1 + j;
-        float v = 0.f;
-        if (k < kc && j < TH && yy >= 0 && yy < H && xx >= 0 && xx < W)
-          v = xn[((size_t)yy * W + xx) * C + ci0 + k];
-        xs[(d * KC + k) * TP + j] = v;
-      }
-      __syncthreads();
-      if (co < C) {
-        for (int d = 0; d < 3; ++d) {
-          const float* wd = wr + ((size_t)d * C + ci0) * C + co;
-#pragma unroll 4
-          for (int k = 0; k < kc; ++k) {
-            const float w = wd[(size_t)k * C];
-            const float4* row =
-                reinterpret_cast<const float4*>(xs + (d * KC + k) * TP);
-#pragma unroll
-            for (int q = 0; q < TP / 4; ++q) {
-              const float4 v = row[q];
-              acc[4 * q + 0] += v.x * w;
-              acc[4 * q + 1] += v.y * w;
-              acc[4 * q + 2] += v.z * w;
-              acc[4 * q + 3] += v.w * w;
-            }
-          }
-        }
-      }
-    }
-    if (co < C) {
-      const float b = br[co];
-#pragma unroll
-      for (int j = 0; j < TP; ++j) {
-        const int col = c0 - 1 + j;
-        const bool inside = j < TH && col >= 0 && col < W;
-        hs[(size_t)co * TP + j] = inside ? fmaxf(acc[j] + b, 0.f) : 0.f;
-      }
-    }
-  }
-  __syncthreads();
-
-  // ---- 1x3 conv + bias -> folded BN -> [+identity] -> relu
-  for (int co0 = 0; co0 < C; co0 += blockDim.x) {
-    const int co = co0 + threadIdx.x;
-    if (co >= C) continue;
-    float acc[TW];
-#pragma unroll
-    for (int j = 0; j < TW; ++j) acc[j] = 0.f;
-    for (int ci = 0; ci < C; ++ci) {
-      const float w0 = wc[((size_t)0 * C + ci) * C + co];
-      const float w1 = wc[((size_t)1 * C + ci) * C + co];
-      const float w2 = wc[((size_t)2 * C + ci) * C + co];
-      float hv[TP];
-      const float4* row = reinterpret_cast<const float4*>(hs + (size_t)ci * TP);
-#pragma unroll
-      for (int q = 0; q < TP / 4; ++q) {
-        const float4 v = row[q];
-        hv[4 * q + 0] = v.x;
-        hv[4 * q + 1] = v.y;
-        hv[4 * q + 2] = v.z;
-        hv[4 * q + 3] = v.w;
-      }
-#pragma unroll
-      for (int j = 0; j < TW; ++j)
-        acc[j] += hv[j] * w0 + hv[j + 1] * w1 + hv[j + 2] * w2;
-    }
-    const float b = bc[co], sc = s[co], sh = t[co];
-#pragma unroll
-    for (int j = 0; j < TW; ++j) {
-      const int col = c0 + j;
-      if (col >= W) continue;
-      const size_t off = (((size_t)n * H + y) * W + col) * C + co;
-      float v = (acc[j] + b) * sc + sh;
-      if (idn != nullptr) v += idn[off];
-      out[off] = fmaxf(v, 0.f);
-    }
-  }
+template <int BM, int BN>
+constexpr size_t smem_bytes() {
+  return (size_t)2 * (BM * AS + BK * (BN + 8)) * sizeof(float);
 }
 
-template <int TW>
-int launch(const float* x, const float* idn, const float* wr, const float* br,
-           const float* wc, const float* bc, const float* s, const float* t,
-           float* out, int N, int H, int W, int C, cudaStream_t st) {
-  const size_t smem = Tile<TW>::smem_bytes(C);
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        nbt1d_pair_kernel<TW>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (err != cudaSuccess) return (int)err;
+#ifdef DYNMM_EMULATED
+inline unsigned f2u(float v) { unsigned u; std::memcpy(&u, &v, 4); return u; }
+inline float u2f(unsigned u) { float v; std::memcpy(&v, &u, 4); return v; }
+#else
+__device__ __forceinline__ float u2f(unsigned u) { return __uint_as_float(u); }
+#endif
+
+// fp32 -> tf32 (cvt.rna.tf32.f32): nearest, ties away from zero.
+__device__ __forceinline__ unsigned to_tf32(float v) {
+#ifndef DYNMM_EMULATED
+  unsigned r;
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(v));
+  return r;
+#else
+  const unsigned u = f2u(v);
+  if ((u & 0x7f800000u) == 0x7f800000u) return u;  // inf and nan as they are
+  return (u + 0x1000u) & 0xffffe000u;  // magnitude rounds, sign stays
+#endif
+}
+
+__device__ __forceinline__ void split(float v, unsigned& hi, unsigned& lo) {
+  hi = to_tf32(v);
+  lo = to_tf32(v - u2f(hi));
+}
+
+#ifndef DYNMM_EMULATED
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const unsigned (&a)[4],
+                                         const unsigned (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+#else
+// One m16n8k8 TF32 product on the lanes' fragments in the warp's exchange
+// buffer. The card reads the upper 19 bits of each operand: the products of
+// two such values are exact in fp32. The sum is taken in fp32, rounded to
+// nearest here where the card truncates (see the note at the top).
+inline void emu_mma_tf32(float (&d)[4], const unsigned* lanes, int stride,
+                         int a_at, int b_at) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  auto A = [&](int r, int k) {  // a0 A[g][t], a1 A[g+8][t], a2 A[g][t+4], ...
+    return u2f(lanes[((r & 7) * 4 + (k & 3)) * stride + a_at +
+                     (r >> 3) + 2 * (k >> 2)] & 0xffffe000u);
+  };
+  auto B = [&](int k, int n) {  // b0 B[t][g], b1 B[t+4][g]
+    return u2f(lanes[(n * 4 + (k & 3)) * stride + b_at + (k >> 2)] &
+               0xffffe000u);
+  };
+  for (int i = 0; i < 4; ++i) {  // c0 C[g][2t], c1 C[g][2t+1], c2 C[g+8][2t]..
+    const int r = g + 8 * (i >> 1), n = 2 * t + (i & 1);
+    float acc = d[i];
+    for (int k = 0; k < 8; ++k) acc += A(r, k) * B(k, n);
+    d[i] = acc;
   }
-  int threads = (C + 31) / 32 * 32;
-  if (threads > 512) threads = 512;
-  dim3 grid((W + TW - 1) / TW, H, N);
-  nbt1d_pair_kernel<TW><<<grid, threads, smem, st>>>(x, idn, wr, br, wc, bc, s,
-                                                     t, out, H, W, C);
+}
+#endif
+
+// acc[mt][nt] += A_mt * B_nt in 3xTF32 for one k-step of 8: lo*hi, hi*lo,
+// hi*hi, small terms first. The emulation exchanges the warp's fragments
+// once per call, not once per mma.
+template <int MT, int NT>
+__device__ __forceinline__ void mma_3xtf32(float (&acc)[MT][NT][4],
+                                           const unsigned (&ah)[MT][4],
+                                           const unsigned (&al)[MT][4],
+                                           const unsigned (&bh)[NT][2],
+                                           const unsigned (&bl)[NT][2]) {
+#ifndef DYNMM_EMULATED
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+      mma_tf32(acc[mt][nt], al[mt], bh[nt]);
+      mma_tf32(acc[mt][nt], ah[mt], bl[nt]);
+      mma_tf32(acc[mt][nt], ah[mt], bh[nt]);
+    }
+#else
+  constexpr int STRIDE = 8 * MT + 4 * NT;  // words a lane publishes
+  static_assert(STRIDE <= EMU_WARP_WORDS, "exchange buffer too small");
+  unsigned* lanes = emu_warp_mem();
+  unsigned* mine = lanes + (threadIdx.x & 31) * STRIDE;
+  for (int mt = 0; mt < MT; ++mt)
+    for (int j = 0; j < 4; ++j) {
+      mine[mt * 4 + j] = ah[mt][j];
+      mine[4 * MT + mt * 4 + j] = al[mt][j];
+    }
+  for (int nt = 0; nt < NT; ++nt)
+    for (int j = 0; j < 2; ++j) {
+      mine[8 * MT + nt * 2 + j] = bh[nt][j];
+      mine[8 * MT + 2 * NT + nt * 2 + j] = bl[nt][j];
+    }
+  emu_warp_sync();
+  for (int mt = 0; mt < MT; ++mt)
+    for (int nt = 0; nt < NT; ++nt) {
+      const int a_hi = mt * 4, a_lo = 4 * MT + mt * 4;
+      const int b_hi = 8 * MT + nt * 2, b_lo = 8 * MT + 2 * NT + nt * 2;
+      emu_mma_tf32(acc[mt][nt], lanes, STRIDE, a_lo, b_hi);
+      emu_mma_tf32(acc[mt][nt], lanes, STRIDE, a_hi, b_lo);
+      emu_mma_tf32(acc[mt][nt], lanes, STRIDE, a_hi, b_hi);
+    }
+#endif
+}
+
+// Up to 4 floats from p (n of them valid); 0 where invalid.
+__device__ __forceinline__ float4 load4(const float* p, bool ok, int n,
+                                        bool vec) {
+  float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+  if (!ok || n <= 0) return v;
+  if (vec && n >= 4) return *reinterpret_cast<const float4*>(p);
+  v.x = p[0];
+  if (n > 1) v.y = p[1];
+  if (n > 2) v.z = p[2];
+  if (n > 3) v.w = p[3];
+  return v;
+}
+
+// One 3-tap conv along `axis` (0: rows, 1: columns) as an implicit GEMM:
+// out = relu(acc + bias) when s is null (launch 1), else
+// relu((acc + bias) * s + t [+ idn]) (launch 2).
+template <int BM, int BN>
+__global__ void __launch_bounds__(128)
+    nbt1d_conv_kernel(const float* __restrict__ src,
+                      const float* __restrict__ w,
+                      const float* __restrict__ bias,
+                      const float* __restrict__ s,
+                      const float* __restrict__ t,
+                      const float* __restrict__ idn, float* __restrict__ out,
+                      int M, int H, int W, int C, int axis) {
+  constexpr int MT = BM / 32;  // 16-row mma tiles per warp
+  constexpr int NT = BN / 16;  // 8-column mma tiles per warp
+  constexpr int BS = BN + 8;   // row stride of the B tile in shared memory
+  constexpr int A_LD = BM * BK / 4 / THREADS;  // float4 loads of A a thread
+  constexpr int B_LD = BK * BN / 4 / THREADS;
+  constexpr int B_TPR = BN / 4;                // threads per B row
+  extern __shared__ float4 smem4[];
+  float* As = reinterpret_cast<float*>(smem4);  // [2][BM][AS]
+  float* Bs = As + 2 * BM * AS;                  // [2][BK][BS]
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, tg = lane & 3;
+  const int wm = (warp >> 1) * (BM / 2), wn = (warp & 1) * (BN / 2);
+  const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
+  const bool vec = (C & 3) == 0 &&
+                   ((reinterpret_cast<uintptr_t>(src) |
+                     reinterpret_cast<uintptr_t>(w)) & 15) == 0;
+  const int len = axis == 0 ? H : W;   // extent along the conv axis
+  const int step = axis == 0 ? W : 1;  // pixels per step along the axis
+
+  // This thread stages A rows m0 + tid/8 + 16i (channels 4*(tid%8) ..+3 of
+  // the chunk) and B rows bk + (THREADS/B_TPR)i (output channels n0 + bn
+  // ..+3).
+  const int ak = (tid & 7) * 4, bk = tid / B_TPR, bn = tid % B_TPR * 4;
+  int a_pix[A_LD], a_pos[A_LD];  // pixel (-1 past M), its coordinate on axis
+#pragma unroll
+  for (int i = 0; i < A_LD; ++i) {
+    const int p = m0 + (tid >> 3) + 16 * i;
+    a_pix[i] = p < M ? p : -1;
+    a_pos[i] = axis == 0 ? (p / W) % H : p % W;
+  }
+  const int kchunks = (C + BK - 1) / BK;
+  const int nk = 3 * kchunks;
+  float4 ra[A_LD], rb[B_LD];
+
+  auto load = [&](int kc) {
+    const int d = kc / kchunks, ci0 = (kc - d * kchunks) * BK;
+#pragma unroll
+    for (int i = 0; i < A_LD; ++i) {
+      const int pos = a_pos[i] + d - 1;
+      const bool ok = a_pix[i] >= 0 && pos >= 0 && pos < len;
+      const size_t q = (size_t)(a_pix[i] + (d - 1) * step);
+      ra[i] = load4(src + q * C + ci0 + ak, ok, C - ci0 - ak, vec);
+    }
+#pragma unroll
+    for (int i = 0; i < B_LD; ++i) {
+      const int k = ci0 + bk + THREADS / B_TPR * i;
+      rb[i] = load4(w + ((size_t)d * C + k) * C + n0 + bn, k < C,
+                    C - n0 - bn, vec);
+    }
+  };
+  auto store = [&](int buf) {
+#pragma unroll
+    for (int i = 0; i < A_LD; ++i)
+      *reinterpret_cast<float4*>(
+          As + (buf * BM + (tid >> 3) + 16 * i) * AS + ak) = ra[i];
+#pragma unroll
+    for (int i = 0; i < B_LD; ++i)
+      *reinterpret_cast<float4*>(
+          Bs + (buf * BK + bk + THREADS / B_TPR * i) * BS + bn) = rb[i];
+  };
+
+  float acc[MT][NT][4];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[mt][nt][i] = 0.f;
+
+  float part[MT][NT][4];  // this chunk's sum, started from 0
+  load(0);
+  store(0);
+  __syncthreads();
+  for (int kc = 0; kc < nk; ++kc) {
+    const int buf = kc & 1;
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) part[mt][nt][i] = 0.f;
+    if (kc + 1 < nk) load(kc + 1);  // in flight while this chunk computes
+    const float* a_s = As + buf * BM * AS;
+    const float* b_s = Bs + buf * BK * BS;
+#pragma unroll
+    for (int kk = 0; kk < BK; kk += 8) {
+      unsigned ah[MT][4], al[MT][4], bh[NT][2], bl[NT][2];
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+        const float* r = a_s + (wm + mt * 16 + g) * AS + kk + tg;
+        split(r[0], ah[mt][0], al[mt][0]);
+        split(r[8 * AS], ah[mt][1], al[mt][1]);
+        split(r[4], ah[mt][2], al[mt][2]);
+        split(r[8 * AS + 4], ah[mt][3], al[mt][3]);
+      }
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        const float* c = b_s + (kk + tg) * BS + wn + nt * 8 + g;
+        split(c[0], bh[nt][0], bl[nt][0]);
+        split(c[4 * BS], bh[nt][1], bl[nt][1]);
+      }
+      mma_3xtf32<MT, NT>(part, ah, al, bh, bl);
+    }
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) acc[mt][nt][i] += part[mt][nt][i];
+    if (kc + 1 < nk) store(buf ^ 1);
+    __syncthreads();
+  }
+
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int p = m0 + wm + mt * 16 + g + 8 * (i >> 1);
+        const int co = n0 + wn + nt * 8 + 2 * tg + (i & 1);
+        if (p >= M || co >= C) continue;
+        const size_t off = (size_t)p * C + co;
+        float v = acc[mt][nt][i] + bias[co];
+        if (s != nullptr) {
+          v = v * s[co] + t[co];
+          if (idn != nullptr) v += idn[off];
+        }
+        out[off] = fmaxf(v, 0.f);
+      }
+}
+
+template <int BM, int BN>
+int launch(const float* src, const float* w, const float* bias,
+           const float* s, const float* t, const float* idn, float* out,
+           int M, int H, int W, int C, int axis, cudaStream_t st) {
+  const dim3 grid((M + BM - 1) / BM, (C + BN - 1) / BN);
+  const size_t smem = smem_bytes<BM, BN>();
+  nbt1d_conv_kernel<BM, BN><<<grid, THREADS, smem, st>>>(
+      src, w, bias, s, t, idn, out, M, H, W, C, axis);
   return (int)cudaGetLastError();
+}
+
+int conv(int bm, const float* src, const float* w, const float* bias,
+         const float* s, const float* t, const float* idn, float* out, int M,
+         int H, int W, int C, int axis, cudaStream_t st) {
+  return bm == 64 ? launch<64, 64>(src, w, bias, s, t, idn, out, M, H, W, C,
+                                   axis, st)
+                  : launch<32, 32>(src, w, bias, s, t, idn, out, M, H, W, C,
+                                   axis, st);
 }
 
 }  // namespace
 
-// idn == nullptr: pair 1 (relu after the affine); else pair 2 (+identity,
-// then relu). Tile width: 16 or 20 where it divides W (no idle columns at the
-// flagship's 160/80/40/20), else 8, else 16 with the ragged edge masked.
+// One pair: launch 1 (3x1, rows) x -> h, launch 2 (1x3, columns) h -> out.
+// idn == nullptr: pair 1; else pair 2 (+identity before the relu). h is an
+// (N, H, W, C) scratch map the caller allocates.
 extern "C" int dynmm_nbt1d_pair(const float* x, const float* idn,
                                 const float* wr, const float* br,
                                 const float* wc, const float* bc,
-                                const float* s, const float* t, float* out,
-                                int N, int H, int W, int C, void* stream) {
+                                const float* s, const float* t, float* h,
+                                float* out, int N, int H, int W, int C,
+                                void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  if (W % 16 == 0)
-    return launch<16>(x, idn, wr, br, wc, bc, s, t, out, N, H, W, C, st);
-  if (W % 20 == 0)
-    return launch<20>(x, idn, wr, br, wc, bc, s, t, out, N, H, W, C, st);
-  if (W % 8 == 0)
-    return launch<8>(x, idn, wr, br, wc, bc, s, t, out, N, H, W, C, st);
-  return launch<16>(x, idn, wr, br, wc, bc, s, t, out, N, H, W, C, st);
+  const int M = N * H * W;
+  if (M == 0 || C == 0) return 0;
+  const long blocks64 = (long)((M + 63) / 64) * ((C + 63) / 64);
+  const int bm = blocks64 < 2 * SMS ? 32 : 64;
+  const int err = conv(bm, x, wr, br, nullptr, nullptr, nullptr, h, M, H, W, C,
+                       0, st);
+  if (err != 0) return err;
+  return conv(bm, h, wc, bc, s, t, idn, out, M, H, W, C, 1, st);
 }
+
+#ifdef DYNMM_EMULATED
+// The emulation's TF32 split, for the tests: hi[i], lo[i] of v[i].
+extern "C" void dynmm_emu_tf32_split(const float* v, unsigned* hi,
+                                     unsigned* lo, int n) {
+  for (int i = 0; i < n; ++i) split(v[i], hi[i], lo[i]);
+}
+#endif

@@ -5,11 +5,20 @@ Each ``csrc/<name>.cu`` is rewritten into host C++ (launches ``k<<<g, b, s,
 st>>>(args)`` become calls of an emulated launcher, dynamic shared memory a
 per-block buffer) and compiled with the host's ``g++`` against a small
 header that provides the CUDA names the sources use. Blocks run one after
-another; a kernel that calls ``__syncthreads`` runs each block's threads as
-``std::thread``s meeting at a ``std::barrier``, any other kernel runs its
-threads in a loop. Indexing, masking, tiling and the arithmetic are the
-sources' own; what only the card shows (timing, races between warps, limits
-on registers and shared memory) is not emulated.
+another. A kernel that calls ``__syncthreads`` runs each block's threads as
+contexts (``ucontext``) on the calling thread, switched only where a thread
+waits at a barrier: one core per block, so the tests keep their pace when
+other processes load the machine (OS threads meeting at futex barriers ran
+several times slower there). Barriers that never complete make the launch
+report an error, as a failed launch does on the card. Any other kernel runs
+its threads in a loop. The header defines ``DYNMM_EMULATED``: a source
+keeps its inline PTX under ``#ifndef DYNMM_EMULATED`` and emulates it
+otherwise, warp collectives (``mma.sync``) through a per-warp barrier of 32
+and a per-warp exchange buffer (``emu_warp_sync``, ``emu_warp_mem``).
+Indexing, masking, tiling and the arithmetic are the sources' own; what only
+the card shows (timing, races between warps, limits on registers and shared
+memory, the tensor cores' truncating sums) is not emulated. One launch runs
+at a time.
 
     with emulated(build(tmp_dir)):
         nbt1d_pair(x_cpu, ...)   # launches the emulated kernel on CPU memory
@@ -31,29 +40,78 @@ from dynmm_tpu_torch.kernels import _build
 
 SHIM = r"""
 #pragma once
+#define DYNMM_EMULATED 1
 #include <math.h>
-#include <barrier>
+#include <ucontext.h>
+#include <algorithm>
 #include <cmath>
 #include <cstddef>
-#include <thread>
+#include <memory>
+#include <utility>
 #include <vector>
 struct dim3 {
   unsigned x, y, z;
   dim3(unsigned a = 1, unsigned b = 1, unsigned c = 1) : x(a), y(b), z(c) {}
 };
 struct uint3 { unsigned x, y, z; };
-inline thread_local uint3 threadIdx, blockIdx;
+inline uint3 threadIdx, blockIdx;
 inline dim3 blockDim, gridDim;
-inline std::barrier<>* emu_bar = nullptr;
-inline void __syncthreads() { emu_bar->arrive_and_wait(); }
 inline std::vector<char> emu_smem;
+// A block's threads run as contexts on the calling thread, switched only at
+// barriers: a thread that arrives early returns to the scheduler until the
+// barrier's last thread has arrived.
+struct EmuBarrier {
+  unsigned n = 0, count = 0, gen = 0;
+};
+// A warp's lanes meet at its barrier and exchange words through one of its
+// two buffers, in turn: a lane writes a buffer again only two exchanges
+// later, after every lane has passed the barrier between, so one barrier
+// per exchange suffices.
+constexpr int EMU_WARP_WORDS = 64;  // per lane
+struct EmuWarp {
+  EmuBarrier bar;
+  unsigned mem[2][32 * EMU_WARP_WORDS];
+};
+struct EmuThread {
+  ucontext_t ctx;
+  EmuBarrier* waits_on = nullptr;
+  unsigned wait_gen = 0, turn = 0;
+  bool done = false;
+  EmuWarp* warp = nullptr;
+};
+inline ucontext_t emu_sched;
+inline EmuThread* emu_cur = nullptr;
+inline EmuBarrier emu_block_bar;
+inline void (*emu_invoke)(void*) = nullptr;
+inline void* emu_body = nullptr;
+inline void emu_arrive(EmuBarrier& b) {
+  if (++b.count == b.n) {
+    b.count = 0;
+    ++b.gen;
+    return;
+  }
+  emu_cur->waits_on = &b;
+  emu_cur->wait_gen = b.gen;
+  swapcontext(&emu_cur->ctx, &emu_sched);
+}
+inline void __syncthreads() { emu_arrive(emu_block_bar); }
+inline void emu_warp_sync() { emu_arrive(emu_cur->warp->bar); }
+// the buffer of this lane's next exchange; every lane calls it once each
+inline unsigned* emu_warp_mem() {
+  return emu_cur->warp->mem[emu_cur->turn ^= 1];
+}
+inline void emu_entry() {
+  emu_invoke(emu_body);
+  emu_cur->done = true;  // returns to the scheduler through uc_link
+}
 typedef void* cudaStream_t;
 typedef int cudaError_t;
-enum { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
+enum { cudaSuccess = 0, cudaErrorInvalidValue = 1, cudaErrorLaunchFailure = 719 };
 enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize };
 template <class F>
 inline cudaError_t cudaFuncSetAttribute(F, cudaFuncAttribute, int) { return 0; }
-inline cudaError_t cudaGetLastError() { return 0; }
+inline cudaError_t emu_error = 0;  // read and cleared as on the card
+inline cudaError_t cudaGetLastError() { return std::exchange(emu_error, 0); }
 struct alignas(16) float4 { float x, y, z, w; };
 inline float4 make_float4(float a, float b, float c, float d) { return {a, b, c, d}; }
 #define __global__
@@ -70,6 +128,12 @@ void emu_launch(bool barrier, dim3 g, dim3 b, size_t smem, F&& f) {
   auto at = [&](unsigned t) {
     threadIdx = {t % b.x, (t / b.x) % b.y, t / (b.x * b.y)};
   };
+  constexpr size_t STACK = 256 * 1024;
+  std::vector<EmuThread> ts(barrier ? nt : 0);
+  std::vector<EmuWarp> warps(barrier ? (nt + 31) / 32 : 0);
+  std::unique_ptr<char[]> stacks(barrier ? new char[nt * STACK] : nullptr);
+  emu_invoke = [](void* p) { (*static_cast<std::remove_reference_t<F>*>(p))(); };
+  emu_body = &f;
   for (unsigned z = 0; z < g.z; ++z)
     for (unsigned y = 0; y < g.y; ++y)
       for (unsigned x = 0; x < g.x; ++x) {
@@ -79,13 +143,37 @@ void emu_launch(bool barrier, dim3 g, dim3 b, size_t smem, F&& f) {
           for (unsigned t = 0; t < nt; ++t) { at(t); f(); }
           continue;
         }
-        std::barrier<> bar(nt);
-        emu_bar = &bar;
-        std::vector<std::thread> ts;
-        ts.reserve(nt);
-        for (unsigned t = 0; t < nt; ++t)
-          ts.emplace_back([&, t, x, y, z] { blockIdx = {x, y, z}; at(t); f(); });
-        for (auto& th : ts) th.join();
+        emu_block_bar = {nt, 0, 0};
+        for (unsigned w = 0; w < warps.size(); ++w)
+          warps[w].bar = {std::min(32u, nt - 32 * w), 0, 0};
+        for (unsigned t = 0; t < nt; ++t) {
+          EmuThread& th = ts[t];
+          th = EmuThread{};
+          th.warp = &warps[t / 32];
+          getcontext(&th.ctx);
+          th.ctx.uc_stack.ss_sp = stacks.get() + t * STACK;
+          th.ctx.uc_stack.ss_size = STACK;
+          th.ctx.uc_link = &emu_sched;
+          makecontext(&th.ctx, emu_entry, 0);
+        }
+        for (unsigned live = nt; live > 0;) {
+          bool moved = false;
+          for (unsigned t = 0; t < nt; ++t) {
+            EmuThread& th = ts[t];
+            if (th.done || (th.waits_on && th.waits_on->gen == th.wait_gen))
+              continue;
+            th.waits_on = nullptr;
+            emu_cur = &th;
+            at(t);
+            swapcontext(&emu_sched, &th.ctx);
+            moved = true;
+            live -= th.done;
+          }
+          if (!moved) {  // every thread waits: barriers that do not match
+            emu_error = cudaErrorLaunchFailure;
+            return;
+          }
+        }
       }
 }
 """

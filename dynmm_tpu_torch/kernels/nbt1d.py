@@ -60,7 +60,11 @@ def nbt1d_pair(x: torch.Tensor, wr: torch.Tensor, br: torch.Tensor,
                t: torch.Tensor, identity: torch.Tensor | None = None
                ) -> torch.Tensor:
     """One conv pair on x (N, H, W, C): 3×1 + br → relu → 1×3 + bc →
-    ·s + t [+ identity] → relu."""
+    ·s + t [+ identity] → relu.
+
+    On the card one call is two launches of one implicit-GEMM conv kernel
+    (3×1 into a scratch h, then 1×3), in 3xTF32 on the tensor cores; it
+    counts as one ``nbt1d_pair`` launch."""
     if not _build.on_card(x, wr, br, wc, bc, s, t, identity):
         return nbt1d_pair_plain(x, wr, br, wc, bc, s, t, identity)
     n, h, w, c = x.shape
@@ -71,12 +75,12 @@ def nbt1d_pair(x: torch.Tensor, wr: torch.Tensor, br: torch.Tensor,
         _build.require(a, name, (c,))
     if identity is not None:
         _build.require(identity, "identity", (n, h, w, c))
-    out = torch.empty_like(x)
-    fn = _build.function("nbt1d", "dynmm_nbt1d_pair", 9, 4)
+    scratch, out = torch.empty_like(x), torch.empty_like(x)
+    fn = _build.function("nbt1d", "dynmm_nbt1d_pair", 10, 4)
     _build.check(fn(_build.ptr(x), _build.ptr(identity), _build.ptr(wr),
                     _build.ptr(br), _build.ptr(wc), _build.ptr(bc),
-                    _build.ptr(s), _build.ptr(t), _build.ptr(out),
-                    n, h, w, c, _build.stream()), "nbt1d_pair")
+                    _build.ptr(s), _build.ptr(t), _build.ptr(scratch),
+                    _build.ptr(out), n, h, w, c, _build.stream()), "nbt1d_pair")
     _build.LAUNCHES["nbt1d_pair"] += 1
     return out
 

@@ -3,18 +3,22 @@
 ``dynmm_tpu_torch.kernels.emulate`` compiles each ``csrc/*.cu`` with the
 host's C++ compiler against a small CUDA emulation, so the kernels'
 indexing, tiling, masks and arithmetic are exercised here, where there is
-no card and no ``nvcc``. Shapes are chosen to reach every code path: each
-NBt1D tile width (16, 20, 8 and a ragged edge), bands of the one-launch
-block cut by the last image row, partial channel chunks, blocks with more
-threads than channels, odd pooled sizes and C = 40 upsamples. The whole
+no card and no ``nvcc``. Shapes are chosen to reach every code path: both
+tiles of the pair's implicit-GEMM kernel (its ``mma.sync`` fragments
+exchanged inside each emulated warp) with ragged pixel and channel edges,
+bands of the one-launch block cut by the last image row, partial channel
+chunks, blocks with more threads than channels, odd pooled sizes and C = 40
+upsamples. The whole
 small model is served through the emulated kernels, densely and through the
 routed strategies, with the launch counts of its forward. On the card,
 ``chip_smoke.py`` holds the same sources, built by ``nvcc``, against the
 same plain versions.
 """
 
+import ctypes
 import shutil
 
+import numpy as np
 import pytest
 import torch
 
@@ -58,14 +62,23 @@ def _close(out, ref):
 
 
 @pytest.mark.parametrize("n,h,w,c", [
-    (2, 5, 16, 32),   # tile width 16
-    (1, 2, 40, 64),   # tile width 20, two full chunks of input channels
-    (2, 3, 8, 40),    # tile width 8; 64 threads for 40 channels
-    (2, 5, 12, 32),   # ragged edge masked
-    (1, 4, 3, 33),    # narrower than a tile, odd channel count
+    # 32 x 32 tiles (64 x 64 tiles would give fewer than 264 blocks)
+    (2, 5, 16, 32),   # one chunk of input channels per tap, 160 pixels
+    (1, 2, 40, 64),   # two full chunks, two full tiles of output channels
+    (2, 3, 8, 40),    # a partial chunk; output channels past C not stored
+    (2, 5, 12, 32),   # ragged last tile of pixels (120 = 3·32 + 24)
+    (1, 4, 3, 33),    # narrower than a tile, odd C: scalar loads
+    (2, 3, 5, 100),   # four tiles of output channels, the last partial
+    (1, 1, 7, 40),    # one image row: both row taps read padding
+    (1, 9, 1, 33),    # one image column: both column taps read padding
+    # 64 x 64 tiles: 265 blocks; ragged last tile (16,951 = 264·64 + 55)
+    (1, 67, 253, 32),
 ])
 @pytest.mark.parametrize("with_identity", [False, True])
 def test_nbt1d_pair(libs, n, h, w, c, with_identity):
+    """Pair 1 and pair 2 through both launches of the implicit-GEMM kernel.
+    The 1e-5 relative tolerance holds only with 3xTF32's correction terms:
+    the hi·hi products alone miss it by an order of magnitude."""
     g = _gen(h * w + c)
     x = _randn(g, n, h, w, c)
     p = [_randn(g, 3, c, c, scale=0.2), _randn(g, c), _randn(g, 3, c, c, scale=0.2),
@@ -73,6 +86,50 @@ def test_nbt1d_pair(libs, n, h, w, c, with_identity):
     idn = _randn(g, n, h, w, c) if with_identity else None
     _close(*_both(libs, nbt1d.nbt1d_pair, x, *p, identity=idn))
     assert dict(LAUNCHES) == {"nbt1d_pair": 1}  # the plain call counts none
+
+
+def _tf32_reference(v: np.ndarray) -> np.ndarray:
+    """fp32 → tf32 bits by arithmetic in float64: the significand rounded
+    to 11 bits, ties away from zero."""
+    m, e = np.frexp(np.abs(v.astype(np.float64)))  # |v| = m·2^e, m in [0.5, 1)
+    r = np.floor(m * 2.0 ** 11 + 0.5) * 2.0 ** (e - 11)
+    return np.copysign(r, v).astype(np.float32).view(np.uint32)
+
+
+_ONE = 1.0 + 2.0 ** -11  # halfway between two tf32 neighbours of 1
+_TF32_CASES = {
+    "ties": [_ONE, 1.0 + 3 * 2.0 ** -11, 3.0 * _ONE, 2.0 ** -20 * _ONE],
+    "negatives": [-_ONE, -1.0 - 3 * 2.0 ** -11, -0.1, -7.3e-12, -0.0],
+    "carry into the exponent": [np.nextafter(np.float32(2), np.float32(0)),
+                                -np.nextafter(np.float32(1), np.float32(0)),
+                                2.0 - 2.0 ** -11, 1.5e30 * (2 - 2.0 ** -11)],
+    "near ties": [1.0 + 2.0 ** -11 - 2.0 ** -23, 1.0 + 2.0 ** -11 + 2.0 ** -23,
+                  0.0, 1.0, 3.14159265, 1e-30],
+}
+
+
+@pytest.mark.parametrize("case", list(_TF32_CASES) + ["random"])
+def test_emulated_tf32_split(libs, case):
+    """The emulated ``cvt.rna.tf32.f32`` against a bit-level reference,
+    and the 3xTF32 split v = hi + lo that the pair kernel multiplies with:
+    lo is v − hi rounded the same way, and hi + lo is within 2^-22 of v."""
+    if case == "random":
+        rng = np.random.default_rng(0)
+        v = (rng.standard_normal(4096)
+             * 2.0 ** rng.integers(-60, 60, 4096)).astype(np.float32)
+    else:
+        v = np.array(_TF32_CASES[case], dtype=np.float32)
+    hi, lo = np.zeros(v.shape, np.uint32), np.zeros(v.shape, np.uint32)
+    fn = libs["nbt1d"].dynmm_emu_tf32_split
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int]
+    fn.restype = None
+    fn(v.ctypes.data, hi.ctypes.data, lo.ctypes.data, v.size)
+    np.testing.assert_array_equal(hi, _tf32_reference(v))
+    assert not (hi & 0x1FFF).any() and not (lo & 0x1FFF).any()
+    rest = v - hi.view(np.float32)  # exact in fp32
+    np.testing.assert_array_equal(lo, _tf32_reference(rest))
+    total = hi.view(np.float32).astype(np.float64) + lo.view(np.float32)
+    assert (np.abs(total - v) <= 2.0 ** -22 * np.abs(v)).all()
 
 
 def _block_params(g, c):
