@@ -14,10 +14,11 @@ Run from the root of a checkout on a machine with one NVIDIA GPU:
    summation orders differ). Times the kernel, the plain version and, where
    one PyTorch call computes the same function, that call, with CUDA events
    after warm-up; the one-launch block also beside two ``nbt1d_pair`` calls
-   on the same inputs. ``nbt1d_pair`` (3xTF32 on the tensor cores) gets two
-   bounds, fp32 on CUDA cores and three TF32 products per fp32 product on
-   the tensor cores, and its fp32-equivalent TFLOP/s; the time of each NBt1D
-   kernel per dense forward is printed for B=8 and B=1.
+   on the same inputs, at all four block levels (those it does not serve
+   count 0 calls a forward). Both NBt1D kernels (3xTF32 on the tensor
+   cores) get two bounds, fp32 on CUDA cores and three TF32 products per
+   fp32 product on the tensor cores, and their fp32-equivalent TFLOP/s; the
+   time of each NBt1D kernel per dense forward is printed for B=8 and B=1.
 3. Serve, dense: builds the 480×640 flagship with seeded random weights,
    serves 3 batches of 8 and 3 of 1 through ``dynmm_tpu_torch.serve.serve``
    (``mode="dense"``) with every launch count at 0 before, checks the
@@ -65,8 +66,9 @@ PEAK_TF32_FLOPS = 495e12
 # TF32 products per fp32 product
 PEAK_TF32X3_FLOPS = PEAK_TF32_FLOPS / 3
 KERNEL_TOL = 1e-4
-# launches of one dense hard-gate forward of the flagship: its 6 stride-1
-# NBt1D blocks at C = 64 take one launch each, its 29 wider ones two
+# launches of one dense hard-gate forward of the flagship: its stride-1
+# NBt1D blocks up to NBT1D_FUSED_MAX_C channels (6 at C = 64) take one
+# launch each, the wider ones (29) two
 EXPECTED = {"nbt1d_fused": 6, "nbt1d_pair": 58, "channel_sums": 5,
             "stem_fuse_pool": 1, "se_fuse_mixed": 4, "learned_upsample": 5}
 # the flagship's stride-1 NBt1D blocks by channel count: in each encoder
@@ -167,17 +169,17 @@ def kernel_cases(inp: Inputs) -> list[Case]:
                     lambda a=args, e=extra: nbt1d.nbt1d_pair_plain(*a, **e),
                     None, n_bytes, 12.0 * c * c * bb * h * w, batch=bb,
                     peak=PEAK_TF32X3_FLOPS))
-            if fused:
-                args = (xb, *params)
-                cases.append(Case(
-                    "nbt1d_fused", f"{bb}x{h}x{w}x{c}", blocks,
-                    lambda a=args: nbt1d.nbt1d_fused(*a),
-                    lambda a=args: nbt1d.nbt1d_fused_plain(*a),
-                    None, 2 * bb * h * w * c * 4 + 4 * 3 * c * c * 4 + 8 * c * 4,
-                    24.0 * c * c * bb * h * w,
-                    lambda a=args: nbt1d.nbt1d_pair(
-                        nbt1d.nbt1d_pair(*a[:7]), *a[7:], identity=a[0]),
-                    batch=bb))
+            # the one-launch block at every level, served or not
+            args = (xb, *params)
+            cases.append(Case(
+                "nbt1d_fused", f"{bb}x{h}x{w}x{c}", blocks if fused else 0,
+                lambda a=args: nbt1d.nbt1d_fused(*a),
+                lambda a=args: nbt1d.nbt1d_fused_plain(*a),
+                None, 2 * bb * h * w * c * 4 + 4 * 3 * c * c * 4 + 8 * c * 4,
+                24.0 * c * c * bb * h * w,
+                lambda a=args: nbt1d.nbt1d_pair(
+                    nbt1d.nbt1d_pair(*a[:7]), *a[7:], identity=a[0]),
+                batch=bb, peak=PEAK_TF32X3_FLOPS))
     # channel sums: the stem cell and the four fusion cells
     for c, h, w in ((64, 240, 320), (64, 120, 160), (128, 60, 80),
                     (256, 30, 40), (512, 15, 20)):

@@ -1,5 +1,5 @@
 // Whole stride-1 NonBottleneck1D block in one launch, for Hopper (sm_90a),
-// fp32.
+// fp32-accurate on the tensor cores (3xTF32 mma.sync).
 //
 // Replaces dynmm_tpu/kernels/nbt1d.py::fused_nbt1d (_kernel). In eval, with
 // BN folded into (s, t) (eps 1e-3) and taps packed as (3, C_in, C_out):
@@ -7,317 +7,375 @@
 //   h   = relu((1x3 conv(a) + b2) * s1 + t1)     zero outside the image
 //   g   = relu(3x1 conv(h) + b3)                 zero outside the image columns
 //   out = relu((1x3 conv(g) + b4) * s2 + t2 + x)
-// x is read and out written once; a, h and g never leave shared memory
-// (the two-launch form, csrc/nbt1d.cu, writes and reads h in device memory).
+// x is read and out written once; a, h and g never leave shared memory, as
+// the TPU kernel kept them in VMEM (the two-launch form, csrc/nbt1d.cu,
+// writes and reads h in device memory).
 //
 // Bound on this card: operations. The block does 4 * 2 * 3 * C * C FLOP per
 // pixel (15.1 GFLOP at B=8 at every flagship level, since C*C*H*W is the
 // same at all four) against one read of x and one write of out (79 MB at
-// C = 64): 0.225 ms at the 67 TFLOP/s fp32 peak of the CUDA cores against
-// 0.024 ms at 3.35 TB/s.
+// C = 64): 0.092 ms as three TF32 products per fp32 product at the tensor
+// cores' 495 TFLOP/s, 0.225 ms on fp32 CUDA cores, 0.024 ms at 3.35 TB/s.
 //
-// Design (simple, right first; same inner loops as csrc/nbt1d.cu): one
-// block per (sample, band of T rows, column tile of TW), one thread per
-// output channel. The block walks down its band. Step j computes h at image
-// row y0-1+j: the 3x1 conv stages three x rows in chunks of KC input
-// channels and writes a (TW+4 columns) to a row buffer; the 1x3 conv reads
-// it and writes h (TW+2 columns) into a ring of three h rows. From step 2
-// on, the step then computes output row y0+j-2: the 3x1 conv of pair 2
-// reads the three ring rows and writes g (TW+2 columns) into the row
-// buffer; its 1x3 conv reads g, adds x from device memory and writes out.
+// Design. One block of 16 warps computes a tile of TR x TC output pixels
+// of one sample and all C output channels (every conv needs every input
+// channel). It runs four implicit GEMMs in turn, each N = C by K = 3*C,
+// over shrinking pixel sets, with both ends in shared memory:
+//   step 0  3x1  x tile (TR+4) x (TC+4) -> a  (TR+2) x (TC+4)   buffer P -> Q
+//   step 1  1x3  a                      -> h  (TR+2) x (TC+2)          Q -> P
+//   step 2  3x1  h                      -> g   TR    x (TC+2)          P -> Q
+//   step 3  1x3  g                      -> out TR    x  TC       Q -> device
+// A dest pixel (i, j) of a step reads src pixel (i + d, j) (3x1) or
+// (i, j + d) (1x3) for tap d, so each step is out[p, co] = sum_d sum_ci
+// src[p + d * tap, ci] * w[d, ci, co], as in csrc/nbt1d.cu. The output
+// step adds x from device memory (L2: the block has just read it), since P
+// holds h by then. Pixels are rows of KP + 4 floats (KP = C rounded up to
+// 8, channels C..KP-1 zero) so that the lanes' A-fragment reads hit 32
+// distinct banks.
 //
-// Extra arithmetic: pair 1 runs on T+2 rows for T and on TW+4 / TW+2
-// columns for TW, pair 2's 3x1 on TW+2 columns (padded to 4 in the 3x1
-// convs). At TW = 16 the block does (10 * (20 + 18) + 8 * (20 + 16)) /
-// (8 * 4 * 16) = 1.30x the useful work at T = 8, 1.45x at T = 4 and 1.74x
-// at T = 2; two nbt1d_pair launches do 1.125x. Tall bands cost less
-// arithmetic but give fewer blocks: T comes from the caller, or, given as
-// 0, is the tallest of 16, 8, 4 whose grid still has 4 blocks per SM
-// (528), else 2.
+// Tensor cores: mma.sync.m16n8k8 TF32 in 3xTF32 with each K-chunk's sum
+// started from 0 and the chunk sums added in fp32 (csrc/tf32_mma.cuh; the
+// error note in csrc/nbt1d.cu). A warp holds an item of 32 pixels x 32
+// output channels (2 x 4 mma tiles); a step's items are dealt to the 16
+// warps, in passes of 16 where a step has more.
 //
-// Shared memory: 3 * C * HP (h ring) + C * AP (row buffer) + 3 * KC * AP
-// (x chunk) floats, HP = TW+2 and AP = TW+4 rounded up to 4, whatever T:
-// 28,160 bytes at C = 64, TW = 16; 107,520 at C = 256, TW = 20; 205,824 at
-// C = 512, TW = 20, under the 232,448 a block can opt into but one block
-// per SM. A launch that does not fit returns cudaErrorInvalidValue.
+// Asynchronous copies: the x tile comes in with 16-byte cp.async (src-size
+// 0 zero-fills pixels outside the image), and every step streams its
+// (3, C, C) weights through a double buffer of chunks of KC input channels
+// of one tap (KC = 64 up to C = 64, 32 up to 192, else 8) x all output
+// channels, one chunk in flight while the block computes the one before.
+// The chunk sequence runs on across passes and steps, so a step's first
+// chunk loads while the last of the step before computes. One barrier per
+// chunk.
 //
-// Where it is served: kernels/nbt1d.py::NBT1D_FUSED_MAX_C. On the H100 it
-// took 1.3-1.5x the time of two nbt1d_pair launches at every flagship level,
-// least at C = 64, so only that level runs it. The grid is not split further
-// at small batch: at B=1 it has 600 blocks at C = 64 (120x160, T = 2), but
-// 30 at C = 256 (30x40), one reason the wider levels stay on the pairs.
+// Shared memory: ((TR+4)(TC+4) + (TR+2)(TC+4)) * (KP+4) + 2 * KC *
+// (32 * ceil(C/32) + 8) floats: 180,480 bytes at C = 64 for the 8 x 20
+// tile, so one block (16 warps, at most 128 registers a thread) per SM. A
+// launch that does not fit the 232,448 bytes a block may use returns
+// cudaErrorInvalidValue.
+//
+// What bounds it on the H100: warps waiting, not the tensor cores. A
+// block's time hardly depends on how many of its warps hold an item, so
+// the tile is the largest whose first step still has one item a warp
+// (16); more warps per SM (16 warps x 1 item against 8 x 2: 1.09 against
+// 1.41 ms at C = 64, B=8) and fewer barriers (chunks of a whole tap
+// against half a tap: 0.84 against 0.93 ms) were the gains. Tile rule
+// (tile_for): TC = 20 up to C = 64, 16 up to 128, 8 up to 256, else 4
+// (never wider than the image); TR, unless the caller gives it, is the
+// tallest of 8, 6, 4, 2, 1 that fits and whose first step has at most one
+// item a warp, else the shortest that fits. At C = 64 that is 8 x 20 at
+// both batches: 960 blocks at B=8, 120 at B=1, where 4 x 20 (240 blocks)
+// took 1.6x as long (bench_nbt1d, NVIDIA H100 80GB HBM3, 700.00 W).
+// Extra arithmetic (halo pixels computed twice by neighbouring tiles): the
+// four steps cover (TR+2)(TC+4) + (TR+2)(TC+2) + TR(TC+2) + TR*TC pixels
+// for 4*TR*TC useful ones, 1.24x at 8 x 20, and items round each up to 32
+// (52 items for 40 useful ones); two nbt1d_pair calls do 1.0x. So at
+// C = 64 the block took 0.84-0.89 ms at B=8 against 0.50 for two pairs,
+// and 0.111 against 0.088-0.090 at B=1 (chip_smoke.py); kernels/
+// nbt1d.py::NBT1D_FUSED_MAX_C keeps it at C = 64.
 //
 // Masks (the TPU kernel's three, nbt1d.py:74-77, :82-91, :96-98): x rows
 // and columns outside the image read as 0; a and g are 0 at columns outside
 // the image (the 1x3 convs zero-pad their input, so not relu(bias)); h is 0
 // at rows and columns outside the image (the second 3x1 conv zero-pads its
-// input). Rows of the band past the image's last row (ragged last band) are
-// h = 0 and produce no output; columns past the last (ragged last column
-// tile) are masked the same way and never written.
+// input). Pixels of a ragged last tile past the image's last row or column
+// are computed from zeros and never written.
 
 #include <cuda_runtime.h>
+#include <cstdint>
+
+#include "tf32_mma.cuh"
 
 namespace {
 
-constexpr int KC = 32;                 // input channels staged per step
-constexpr size_t MAX_SMEM = 232448;    // dynamic shared memory a block may use
+// Warps of a block; each holds one item of 32 pixels x 32 channels.
+constexpr int WARPS = 16;
+constexpr int THREADS = WARPS * 32;
+// Tile columns and input channels per weight chunk at C <= 64.
+constexpr int TC64 = 20;
+constexpr int KC64 = 64;
+constexpr size_t MAX_SMEM = 232448;  // dynamic shared memory a block may use
 
-template <int TW>
-struct Tile {
-  static constexpr int AW = TW + 4;              // a columns c0-2 .. c0+TW+1
-  static constexpr int AP = (AW + 3) / 4 * 4;    // padded to float4
-  static constexpr int HW = TW + 2;              // h, g columns c0-1 .. c0+TW
-  static constexpr int HP = (HW + 3) / 4 * 4;
-  static size_t smem_bytes(int C) {
-    return ((size_t)3 * C * HP + (size_t)C * AP + 3 * KC * AP) *
-           sizeof(float);
-  }
+struct Plan {
+  int TR, TC;  // output rows and columns of a tile
+  int KP;      // C rounded up to 8: the K extent of one tap
+  int CP;      // floats per pixel in shared memory
+  int NG;      // groups of 32 output channels
+  int WS;      // floats per weight row in shared memory
+  int KC;      // input channels of one tap per weight chunk
+  int XP, QP;  // pixels of buffer P (the x tile) and of buffer Q (a)
+  size_t smem;
 };
 
-template <int TW>
-__global__ void __launch_bounds__(256)
-    nbt1d_block_kernel(const float* __restrict__ x,
-                       const float* __restrict__ w1,
-                       const float* __restrict__ b1,
-                       const float* __restrict__ w2,
-                       const float* __restrict__ b2,
-                       const float* __restrict__ s1,
-                       const float* __restrict__ t1,
-                       const float* __restrict__ w3,
-                       const float* __restrict__ b3,
-                       const float* __restrict__ w4,
-                       const float* __restrict__ b4,
-                       const float* __restrict__ s2,
-                       const float* __restrict__ t2, float* __restrict__ out,
-                       int H, int W, int C, int T) {
-  constexpr int AW = Tile<TW>::AW;
-  constexpr int AP = Tile<TW>::AP;
-  constexpr int HW = Tile<TW>::HW;
-  constexpr int HP = Tile<TW>::HP;
+Plan plan_for(int C, int TR, int TC) {
+  Plan p;
+  p.TR = TR;
+  p.TC = TC;
+  p.KP = (C + 7) / 8 * 8;
+  p.CP = p.KP + 4;
+  p.NG = (C + 31) / 32;
+  p.WS = p.NG * 32 + 8;
+  p.KC = C <= 64 ? KC64 : C <= 192 ? 32 : 8;
+  p.XP = (TR + 4) * (TC + 4);
+  p.QP = (TR + 2) * (TC + 4);
+  p.smem = ((size_t)(p.XP + p.QP) * p.CP + (size_t)2 * p.KC * p.WS) *
+           sizeof(float);
+  return p;
+}
+
+struct Params {
+  const float *x, *w1, *b1, *w2, *b2, *s1, *t1, *w3, *b3, *w4, *b4, *s2, *t2;
+  float* out;
+  int H, W, C;
+};
+
+template <int KC>
+__global__ void __launch_bounds__(THREADS)
+    nbt1d_block_kernel(const Params a, const Plan pl) {
   extern __shared__ float4 smem4[];
-  float* hs = reinterpret_cast<float*>(smem4);  // [3][C][HP]: ring of h rows
-  float* rs = hs + (size_t)3 * C * HP;           // [C][AP]: a, then g
-  float* xs = rs + (size_t)C * AP;               // [3][KC][AP]
+  float* P = reinterpret_cast<float*>(smem4);  // x tile, then h
+  float* Q = P + (size_t)pl.XP * pl.CP;        // a, then g
+  float* Wb = Q + (size_t)pl.QP * pl.CP;       // [2][KC][WS] weight chunks
 
-  const int c0 = blockIdx.x * TW;
-  const int y0 = blockIdx.y * T;
-  const int n = blockIdx.z;
-  const float* xn = x + (size_t)n * H * W * C;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, tg = lane & 3;
+  const int H = a.H, W = a.W, C = a.C;
+  const int TR = pl.TR, TC = pl.TC, KP = pl.KP, CP = pl.CP, NG = pl.NG;
+  const int WS = pl.WS;
+  const int c0 = blockIdx.x * TC, y0 = blockIdx.y * TR, n = blockIdx.z;
+  const bool vec =
+      (C & 3) == 0 &&
+      ((reinterpret_cast<uintptr_t>(a.x) | reinterpret_cast<uintptr_t>(a.w1) |
+        reinterpret_cast<uintptr_t>(a.w2) | reinterpret_cast<uintptr_t>(a.w3) |
+        reinterpret_cast<uintptr_t>(a.w4)) & 15) == 0;
 
-  // Step j computes h at image row y0-1+j into ring slot j % 3; from j = 2
-  // on, it then computes output row y0+j-2 from the slots of rows
-  // y0+j-3 .. y0+j-1.
-  for (int j = 0; j < T + 2; ++j) {
-    // ---------------- pair 1 -> h row yy
-    const int yy = y0 - 1 + j;
-    float* hj = hs + (size_t)(j % 3) * C * HP;
-    if (yy < 0 || yy >= H) {  // the same for every thread of the block
-      for (int e = threadIdx.x; e < C * HP; e += blockDim.x) hj[e] = 0.f;
-    } else {
-      // 3x1 conv + b1 + relu over columns c0-2 .. c0+TW+1 -> rs
-      for (int co0 = 0; co0 < C; co0 += blockDim.x) {
-        const int co = co0 + threadIdx.x;
-        float acc[AP];
+  // Step s: dest DH x DW pixels read a src of width SW, tap d shifted by
+  // d * TAP pixels.
+  auto dest_w = [&](int s) { return TC + (s == 0 ? 4 : s == 3 ? 0 : 2); };
+  auto dest_m = [&](int s) { return (TR + (s < 2 ? 2 : 0)) * dest_w(s); };
+  auto src_w = [&](int s) { return TC + (s < 2 ? 4 : 2); };
+  auto items = [&](int s) { return (dest_m(s) + 31) / 32 * NG; };
+  auto passes = [&](int s) { return (items(s) + WARPS - 1) / WARPS; };
+  const int kq = (KP + KC - 1) / KC;  // chunks of one tap
+  const int NQ = 3 * kq;              // chunks of one pass
+
+  // x tile (TR+4) x (TC+4) from image pixel (y0-2, c0-2), zero outside.
+  {
+    const int XW = TC + 4;
+    const float* xn = a.x + (size_t)n * H * W * C;
+    const int cv = vec ? C / 4 : C;
+    for (int e = tid; e < pl.XP * cv; e += THREADS) {
+      const int px = e / cv, q = e - px * cv;
+      const int i = px / XW, j = px - i * XW;
+      const int y = y0 - 2 + i, xc = c0 - 2 + j;
+      const bool in = y >= 0 && y < H && xc >= 0 && xc < W;
+      const size_t at = ((size_t)y * W + xc) * C;
+      if (vec)
+        cp_async<16>(P + (size_t)px * CP + 4 * q, in ? xn + at + 4 * q : a.x,
+                     in ? 16 : 0);
+      else
+        cp_async<4>(P + (size_t)px * CP + q, in ? xn + at + q : a.x,
+                    in ? 4 : 0);
+    }
+    const int pad = KP - C;  // channels C..KP-1, read by the last k-step
+    for (int e = tid; e < pl.XP * pad; e += THREADS)
+      P[(size_t)(e / pad) * CP + C + e % pad] = 0.f;
+  }
+
+  // Chunk q of step s: input channels k0 .. k0+KC-1 of tap d, every output
+  // channel, into dst[KC][WS]; rows past C and columns past C are 0.
+  auto load_chunk = [&](int s, int q, float* dst) {
+    const float* w = s == 0 ? a.w1 : s == 1 ? a.w2 : s == 2 ? a.w3 : a.w4;
+    const int d = q / kq, k0 = (q - d * kq) * KC;
+    w += (size_t)d * C * C;
+    const int cols = NG * 32, cv = vec ? cols / 4 : cols;
+    for (int e = tid; e < KC * cv; e += THREADS) {
+      const int r = e / cv, col = (e - r * cv) * (vec ? 4 : 1);
+      const int ci = k0 + r;
+      const bool ok = ci < C && col < C;
+      const float* src = ok ? w + (size_t)ci * C + col : a.w1;
+      if (vec)
+        cp_async<16>(dst + r * WS + col, src, ok ? 16 : 0);
+      else
+        cp_async<4>(dst + r * WS + col, src, ok ? 4 : 0);
+    }
+  };
+
+  float acc[2][4][4];
+  int abase[2][2];  // src pixel at tap 0 of rows g, g+8 of each m-tile
+  int s = 0, p = 0, q = 0;     // the chunk computed
+  int ls = 0, lp = 0, lq = 0;  // the chunk loaded next
+  auto advance = [&](int& s_, int& p_, int& q_) {
+    if (++q_ == NQ) {
+      q_ = 0;
+      if (++p_ == passes(s_)) {
+        p_ = 0;
+        ++s_;
+      }
+    }
+  };
+  load_chunk(0, 0, Wb);
+  cp_async_commit();
+  advance(ls, lp, lq);
+
+  for (int it = 0; s < 4; ++it) {
+    cp_async_wait<0>();
+    __syncthreads();  // chunk `it` and the step before are whole; every warp
+                      // is done with the other weight buffer
+    if (ls < 4) {
+      load_chunk(ls, lq, Wb + (size_t)((it + 1) & 1) * KC * WS);
+      advance(ls, lp, lq);
+    }
+    cp_async_commit();
+
+    const int DW = dest_w(s), M = dest_m(s), SW = src_w(s);
+    const float* src = (s & 1) ? Q : P;
+    // this warp's item of the pass: pixels m0.., output channels n0..
+    const int item = p * WARPS + warp;
+    const bool busy = item < items(s);  // the same for the whole warp
+    const int m0 = item / NG * 32, n0 = item % NG * 32;
+    if (q == 0) {
 #pragma unroll
-        for (int p = 0; p < AP; ++p) acc[p] = 0.f;
-        for (int ci0 = 0; ci0 < C; ci0 += KC) {
-          const int kc = C - ci0 < KC ? C - ci0 : KC;
-          __syncthreads();  // every thread is done with rs and the last chunk
-          for (int e = threadIdx.x; e < 3 * AP * KC; e += blockDim.x) {
-            const int k = e % KC;
-            const int p = (e / KC) % AP;
-            const int d = e / (KC * AP);
-            const int ry = yy + d - 1, cx = c0 - 2 + p;
-            float v = 0.f;
-            if (k < kc && p < AW && ry >= 0 && ry < H && cx >= 0 && cx < W)
-              v = xn[((size_t)ry * W + cx) * C + ci0 + k];
-            xs[(d * KC + k) * AP + p] = v;
+      for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf) {
+          const int r = m0 + mt * 16 + hf * 8 + g;
+          int base = 0;  // rows past the step's pixels read pixel 0
+          if (r < M) {
+            const int i = r / DW;
+            base = i * SW + (r - i * DW);
           }
-          __syncthreads();
-          if (co < C) {
-            for (int d = 0; d < 3; ++d) {
-              const float* wd = w1 + ((size_t)d * C + ci0) * C + co;
-#pragma unroll 4
-              for (int k = 0; k < kc; ++k) {
-                const float w = wd[(size_t)k * C];
-                const float4* row =
-                    reinterpret_cast<const float4*>(xs + (d * KC + k) * AP);
+          abase[mt][hf] = base;
+        }
 #pragma unroll
-                for (int q = 0; q < AP / 4; ++q) {
-                  const float4 v = row[q];
-                  acc[4 * q + 0] += v.x * w;
-                  acc[4 * q + 1] += v.y * w;
-                  acc[4 * q + 2] += v.z * w;
-                  acc[4 * q + 3] += v.w * w;
-                }
-              }
+      for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) acc[mt][nt][i] = 0.f;
+    }
+
+    const float* wbuf = Wb + (size_t)(it & 1) * KC * WS;
+    const int d = q / kq, k0 = (q - d * kq) * KC;
+    const int shift = d * ((s & 1) ? 1 : SW);
+    if (busy) {
+      float part[2][4][4];  // this chunk's sum, started from 0
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) part[mt][nt][i] = 0.f;
+#pragma unroll
+      for (int ks = 0; ks < KC / 8; ++ks) {
+        const int kk = k0 + 8 * ks;
+        if (kk >= KP) break;  // a partial last chunk
+        unsigned ah[2][4], al[2][4], bh[4][2], bl[4][2];
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt) {
+          const float* r0 =
+              src + (size_t)(abase[mt][0] + shift) * CP + kk + tg;
+          const float* r1 =
+              src + (size_t)(abase[mt][1] + shift) * CP + kk + tg;
+          split(r0[0], ah[mt][0], al[mt][0]);
+          split(r1[0], ah[mt][1], al[mt][1]);
+          split(r0[4], ah[mt][2], al[mt][2]);
+          split(r1[4], ah[mt][3], al[mt][3]);
+        }
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt) {
+          const float* c = wbuf + (8 * ks + tg) * WS + n0 + nt * 8 + g;
+          split(c[0], bh[nt][0], bl[nt][0]);
+          split(c[4 * WS], bh[nt][1], bl[nt][1]);
+        }
+        mma_3xtf32<2, 4>(part, ah, al, bh, bl);
+      }
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) acc[mt][nt][i] += part[mt][nt][i];
+    }
+
+    if (busy && q == NQ - 1) {  // the item's sums are whole: epilogue
+      float* dst = (s & 1) ? P : Q;
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const int r = m0 + mt * 16 + g + 8 * (i >> 1);
+            const int co = n0 + nt * 8 + 2 * tg + (i & 1);
+            if (r >= M || co >= KP) continue;
+            const int ii = r / DW, jj = r - ii * DW;
+            const float v = acc[mt][nt][i];
+            const bool ch = co < C;
+            if (s == 0) {  // a, at image (y0-1+ii, c0-2+jj)
+              const int col = c0 - 2 + jj;
+              dst[(size_t)r * CP + co] = ch && col >= 0 && col < W
+                                             ? fmaxf(v + a.b1[co], 0.f)
+                                             : 0.f;
+            } else if (s == 1) {  // h, at image (y0-1+ii, c0-1+jj)
+              const int y = y0 - 1 + ii, col = c0 - 1 + jj;
+              dst[(size_t)r * CP + co] =
+                  ch && y >= 0 && y < H && col >= 0 && col < W
+                      ? fmaxf((v + a.b2[co]) * a.s1[co] + a.t1[co], 0.f)
+                      : 0.f;
+            } else if (s == 2) {  // g, at image (y0+ii, c0-1+jj)
+              const int col = c0 - 1 + jj;
+              dst[(size_t)r * CP + co] = ch && col >= 0 && col < W
+                                             ? fmaxf(v + a.b3[co], 0.f)
+                                             : 0.f;
+            } else {  // out, at image (y0+ii, c0+jj)
+              const int y = y0 + ii, col = c0 + jj;
+              if (!ch || y >= H || col >= W) continue;
+              const size_t off = (((size_t)n * H + y) * W + col) * C + co;
+              a.out[off] = fmaxf(
+                  (v + a.b4[co]) * a.s2[co] + a.t2[co] + a.x[off], 0.f);
             }
           }
-        }
-        if (co < C) {
-          const float b = b1[co];
-#pragma unroll
-          for (int p = 0; p < AP; ++p) {
-            const int col = c0 - 2 + p;
-            const bool inside = p < AW && col >= 0 && col < W;
-            rs[(size_t)co * AP + p] = inside ? fmaxf(acc[p] + b, 0.f) : 0.f;
-          }
-        }
-      }
-      __syncthreads();
-      // 1x3 conv + b2 -> folded BN -> relu over columns c0-1 .. c0+TW -> hj
-      for (int co0 = 0; co0 < C; co0 += blockDim.x) {
-        const int co = co0 + threadIdx.x;
-        if (co >= C) continue;
-        float acc[HW];
-#pragma unroll
-        for (int q = 0; q < HW; ++q) acc[q] = 0.f;
-        for (int ci = 0; ci < C; ++ci) {
-          const float k0 = w2[((size_t)0 * C + ci) * C + co];
-          const float k1 = w2[((size_t)1 * C + ci) * C + co];
-          const float k2 = w2[((size_t)2 * C + ci) * C + co];
-          float av[AP];
-          const float4* row =
-              reinterpret_cast<const float4*>(rs + (size_t)ci * AP);
-#pragma unroll
-          for (int q = 0; q < AP / 4; ++q) {
-            const float4 v = row[q];
-            av[4 * q + 0] = v.x;
-            av[4 * q + 1] = v.y;
-            av[4 * q + 2] = v.z;
-            av[4 * q + 3] = v.w;
-          }
-#pragma unroll
-          for (int q = 0; q < HW; ++q)
-            acc[q] += av[q] * k0 + av[q + 1] * k1 + av[q + 2] * k2;
-        }
-        const float b = b2[co], sc = s1[co], sh = t1[co];
-#pragma unroll
-        for (int q = 0; q < HP; ++q) {
-          const int col = c0 - 1 + q;
-          const bool inside = q < HW && col >= 0 && col < W;
-          hj[(size_t)co * HP + q] =
-              inside ? fmaxf((acc[q] + b) * sc + sh, 0.f) : 0.f;
-        }
-      }
     }
-    const int r = j - 2, yo = y0 + r;  // output row of this step, if any
-    if (r < 0) continue;
-    if (yo >= H) break;  // ragged last band; the same for every thread
-    __syncthreads();     // h row yy is whole; every thread is done with rs
-
-    // ---------------- pair 2 -> out row yo
-    // 3x1 conv over h rows yo-1 .. yo+1 (slots r, r+1, r+2 mod 3) + b3 +
-    // relu -> rs
-    for (int co0 = 0; co0 < C; co0 += blockDim.x) {
-      const int co = co0 + threadIdx.x;
-      if (co >= C) continue;
-      float acc[HP];
-#pragma unroll
-      for (int q = 0; q < HP; ++q) acc[q] = 0.f;
-      for (int d = 0; d < 3; ++d) {
-        const float* hd = hs + (size_t)((r + d) % 3) * C * HP;
-        const float* wd = w3 + (size_t)d * C * C + co;
-#pragma unroll 4
-        for (int ci = 0; ci < C; ++ci) {
-          const float w = wd[(size_t)ci * C];
-          const float4* row =
-              reinterpret_cast<const float4*>(hd + (size_t)ci * HP);
-#pragma unroll
-          for (int q = 0; q < HP / 4; ++q) {
-            const float4 v = row[q];
-            acc[4 * q + 0] += v.x * w;
-            acc[4 * q + 1] += v.y * w;
-            acc[4 * q + 2] += v.z * w;
-            acc[4 * q + 3] += v.w * w;
-          }
-        }
-      }
-      const float b = b3[co];
-#pragma unroll
-      for (int q = 0; q < HP; ++q) {
-        const int col = c0 - 1 + q;
-        const bool inside = q < HW && col >= 0 && col < W;
-        rs[(size_t)co * AP + q] = inside ? fmaxf(acc[q] + b, 0.f) : 0.f;
-      }
-    }
-    __syncthreads();
-    // 1x3 conv + b4 -> folded BN -> +x -> relu -> out
-    for (int co0 = 0; co0 < C; co0 += blockDim.x) {
-      const int co = co0 + threadIdx.x;
-      if (co >= C) continue;
-      float acc[TW];
-#pragma unroll
-      for (int q = 0; q < TW; ++q) acc[q] = 0.f;
-      for (int ci = 0; ci < C; ++ci) {
-        const float k0 = w4[((size_t)0 * C + ci) * C + co];
-        const float k1 = w4[((size_t)1 * C + ci) * C + co];
-        const float k2 = w4[((size_t)2 * C + ci) * C + co];
-        float gv[HP];
-        const float4* row =
-            reinterpret_cast<const float4*>(rs + (size_t)ci * AP);
-#pragma unroll
-        for (int q = 0; q < HP / 4; ++q) {
-          const float4 v = row[q];
-          gv[4 * q + 0] = v.x;
-          gv[4 * q + 1] = v.y;
-          gv[4 * q + 2] = v.z;
-          gv[4 * q + 3] = v.w;
-        }
-#pragma unroll
-        for (int q = 0; q < TW; ++q)
-          acc[q] += gv[q] * k0 + gv[q + 1] * k1 + gv[q + 2] * k2;
-      }
-      const float b = b4[co], sc = s2[co], sh = t2[co];
-#pragma unroll
-      for (int q = 0; q < TW; ++q) {
-        const int col = c0 + q;
-        if (col >= W) continue;
-        const size_t off = (((size_t)n * H + yo) * W + col) * C + co;
-        out[off] = fmaxf((acc[q] + b) * sc + sh + x[off], 0.f);
-      }
-    }
-    __syncthreads();  // every thread is done with rs and with h slot r % 3
+    advance(s, p, q);
   }
 }
 
-constexpr int TARGET_BLOCKS = 4 * 132;  // four blocks per SM of an H100
+// Tile columns by channel count, tile rows by the rule in the note above
+// (or the caller's T); TR = 0 when nothing fits.
+Plan tile_for(int W, int C, int T) {
+  int TC = C <= 64 ? TC64 : C <= 128 ? 16 : C <= 256 ? 8 : 4;
+  if (TC > W) TC = W;
+  if (T > 0) return plan_for(C, T, TC);
+  Plan best = plan_for(C, 0, TC);
+  const int tall[] = {8, 6, 4, 2, 1};
+  for (int tr : tall) {
+    const Plan p = plan_for(C, tr, TC);
+    if (p.smem > MAX_SMEM) continue;
+    best = p;
+    const int items = ((tr + 2) * (TC + 4) + 31) / 32 * p.NG;  // of step 0
+    if (items <= WARPS) break;
+  }
+  return best;
+}
 
-template <int TW>
-int launch(const float* const* p, float* out, int N, int H, int W, int C,
-           int T, cudaStream_t st) {
-  const int tiles = (W + TW - 1) / TW;
-  if (T <= 0) {
-    T = 2;
-    for (int t = 16; t > 2; t /= 2) {
-      if ((long)N * tiles * ((H + t - 1) / t) >= TARGET_BLOCKS) {
-        T = t;
-        break;
-      }
-    }
-  }
-  const size_t smem = Tile<TW>::smem_bytes(C);
-  if (smem > MAX_SMEM) return (int)cudaErrorInvalidValue;
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        nbt1d_block_kernel<TW>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
+template <int KC>
+int launch(const Params& a, const Plan& pl, dim3 grid, cudaStream_t st) {
+  static bool smem_set = false;  // the kernel may use MAX_SMEM bytes
+  if (pl.smem > 48 * 1024 && !smem_set) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        nbt1d_block_kernel<KC>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)MAX_SMEM);
     if (err != cudaSuccess) return (int)err;
+    smem_set = true;
   }
-  int threads = (C + 31) / 32 * 32;
-  if (threads > 256) threads = 256;
-  dim3 grid(tiles, (H + T - 1) / T, N);
-  nbt1d_block_kernel<TW><<<grid, threads, smem, st>>>(
-      p[0], p[1], p[2], p[3], p[4], p[5], p[6], p[7], p[8], p[9], p[10],
-      p[11], p[12], out, H, W, C, T);
+  nbt1d_block_kernel<KC><<<grid, THREADS, pl.smem, st>>>(a, pl);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// Bands of T rows (0: chosen here). Tile width as in csrc/nbt1d.cu: 16 or
-// 20 where it divides W (no idle columns at the flagship's 160/80/40), else
-// 8, else 16 with the ragged edge masked.
+// T: output rows of a tile (0: chosen here).
 extern "C" int dynmm_nbt1d_block(const float* x, const float* w1,
                                  const float* b1, const float* w2,
                                  const float* b2, const float* s1,
@@ -326,10 +384,14 @@ extern "C" int dynmm_nbt1d_block(const float* x, const float* w1,
                                  const float* b4, const float* s2,
                                  const float* t2, float* out, int N, int H,
                                  int W, int C, int T, void* stream) {
+  if ((long)N * H * W * C == 0) return 0;
+  const Plan pl = tile_for(W, C, T);
+  if (pl.TR <= 0 || pl.smem > MAX_SMEM) return (int)cudaErrorInvalidValue;
+  const Params a{x, w1, b1, w2, b2, s1, t1, w3, b3, w4, b4, s2, t2, out,
+                 H, W, C};
+  const dim3 grid((W + pl.TC - 1) / pl.TC, (H + pl.TR - 1) / pl.TR, N);
   cudaStream_t st = (cudaStream_t)stream;
-  const float* p[13] = {x, w1, b1, w2, b2, s1, t1, w3, b3, w4, b4, s2, t2};
-  if (W % 16 == 0) return launch<16>(p, out, N, H, W, C, T, st);
-  if (W % 20 == 0) return launch<20>(p, out, N, H, W, C, T, st);
-  if (W % 8 == 0) return launch<8>(p, out, N, H, W, C, T, st);
-  return launch<16>(p, out, N, H, W, C, T, st);
+  return pl.KC == 64   ? launch<64>(a, pl, grid, st)
+         : pl.KC == 32 ? launch<32>(a, pl, grid, st)
+                       : launch<8>(a, pl, grid, st);
 }

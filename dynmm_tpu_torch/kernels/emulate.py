@@ -14,7 +14,10 @@ report an error, as a failed launch does on the card. Any other kernel runs
 its threads in a loop. The header defines ``DYNMM_EMULATED``: a source
 keeps its inline PTX under ``#ifndef DYNMM_EMULATED`` and emulates it
 otherwise, warp collectives (``mma.sync``) through a per-warp barrier of 32
-and a per-warp exchange buffer (``emu_warp_sync``, ``emu_warp_mem``).
+and a per-warp exchange buffer (``emu_warp_sync``, ``emu_warp_mem``), and
+``cp.async`` as a synchronous copy. Headers under ``csrc/`` (``*.cuh``) are
+included as they are, through ``-I``: they hold no launch and no
+``extern __shared__``, the two things this rewrite changes.
 Indexing, masking, tiling and the arithmetic are the sources' own; what only
 the card shows (timing, races between warps, limits on registers and shared
 memory, the tensor cores' truncating sums) is not emulated. One launch runs
@@ -195,7 +198,8 @@ def _split_top(s: str) -> list[str]:
 def _kernel_bodies(src: str) -> dict[str, str]:
     """name → text of each ``__global__`` function (up to the next one)."""
     heads = list(re.finditer(
-        r"__global__\s+void\s+(?:__launch_bounds__\(\d+\)\s*)?(\w+)\s*\(", src))
+        r"__global__\s+void\s+(?:__launch_bounds__\([^()]*\)\s*)?(\w+)\s*\(",
+        src))
     return {m.group(1): src[m.start():(heads[i + 1].start()
                                         if i + 1 < len(heads) else len(src))]
             for i, m in enumerate(heads)}
@@ -245,8 +249,9 @@ def build(out_dir: Path) -> dict[str, ctypes.CDLL]:
         cpp.write_text(to_host_cpp((_build.CSRC / f"{name}.cu").read_text()))
         so = out_dir / f"lib{name}.so"
         subprocess.run([cxx, "-std=c++20", "-O1", "-shared", "-fPIC",
-                        "-pthread", "-include", str(shim), "-o", str(so),
-                        str(cpp)], check=True, capture_output=True, text=True)
+                        "-pthread", "-include", str(shim), "-I",
+                        str(_build.CSRC), "-o", str(so), str(cpp)],
+                       check=True, capture_output=True, text=True)
         return ctypes.CDLL(str(so))
 
     with ThreadPoolExecutor(len(_build.SOURCES)) as pool:

@@ -6,7 +6,7 @@ A stride-1 NonBottleneck1D block in eval is two conv pairs,
     pair 2: out = relu((1×3(relu(3×1(h) + b3)) + b4)·s2 + t2 + x)
 
 ``nbt1d_fused`` (port of ``dynmm_tpu/kernels/nbt1d.py::fused_nbt1d``) runs
-the whole block in one launch with h kept in shared memory;
+the whole block in one launch, its intermediates kept in shared memory;
 ``nbt1d_pair`` (port of ``fused_nbt1d_twopass``'s ``_run_pair``) runs one
 pair per launch. ``nbt1d_block`` picks between them by channel count. Taps
 are packed (3, C_in, C_out) — ``w[d]`` is the tap at row (3×1) or column
@@ -22,18 +22,16 @@ import torch.nn.functional as F
 
 from dynmm_tpu_torch.kernels import _build
 
-# Widest block ``nbt1d_block`` sends to the one-launch kernel. Shared memory
-# would let it go further: the kernel holds a ring of three h rows, a row
-# buffer and an x chunk, 3·C·HP + C·AP + 3·32·AP floats (HP = TW+2,
-# AP = TW+4, rounded up to 4), which is 28,160 bytes at C = 64 (TW = 16),
-# 107,520 at C = 256 (TW = 20) and 205,824 at C = 512, all under the 232,448
-# a Hopper block can opt into. Speed sets the limit instead. On an NVIDIA
-# H100 80GB HBM3 at 700 W (``chip_smoke.py``, ``bench_nbt1d.py``) one launch
-# took 1.30×, 1.52× and 1.47× the time of two ``nbt1d_pair`` launches at
-# C = 64, 128 and 256 (B=8): it computes the pair-1 halo rows and columns
-# twice, and at C ≥ 128 its grids are small (30 blocks at B=1, 30×40). So
-# only the C = 64 level (6 of the flagship's 35 stride-1 blocks, 600 blocks
-# a launch at B=1) takes one launch; the wider blocks take two.
+# Widest block ``nbt1d_block`` sends to the one-launch kernel, set by speed
+# (``bench_nbt1d.py``, ``chip_smoke.py``; NVIDIA H100 80GB HBM3, 700.00 W).
+# The kernel runs at every C (its tiles shrink to fit shared memory), on the
+# tensor cores as the pair does, but it computes each tile's halo pixels
+# twice: 52 items of 32 pixels × 32 channels for 40 useful ones at C = 64,
+# and more at wider levels, where tiles are smaller. At B=8 it took
+# 1.7-1.8×, 2.0×, 6.6-6.8× and 8.3-8.4× the time of two ``nbt1d_pair`` calls
+# at C = 64, 128, 256 and 512, and 1.2-1.3× at C = 64, B=1. So no level is
+# faster on it; C = 64 (6 of the flagship's 35 stride-1 blocks) stays on it,
+# its one served level, and the wider blocks take two pair calls.
 NBT1D_FUSED_MAX_C = 64
 
 
@@ -94,8 +92,9 @@ def nbt1d_fused_plain(x, w1, b1, w2, b2, s1, t1, w3, b3, w4, b4, s2, t2):
 def nbt1d_fused(x: torch.Tensor, w1, b1, w2, b2, s1, t1, w3, b3, w4, b4,
                 s2, t2, band_rows: int = 0) -> torch.Tensor:
     """Whole stride-1 block on x (N, H, W, C) or (H, W, C) in one launch
-    (JAX ``fused_nbt1d`` signature). ``band_rows``: output rows per thread
-    block; 0 lets the kernel pick them from the grid size."""
+    (JAX ``fused_nbt1d`` signature), in 3xTF32 on the tensor cores.
+    ``band_rows``: output rows of a thread block's tile; 0 lets the kernel
+    pick them. A tile that does not fit in shared memory raises."""
     params = (w1, b1, w2, b2, s1, t1, w3, b3, w4, b4, s2, t2)
     if x.dim() == 3:
         return nbt1d_fused(x[None], *params, band_rows=band_rows)[0]

@@ -5,10 +5,10 @@ host's C++ compiler against a small CUDA emulation, so the kernels'
 indexing, tiling, masks and arithmetic are exercised here, where there is
 no card and no ``nvcc``. Shapes are chosen to reach every code path: both
 tiles of the pair's implicit-GEMM kernel (its ``mma.sync`` fragments
-exchanged inside each emulated warp) with ragged pixel and channel edges,
-bands of the one-launch block cut by the last image row, partial channel
-chunks, blocks with more threads than channels, odd pooled sizes and C = 40
-upsamples. The whole
+exchanged inside each emulated warp) with ragged pixel and channel edges;
+the one-launch block's tiles cut by the image's last row and column, its
+partial chunks and groups of channels, its passes of items and its
+``cp.async`` staging; odd pooled sizes and C = 40 upsamples. The whole
 small model is served through the emulated kernels, densely and through the
 routed strategies, with the launch counts of its forward. On the card,
 ``chip_smoke.py`` holds the same sources, built by ``nvcc``, against the
@@ -144,20 +144,44 @@ def _block_params(g, c):
 
 
 @pytest.mark.parametrize("n,h,w,c", [
-    (2, 5, 16, 8),    # tile width 16; the last band cut by the image
-    (1, 6, 20, 16),   # tile width 20
-    (2, 9, 12, 16),   # ragged last column tile (W not a multiple of 16)
-    (1, 3, 8, 4),     # tile width 8; one band taller than the image
-    (1, 7, 40, 12),   # two tiles of 20; channels not a multiple of 32
+    (2, 5, 16, 8),    # one column tile of 16; the last tile cut by the image
+    (1, 6, 20, 16),   # a ragged second column tile
+    (2, 9, 12, 16),   # narrower than a tile (W not a multiple of 16)
+    (1, 3, 8, 4),     # one tile taller than the image; C % 8 != 0
+    (2, 4, 6, 13),    # C % 4 != 0: 4-byte copies, zero channels to 16
+    (1, 7, 40, 12),   # three column tiles; channels not a multiple of 32
     (1, 2, 5, 16),    # narrower than a tile, two rows
+    (1, 13, 37, 8),   # H, W multiples of no tile's rows or columns
+    (1, 1, 20, 8),    # one image row: both row taps of a and g read padding
+    (2, 6, 1, 12),    # one image column: the column taps read padding
+    (1, 5, 18, 40),   # a partial 32-channel chunk; output channels past
+                      # the second group's first fragment
+    (1, 9, 20, 64),   # the flagship's C = 64, with 8 x 16 and 4 x 16 tiles
+    (1, 3, 5, 200),   # chunks of 8 input channels (C > 192), 7 groups
 ])
-@pytest.mark.parametrize("band_rows", [0, 3, 8])  # 0: the kernel's choice
+@pytest.mark.parametrize("band_rows", [0, 3, 8, 4])  # 0: the kernel's choice
 def test_nbt1d_fused(libs, n, h, w, c, band_rows):
+    """The one-launch block on the tensor cores (3xTF32 fragments
+    exchanged inside each emulated warp) against the plain version: tiles
+    of ``band_rows`` output rows (0: the kernel's rule, which takes 2 rows
+    on grids this small), ragged tiles, one-pixel-wide images, partial
+    chunks and groups of channels."""
     g = _gen(h * w + c)
     x = _randn(g, n, h, w, c)
     _close(*_both(libs, nbt1d.nbt1d_fused, x, *_block_params(g, c),
                   band_rows=band_rows))
     assert dict(LAUNCHES) == {"nbt1d_fused": 1}  # the plain call counts none
+
+
+@pytest.mark.parametrize("band_rows", [0, 6])
+def test_nbt1d_fused_tile_rule(libs, band_rows):
+    """C = 128: the rule takes 4 x 16 tiles, the tallest whose first step
+    has at most one item per warp; 6 rows need two passes of items."""
+    g = _gen(band_rows)
+    x = _randn(g, 1, 9, 17, 128)
+    _close(*_both(libs, nbt1d.nbt1d_fused, x, *_block_params(g, 128),
+                  band_rows=band_rows))
+    assert dict(LAUNCHES) == {"nbt1d_fused": 1}
 
 
 @pytest.mark.parametrize("max_c,launches", [(16, {"nbt1d_fused": 1}),
