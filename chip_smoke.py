@@ -12,13 +12,18 @@ Run from the root of a checkout on a machine with one NVIDIA GPU:
    result against its plain PyTorch version on the same seeded inputs: max
    abs error and max abs error over max |plain| (≤ 1e-4 in fp32: the
    summation orders differ). Times the kernel, the plain version and, where
-   one PyTorch call computes the same function, that call, with CUDA events
-   after warm-up; the one-launch block also beside two ``nbt1d_pair`` calls
+   one PyTorch call computes the same function, that call on the device:
+   10 calls captured in a CUDA graph, its replays timed with CUDA events, so
+   the host's cost of issuing a short call is left out (``device_ms``); the
+   one-launch block also beside two ``nbt1d_pair`` calls
    on the same inputs, at all four block levels (those it does not serve
    count 0 calls a forward). Both NBt1D kernels (3xTF32 on the tensor
    cores) get two bounds, fp32 on CUDA cores and three TF32 products per
-   fp32 product on the tensor cores, and their fp32-equivalent TFLOP/s; the
-   time of each NBt1D kernel per dense forward is printed for B=8 and B=1.
+   fp32 product on the tensor cores, and their fp32-equivalent TFLOP/s.
+   ``learned_upsample`` and ``se_fuse_mixed`` run at B=1 too, and at every
+   shape make 20 back-to-back calls whose outputs must be bit-identical
+   (the SE squeeze's last-block tickets and fences race only on the card).
+   The time of each kernel per dense forward is printed for B=8 and B=1.
 3. Serve, dense: builds the 480×640 flagship with seeded random weights,
    serves 3 batches of 8 and 3 of 1 through ``dynmm_tpu_torch.serve.serve``
    (``mode="dense"``) with every launch count at 0 before, checks the
@@ -66,10 +71,11 @@ PEAK_TF32_FLOPS = 495e12
 # TF32 products per fp32 product
 PEAK_TF32X3_FLOPS = PEAK_TF32_FLOPS / 3
 KERNEL_TOL = 1e-4
+REPEATS = 20  # back-to-back calls that must give bit-identical outputs
 # launches of one dense hard-gate forward of the flagship: its stride-1
 # NBt1D blocks up to NBT1D_FUSED_MAX_C channels (6 at C = 64) take one
-# launch each, the wider ones (29) two
-EXPECTED = {"nbt1d_fused": 6, "nbt1d_pair": 58, "channel_sums": 5,
+# launch each, the wider ones (29) two; channel_sums runs in the stem cell
+EXPECTED = {"nbt1d_fused": 6, "nbt1d_pair": 58, "channel_sums": 1,
             "stem_fuse_pool": 1, "se_fuse_mixed": 4, "learned_upsample": 5}
 # the flagship's stride-1 NBt1D blocks by channel count: in each encoder
 # stage (stage i at 64·2^(i-1) channels) and in the decoder
@@ -95,7 +101,8 @@ def bound(n_bytes: float, n_flops: float,
 class Case(NamedTuple):
     """One kernel at one shape of the main path: ``calls`` per forward at
     ``batch``; ``peak`` is the FLOP/s its bound counts operations at;
-    ``alt`` another way to compute the same output, timed beside it."""
+    ``alt`` another way to compute the same output, timed beside it;
+    ``repeat``: check that REPEATS calls give bit-identical outputs."""
     name: str
     label: str
     calls: int
@@ -107,6 +114,7 @@ class Case(NamedTuple):
     alt: Callable | None = None
     batch: int = BATCH
     peak: float = PEAK_FP32_FLOPS
+    repeat: bool = False
 
 
 class Inputs:
@@ -180,17 +188,15 @@ def kernel_cases(inp: Inputs) -> list[Case]:
                 lambda a=args: nbt1d.nbt1d_pair(
                     nbt1d.nbt1d_pair(*a[:7]), *a[7:], identity=a[0]),
                 batch=bb, peak=PEAK_TF32X3_FLOPS))
-    # channel sums: the stem cell and the four fusion cells
-    for c, h, w in ((64, 240, 320), (64, 120, 160), (128, 60, 80),
-                    (256, 30, 40), (512, 15, 20)):
-        r, d = inp.randn(b, h, w, c), inp.randn(b, h, w, c)
-        n = b * h * w * c
-        cases.append(Case("channel_sums", f"{b}x{h}x{w}x{c}", 1,
-                      lambda r=r, d=d: se.channel_sums(r, d),
-                      lambda r=r, d=d: se.channel_sums_plain(r, d),
-                      None, 2 * n * 4 + 2 * b * c * 4, 2.0 * n, None))
-    # K2: stem scale-add + dual max-pool
+    # channel sums: the stem cell
     c, h, w = 64, 240, 320
+    r, d = inp.randn(b, h, w, c), inp.randn(b, h, w, c)
+    n = b * h * w * c
+    cases.append(Case("channel_sums", f"{b}x{h}x{w}x{c}", 1,
+                  lambda r=r, d=d: se.channel_sums(r, d),
+                  lambda r=r, d=d: se.channel_sums_plain(r, d),
+                  None, 2 * n * 4 + 2 * b * c * 4, 2.0 * n, None))
+    # K2: stem scale-add + dual max-pool
     r, d = inp.randn(b, h, w, c), inp.randn(b, h, w, c)
     s_r, s_d = inp.rand(b, c), inp.rand(b, c)
     n = b * h * w * c
@@ -205,16 +211,21 @@ def kernel_cases(inp: Inputs) -> list[Case]:
         x = inp.randn(b, h, w, c)
         taps, bias = inp.randn(3, 3, c, scale=0.3), inp.randn(c, scale=0.1)
         wt = upsample_library_weight(taps)
-        n = b * h * w * c
-        cases.append(Case(
-            "learned_upsample", f"{b}x{h}x{w}x{c}", 1,
-            lambda x=x, k=taps, bb=bias: upsample.learned_upsample(x, k, bb),
-            lambda x=x, k=taps, bb=bias: upsample.learned_upsample_plain(x, k, bb),
-            lambda x=x, wt=wt, bb=bias, c=c: torch.nn.functional.conv_transpose2d(
-                x.permute(0, 3, 1, 2), wt, bb, stride=2, padding=1,
-                groups=c).permute(0, 2, 3, 1),
-            (n + 4 * n) * 4 + 10 * c * 4, 8.0 * 4 * n, None))
-    # K4: the four gate-mixed SE fusion cells (channel sums + mix)
+        for bb in (b, 1):
+            xb = x[:bb].contiguous()
+            n = bb * h * w * c
+            cases.append(Case(
+                "learned_upsample", f"{bb}x{h}x{w}x{c}", 1,
+                lambda x=xb, k=taps, bb=bias: upsample.learned_upsample(x, k, bb),
+                lambda x=xb, k=taps, bb=bias: upsample.learned_upsample_plain(
+                    x, k, bb),
+                lambda x=xb, wt=wt, bb=bias, c=c: (
+                    torch.nn.functional.conv_transpose2d(
+                        x.permute(0, 3, 1, 2), wt, bb, stride=2, padding=1,
+                        groups=c).permute(0, 2, 3, 1)),
+                (n + 4 * n) * 4 + 10 * c * 4, 8.0 * 4 * n, None, batch=bb,
+                repeat=True))
+    # K4: the four gate-mixed SE fusion cells (squeeze + mix)
     for c, h, w in ((64, 120, 160), (128, 60, 80), (256, 30, 40),
                     (512, 15, 20)):
         r, d = inp.randn(b, h, w, c), inp.randn(b, h, w, c)
@@ -226,20 +237,24 @@ def kernel_cases(inp: Inputs) -> list[Case]:
                     inp.randn(cr, c, scale=1 / math.sqrt(cr)),
                     inp.randn(c, scale=0.1)]
         w_rgb = inp.rand(b)
-        n = b * h * w * c
-        cases.append(Case(
-            "se_fuse_mixed", f"{b}x{h}x{w}x{c}", 1,
-            lambda r=r, d=d, wr=w_rgb, ws=wts: se.se_fuse_mixed(r, d, wr, *ws),
-            lambda r=r, d=d, wr=w_rgb, ws=wts: se.se_fuse_mixed_plain(r, d, wr, *ws),
-            None, 3 * n * 4, 5.0 * n, None))
+        for bb in (b, 1):
+            rb, db, wb = r[:bb].contiguous(), d[:bb].contiguous(), w_rgb[:bb]
+            n = bb * h * w * c
+            cases.append(Case(
+                "se_fuse_mixed", f"{bb}x{h}x{w}x{c}", 1,
+                lambda r=rb, d=db, wr=wb, ws=wts: se.se_fuse_mixed(r, d, wr, *ws),
+                lambda r=rb, d=db, wr=wb, ws=wts: se.se_fuse_mixed_plain(
+                    r, d, wr, *ws),
+                None, 3 * n * 4, 5.0 * n, None, batch=bb, repeat=True))
     return cases
 
 
 def check_kernels(report: dict) -> list[dict]:
-    from dynmm_tpu_torch.utils.device import time_ms
+    from dynmm_tpu_torch.utils.device import device_ms
 
     per_kernel: dict[str, dict] = {}
-    # per kernel and batch: ms, bound ms, fp32 CUDA-core bound ms a forward
+    # per kernel and batch: ms, bound ms, fp32 CUDA-core bound ms, plain ms
+    # a forward
     per_forward: dict[tuple[str, int], list[float]] = {}
     inp = Inputs(seed=0)
     for case in kernel_cases(inp):
@@ -257,15 +272,22 @@ def check_kernels(report: dict) -> list[dict]:
             if rel > KERNEL_TOL:
                 raise RuntimeError(f"{name} {label}: max abs err {err:.3g} is "
                                    f"{rel:.3g} of max |plain| > {KERNEL_TOL}")
+            if case.repeat:
+                for _ in range(REPEATS):
+                    again = case.kern()
+                    again = again if isinstance(again, tuple) else (again,)
+                    if not all(torch.equal(a, o) for a, o in zip(again, outs_k)):
+                        raise RuntimeError(f"{name} {label}: {REPEATS} calls "
+                                           "on the same inputs differ")
             lib_ms = None
             if case.lib is not None:
                 lib_err = (case.lib() - outs_p[0]).abs().max().item() / scale
                 if lib_err > KERNEL_TOL:
                     raise RuntimeError(f"{name} {label}: library call differs "
                                        f"({lib_err:.3g})")
-                lib_ms = time_ms(case.lib)
-            ms, plain_ms = time_ms(case.kern), time_ms(case.plain)
-            alt_ms = None if case.alt is None else time_ms(case.alt)
+                lib_ms = device_ms(case.lib)
+            ms, plain_ms = device_ms(case.kern), device_ms(case.plain)
+            alt_ms = None if case.alt is None else device_ms(case.alt)
         b_ms, b_by = bound(case.n_bytes, case.n_flops, case.peak)
         fp32_ms, _ = bound(case.n_bytes, case.n_flops)
         tflops = case.n_flops / ms / 1e9
@@ -273,7 +295,8 @@ def check_kernels(report: dict) -> list[dict]:
                "calls_per_forward": calls, "max_abs_err": err,
                "max_rel_err": rel, "ms": ms, "plain_ms": plain_ms,
                "library_ms": lib_ms, "bound_ms": b_ms, "bound_by": b_by,
-               "fp32_bound_ms": fp32_ms, "tflops": tflops}
+               "fp32_bound_ms": fp32_ms, "tflops": tflops,
+               "repeats_identical": REPEATS if case.repeat else None}
         if case.alt is not None:
             row["two_pair_ms"] = alt_ms
         report["kernel_cases"].append(row)
@@ -287,10 +310,11 @@ def check_kernels(report: dict) -> list[dict]:
               + bounds
               + ("" if case.alt is None else f"  two nbt1d_pair {alt_ms:.4f} ms"),
               flush=True)
-        tot = per_forward.setdefault((name, case.batch), [0.0, 0.0, 0.0])
+        tot = per_forward.setdefault((name, case.batch), [0.0] * 4)
         tot[0] += ms * calls
         tot[1] += b_ms * calls
         tot[2] += fp32_ms * calls
+        tot[3] += plain_ms * calls
         agg = per_kernel.setdefault(name, {
             "name": name, "route": "cuda",
             "source": f"dynmm_tpu_torch/kernels/csrc/{SOURCES[name][0]}",
@@ -306,15 +330,15 @@ def check_kernels(report: dict) -> list[dict]:
         agg["bound_ms"] += b_ms * calls
         if lib_ms is not None:
             agg["library_ms"] += lib_ms * calls
-    report["nbt1d_per_forward"] = []
-    for (name, b), (ms, b_ms, fp32_ms) in per_forward.items():
-        if not name.startswith("nbt1d"):
-            continue
-        report["nbt1d_per_forward"].append({
+    report["per_forward"] = []
+    for (name, b), (ms, b_ms, fp32_ms, plain_ms) in per_forward.items():
+        report["per_forward"].append({
             "kernel": name, "batch": b, "ms": ms, "bound_ms": b_ms,
-            "fp32_bound_ms": fp32_ms})
-        print(f"  {name} per dense B={b} forward: {ms:.3f} ms; bound "
-              f"{b_ms:.3f} ms, on fp32 CUDA cores {fp32_ms:.3f} ms", flush=True)
+            "fp32_bound_ms": fp32_ms, "plain_ms": plain_ms})
+        print(f"  {name} per dense B={b} forward: {ms:.4f} ms; bound "
+              f"{b_ms:.4f} ms" + (f", on fp32 CUDA cores {fp32_ms:.4f} ms"
+                                  if fp32_ms != b_ms else "")
+              + f"; plain {plain_ms:.4f} ms", flush=True)
     return list(per_kernel.values())
 
 
@@ -420,7 +444,7 @@ def path_launches(ran: list[bool], low_res: bool) -> dict:
     blocks (one ``nbt1d_fused`` each up to ``NBT1D_FUSED_MAX_C`` channels,
     two ``nbt1d_pair`` above), the stem cell (``stem_fuse_pool`` and its
     ``channel_sums``), 5 upsamples (3 at ``low_res``). A depth stage that
-    ran adds its blocks and one fusion cell with its channel sums."""
+    ran adds its blocks and one fusion cell (``se_fuse_mixed``)."""
     from dynmm_tpu_torch.kernels.nbt1d import NBT1D_FUSED_MAX_C
 
     counts = {"nbt1d_fused": 0, "nbt1d_pair": 0, "channel_sums": 1,
@@ -436,7 +460,6 @@ def path_launches(ran: list[bool], low_res: bool) -> dict:
     for (c, n), r in zip(ENCODER_BLOCKS, ran):
         blocks(c, n * (1 + int(r)))
         counts["se_fuse_mixed"] += int(r)
-        counts["channel_sums"] += int(r)
     for c, n in DECODER_BLOCKS:
         blocks(c, n)
     return {k: v for k, v in counts.items() if v}

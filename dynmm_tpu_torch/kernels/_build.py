@@ -130,6 +130,12 @@ def on_card(*tensors: torch.Tensor | None) -> bool:
     return True
 
 
+def sm_count(t: torch.Tensor) -> int:
+    """Streaming multiprocessors of the card that holds ``t``: grids are
+    sized from it."""
+    return torch.cuda.get_device_properties(t.device).multi_processor_count
+
+
 def ptr(t: torch.Tensor | None) -> int | None:
     return None if t is None else t.data_ptr()
 

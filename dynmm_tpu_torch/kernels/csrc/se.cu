@@ -2,7 +2,8 @@
 //
 // Replaces two TPU kernels of the JAX package:
 //   * dynmm_tpu/kernels/stem_fuse.py::channel_sums (_sums_kernel): per-sample
-//     per-channel sums of one or two (B, HW, C) maps in one read;
+//     per-channel sums of two (B, HW, C) maps in one read (the stem
+//     cell's pass 1);
 //   * dynmm_tpu/kernels/se.py::fused_se (_se_kernel): mean -> @w1+b1 -> relu
 //     -> @w2+b2 -> sigmoid -> x*s, here in the two-map mixed form that the
 //     main path's fusion cells use,
@@ -12,15 +13,31 @@
 // maps again and writes one (the reduction forces two passes). The SE MLP is
 // C*C/16*2 multiply-adds per sample and map, nothing next to the maps.
 //
-// Design: the TPU kernel carried its sum across a sequential grid; Hopper
-// blocks run in no order, so pass 1 writes per-block partial sums and a
-// second small kernel adds them in a fixed order (deterministic, no atomics).
-// The mix kernel recomputes the two tiny MLPs in every block from the sums
-// (a few thousand multiply-adds) instead of launching a third kernel.
+// channel_sums: the TPU kernel carried its sum across a sequential grid;
+// Hopper blocks run in no order, so pass 1 writes per-block partial sums and
+// a second small kernel adds them in a fixed order (deterministic).
+//
+// The SE cell (dynmm_se_fuse) takes two launches. The TPU kernel held a
+// sample's map in VMEM and did mean -> MLP -> x*s in one pass; Hopper blocks
+// cannot share a sample's map, so:
+//   1. se_squeeze_kernel, grid (S, B): each block sums its chunk of pixels of
+//      both maps (float4 loads) and writes its per-channel partial sums. The
+//      last block of each sample to finish (an atomicAdd ticket on a
+//      per-sample counter, after __threadfence) adds the S partials in block
+//      order (deterministic: the order depends on B, HW, C and the grid, never
+//      on the data), runs both SE MLPs once, folds in w and writes
+//      s_r' = w + (1-w)*s_r and s_d' = (1-w)*s_d, then resets its counter to
+//      0 for the next launch.
+//   2. se_mix_kernel, the same grid: out = x_r*s_r' + x_d*s_d', float4, each
+//      thread's scales loaded once, its channel group fixed by the layout.
+//      Blocks run in the reverse of the squeeze's order, so the first to run
+//      read the pixels the squeeze read last, still in L2.
+// S comes from the card's SM count (the wrapper's rule), the same S for both.
 
 #include <cuda_runtime.h>
+#include <cstdint>
 
-// grid (S, B, maps); blockDim = P*C. Thread (p, c) sums channel c over the
+// grid (S, B, 2); blockDim = P*C. Thread (p, c) sums channel c over the
 // pixels p, p+P, ... of split s; the P lanes of a channel then reduce in
 // shared memory. Neighbouring threads read neighbouring channels.
 __global__ void sums_partial_kernel(const float* __restrict__ a,
@@ -47,7 +64,7 @@ __global__ void sums_partial_kernel(const float* __restrict__ a,
   }
 }
 
-// grid (B, maps): adds the S partials of each (sample, channel) in order.
+// grid (B, 2): adds the S partials of each (sample, channel) in order.
 __global__ void sums_finalize_kernel(const float* __restrict__ partial,
                                      float* __restrict__ out_a,
                                      float* __restrict__ out_b, int S, int C) {
@@ -61,18 +78,17 @@ __global__ void sums_finalize_kernel(const float* __restrict__ partial,
   }
 }
 
-// b == nullptr sums one map. partial holds maps*B*S*C floats.
+// partial holds 2*B*S*C floats.
 extern "C" int dynmm_channel_sums(const float* a, const float* b,
                                   float* partial, float* out_a, float* out_b,
                                   int B, int HW, int C, int S, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  const int maps = b == nullptr ? 1 : 2;
   int P = 256 / C;
   if (P < 1) P = 1;
-  dim3 grid(S, B, maps);
+  dim3 grid(S, B, 2);
   sums_partial_kernel<<<grid, P * C, P * C * sizeof(float), st>>>(
       a, b, partial, HW, C, S, P);
-  dim3 grid2(B, maps);
+  dim3 grid2(B, 2);
   int threads = C < 1024 ? C : 1024;
   sums_finalize_kernel<<<grid2, threads, 0, st>>>(partial, out_a, out_b, S, C);
   return (int)cudaGetLastError();
@@ -82,98 +98,206 @@ __device__ __forceinline__ float sigmoidf_(float v) {
   return 1.f / (1.f + expf(-v));
 }
 
-// grid (chunks, B); each block first rebuilds sample n's scale vectors from
-// the channel sums, then mixes its chunk of float4s.
-//   hidden_m = relu(mean_m @ w1_m + b1_m); s_m = sigmoid(hidden_m @ w2_m + b2_m)
-//   out = x_r * (w + (1-w)*s_r) + x_d * ((1-w)*s_d)
-// x_d == nullptr: single-map SE (out = x_r * s_r, with w = 0).
-// w_rgb == nullptr means w = 0. Weights: w1 (C, Cr), w2 (Cr, C) as in JAX.
-__global__ void se_mix_kernel(const float4* __restrict__ x_r,
-                              const float4* __restrict__ x_d,
-                              const float* __restrict__ sum_r,
-                              const float* __restrict__ sum_d,
-                              const float* __restrict__ w1r,
-                              const float* __restrict__ b1r,
-                              const float* __restrict__ w2r,
-                              const float* __restrict__ b2r,
-                              const float* __restrict__ w1d,
-                              const float* __restrict__ b1d,
-                              const float* __restrict__ w2d,
-                              const float* __restrict__ b2d,
-                              const float* __restrict__ w_rgb,
-                              float4* __restrict__ out, int HW, int C, int Cr,
-                              long chunk4) {
+constexpr int SE_THREADS = 256;
+
+__device__ __forceinline__ void add4(float4& a, const float4 b) {
+  a.x += b.x;
+  a.y += b.y;
+  a.z += b.z;
+  a.w += b.w;
+}
+
+// Pixels [q0, q1) of split s of S over HW.
+__device__ __forceinline__ void split_range(int HW, int S, int s, int& q0,
+                                            int& q1) {
+  const int chunk = (HW + S - 1) / S;
+  q0 = s * chunk < HW ? s * chunk : HW;
+  q1 = q0 + chunk < HW ? q0 + chunk : HW;
+}
+
+// SE MLP weights of one map, in the JAX layout: w1 (C, Cr), w2 (Cr, C).
+struct SeWeights {
+  const float *w1, *b1, *w2, *b2;
+};
+
+// Shared memory (floats): the pixel lanes' sums [2][4*SE_THREADS], the
+// ticket, then the finalize's means [2][C], layer-1 sums [2][SE_THREADS] and
+// hidden units [2][Cr].
+constexpr int se_smem_floats(int C, int Cr) {
+  return 8 * SE_THREADS + 4 + 2 * C + 2 * SE_THREADS + 2 * Cr;
+}
+
+// grid (S, B), SE_THREADS threads. Thread t = p*C4 + g sums float4 g (the
+// channels 4g..4g+3) over the pixels p, p+P, ... of its block's chunk. x_d ==
+// nullptr: one map (fused_se). partial holds B*S*2*C floats, scales B*2*C,
+// counter B zeros (left at zero).
+__global__ void __launch_bounds__(SE_THREADS)
+    se_squeeze_kernel(const float4* __restrict__ x_r,
+                      const float4* __restrict__ x_d,
+                      float* __restrict__ partial, float* __restrict__ scales,
+                      unsigned* __restrict__ counter, SeWeights wr,
+                      SeWeights wd, const float* __restrict__ w_rgb, int HW,
+                      int C, int Cr) {
   extern __shared__ float sm[];
-  float* sr = sm;           // C
-  float* sd = sr + C;       // C
-  float* hr = sd + C;       // Cr
-  float* hd = hr + Cr;      // Cr
-  const int n = blockIdx.y;
+  const int S = gridDim.x, s = blockIdx.x, n = blockIdx.y;
+  const int t = threadIdx.x, C4 = C / 4;
+  const int P = SE_THREADS / C4;  // pixel lanes
+  const int p = t / C4, g = t - p * C4;
   const bool two = x_d != nullptr;
-  const float hw = (float)HW;
 
-  for (int j = threadIdx.x; j < 2 * Cr; j += blockDim.x) {
-    const bool dep = j >= Cr;
-    if (dep && !two) continue;
-    const int jj = dep ? j - Cr : j;
-    const float* sums = (dep ? sum_d : sum_r) + (size_t)n * C;
-    const float* w1 = dep ? w1d : w1r;
+  float4 ar = make_float4(0.f, 0.f, 0.f, 0.f), ad = ar;
+  if (p < P) {
+    int q0, q1;
+    split_range(HW, S, s, q0, q1);
+    const size_t base = (size_t)n * HW * C4;
+    const float4* xr = x_r + base;
+    const float4* xd = two ? x_d + base : nullptr;
+#pragma unroll 4
+    for (int q = q0 + p; q < q1; q += P) {
+      const int e = q * C4 + g;
+      add4(ar, xr[e]);
+      if (two) add4(ad, xd[e]);
+    }
+  }
+  // lane p's sum of channel c sits at red[m][p*C + c]
+  float4* red4 = reinterpret_cast<float4*>(sm);
+  red4[t] = ar;
+  red4[SE_THREADS + t] = ad;
+  __syncthreads();
+  float* part = partial + ((size_t)n * S + s) * 2 * C;
+  for (int c = t; c < C; c += SE_THREADS) {
+    float r = 0.f, d = 0.f;
+    for (int k = 0; k < P; ++k) {
+      r += sm[k * C + c];
+      d += sm[4 * SE_THREADS + k * C + c];
+    }
+    part[c] = r;
+    part[C + c] = d;
+  }
+
+  // the last block of sample n to get here runs the finalize
+  unsigned* ticket = reinterpret_cast<unsigned*>(sm + 8 * SE_THREADS);
+  __threadfence();
+  __syncthreads();
+  if (t == 0) *ticket = atomicAdd(counter + n, 1u);
+  __syncthreads();
+  if (*ticket != (unsigned)S - 1) return;
+  __threadfence();
+  if (t == 0) counter[n] = 0;
+
+  float* mean = sm + 8 * SE_THREADS + 4;  // [2][C]
+  float* l1 = mean + 2 * C;               // [2][SE_THREADS]
+  float* hid = l1 + 2 * SE_THREADS;       // [2][Cr]
+  const int maps = two ? 2 : 1;
+  const float* pn = partial + (size_t)n * S * 2 * C;
+  for (int c = t; c < maps * C; c += SE_THREADS) {
+    float tot = 0.f;
+    for (int k = 0; k < S; ++k) tot += __ldcg(pn + (size_t)k * 2 * C + c);
+    mean[c] = tot / (float)HW;
+  }
+  __syncthreads();
+  // layer 1, spread over the block: thread (slice, j) sums mean[c]*w1[c][j]
+  // over c = slice, slice+NS, ...; consecutive threads read consecutive
+  // weights. The NS slices of each hidden unit then add in slice order.
+  const int NS = SE_THREADS / Cr;
+  const int sl = t / Cr, j = t - sl * Cr;
+  float hr = 0.f, hd = 0.f;
+  if (sl < NS) {
+    for (int c = sl; c < C; c += NS) {
+      hr += mean[c] * wr.w1[c * Cr + j];
+      if (two) hd += mean[C + c] * wd.w1[c * Cr + j];
+    }
+  }
+  l1[t] = hr;
+  l1[SE_THREADS + t] = hd;
+  __syncthreads();
+  for (int i = t; i < maps * Cr; i += SE_THREADS) {
+    const int m = i >= Cr, jj = i - m * Cr;
     float acc = 0.f;
-    for (int c = 0; c < C; ++c) acc += (sums[c] / hw) * w1[(size_t)c * Cr + jj];
-    acc += (dep ? b1d : b1r)[jj];
-    (dep ? hd : hr)[jj] = fmaxf(acc, 0.f);
+    for (int k = 0; k < NS; ++k) acc += l1[m * SE_THREADS + k * Cr + jj];
+    acc += (m ? wd.b1 : wr.b1)[jj];
+    hid[i] = fmaxf(acc, 0.f);
   }
   __syncthreads();
+  // layer 2, one thread per channel, and the mix weight folded in
   const float w = w_rgb != nullptr ? w_rgb[n] : 0.f;
-  for (int c = threadIdx.x; c < C; c += blockDim.x) {
-    float a = 0.f;
-    for (int j = 0; j < Cr; ++j) a += hr[j] * w2r[(size_t)j * C + c];
-    sr[c] = w + (1.f - w) * sigmoidf_(a + b2r[c]);
-    if (two) {
-      float d = 0.f;
-      for (int j = 0; j < Cr; ++j) d += hd[j] * w2d[(size_t)j * C + c];
-      sd[c] = (1.f - w) * sigmoidf_(d + b2d[c]);
+  float* sc = scales + (size_t)n * 2 * C;
+  for (int c = t; c < C; c += SE_THREADS) {
+    float a = 0.f, d = 0.f;
+    for (int jj = 0; jj < Cr; ++jj) {
+      a += hid[jj] * wr.w2[jj * C + c];
+      if (two) d += hid[Cr + jj] * wd.w2[jj * C + c];
     }
-  }
-  __syncthreads();
-
-  const int C4 = C / 4;
-  const long total4 = (long)HW * C4;
-  const long e0 = (long)blockIdx.x * chunk4;
-  const long e1 = e0 + chunk4 < total4 ? e0 + chunk4 : total4;
-  const size_t base = (size_t)n * total4;
-  for (long e = e0 + threadIdx.x; e < e1; e += blockDim.x) {
-    const int c = (int)(e % C4) * 4;
-    float4 r = x_r[base + e];
-    float4 v = make_float4(r.x * sr[c], r.y * sr[c + 1], r.z * sr[c + 2],
-                           r.w * sr[c + 3]);
-    if (two) {
-      float4 d = x_d[base + e];
-      v.x += d.x * sd[c];
-      v.y += d.y * sd[c + 1];
-      v.z += d.z * sd[c + 2];
-      v.w += d.w * sd[c + 3];
-    }
-    out[base + e] = v;
+    sc[c] = w + (1.f - w) * sigmoidf_(a + wr.b2[c]);
+    sc[C + c] = two ? (1.f - w) * sigmoidf_(d + wd.b2[c]) : 0.f;
   }
 }
 
-// C % 4 == 0 (the wrapper checks). chunks blocks per sample.
-extern "C" int dynmm_se_mix(const float* x_r, const float* x_d,
-                            const float* sum_r, const float* sum_d,
-                            const float* w1r, const float* b1r,
-                            const float* w2r, const float* b2r,
-                            const float* w1d, const float* b1d,
-                            const float* w2d, const float* b2d,
-                            const float* w_rgb, float* out, int B, int HW,
-                            int C, int Cr, int chunks, void* stream) {
+// grid (S, B), SE_THREADS threads, block (x, y) mixes chunk S-1-x of sample
+// B-1-y: the reverse of the squeeze's order.
+__global__ void __launch_bounds__(SE_THREADS)
+    se_mix_kernel(const float4* __restrict__ x_r,
+                  const float4* __restrict__ x_d,
+                  const float4* __restrict__ scales, float4* __restrict__ out,
+                  int HW, int C) {
+  const int S = gridDim.x;
+  const int s = S - 1 - (int)blockIdx.x;
+  const int n = (int)gridDim.y - 1 - (int)blockIdx.y;
+  const int t = threadIdx.x, C4 = C / 4;
+  const int P = SE_THREADS / C4;
+  const int p = t / C4, g = t - p * C4;
+  if (p >= P) return;
+  const bool two = x_d != nullptr;
+  const float4 sr = scales[(size_t)n * 2 * C4 + g];
+  const float4 sd = two ? scales[(size_t)n * 2 * C4 + C4 + g]
+                        : make_float4(0.f, 0.f, 0.f, 0.f);
+  int q0, q1;
+  split_range(HW, S, s, q0, q1);
+  const size_t base = (size_t)n * HW * C4;
+  const float4* xr = x_r + base;
+  const float4* xd = two ? x_d + base : nullptr;
+  float4* o = out + base;
+#pragma unroll 4
+  for (int q = q0 + p; q < q1; q += P) {
+    const int e = q * C4 + g;
+    const float4 r = xr[e];
+    float4 v = make_float4(r.x * sr.x, r.y * sr.y, r.z * sr.z, r.w * sr.w);
+    if (two) {
+      const float4 d = xd[e];
+      v.x += d.x * sd.x;
+      v.y += d.y * sd.y;
+      v.z += d.z * sd.z;
+      v.w += d.w * sd.w;
+    }
+    o[e] = v;
+  }
+}
+
+// The SE cell in two launches. C % 4 == 0, C <= 4*SE_THREADS, Cr <=
+// SE_THREADS and 16-byte aligned maps (the wrapper checks); S splits per
+// sample. x_d == nullptr: single-map SE (w = 0, the w*d weights unused).
+// w_rgb == nullptr means w = 0. partial: B*S*2*C floats; scales: B*2*C;
+// counter: B unsigned zeros, left at zero.
+extern "C" int dynmm_se_fuse(const float* x_r, const float* x_d,
+                             const float* w1r, const float* b1r,
+                             const float* w2r, const float* b2r,
+                             const float* w1d, const float* b1d,
+                             const float* w2d, const float* b2d,
+                             const float* w_rgb, float* partial,
+                             float* scales, unsigned* counter, float* out,
+                             int B, int HW, int C, int Cr, int S,
+                             void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  const long total4 = (long)HW * (C / 4);
-  const long chunk4 = (total4 + chunks - 1) / chunks;
-  dim3 grid(chunks, B);
-  size_t smem = (size_t)(2 * C + 2 * Cr) * sizeof(float);
-  se_mix_kernel<<<grid, 256, smem, st>>>(
-      (const float4*)x_r, (const float4*)x_d, sum_r, sum_d, w1r, b1r, w2r,
-      b2r, w1d, b1d, w2d, b2d, w_rgb, (float4*)out, HW, C, Cr, chunk4);
+  dim3 grid(S, B);
+  const size_t smem = (size_t)se_smem_floats(C, Cr) * sizeof(float);
+  se_squeeze_kernel<<<grid, SE_THREADS, smem, st>>>(
+      (const float4*)x_r, (const float4*)x_d, partial, scales, counter,
+      SeWeights{w1r, b1r, w2r, b2r}, SeWeights{w1d, b1d, w2d, b2d}, w_rgb, HW,
+      C, Cr);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  se_mix_kernel<<<grid, SE_THREADS, 0, st>>>(
+      (const float4*)x_r, (const float4*)x_d, (const float4*)scales,
+      (float4*)out, HW, C);
   return (int)cudaGetLastError();
 }

@@ -12,76 +12,183 @@
 // source padded by one). Zero padding of the upsampled map is zero padding of
 // the source, so out-of-range source cells read as 0.
 //
-// Bound on this card: bytes (one read of x, one write of the 4x output).
+// Bound on this card: bytes (one read of x, one write of the 4x output; the
+// write is 80 % of them).
 //
-// Design: one thread per source pixel and channel. It loads the 3x3 source
-// neighbourhood and the channel's 9 taps once and writes its 2x2 output quad
-// (all four phases), so neighbouring threads (neighbouring channels) read and
-// write neighbouring addresses. Any C works, the C = 40 logits maps included.
+// Design: a thread owns V consecutive channels (V = 4: one float4) of one
+// output column ox = 2b+cp and walks down a strip of S source rows, D rows a
+// step. Its window, the two source columns b+cp-1 and b+cp that its column
+// reads, slides down in registers: a step loads only the next D rows' cells
+// (their loads in flight together), and the thread forms its 8 taps (the
+// column phase cp's half of the 16) and the bias once, not once per pixel.
+// Each source row gives the thread two output pixels, rows 2a and 2a+1, as
+// V-wide streaming stores (st.global.cs: the output is not read again by
+// this kernel, so it need not displace the source from L2). Consecutive
+// threads take consecutive (output column, channel group) pairs, so every
+// store of a warp covers 512 contiguous bytes of an output row whatever C
+// is (C = 40: ten float4s a pixel); the four threads that read a source
+// cell in a step meet in L1. Index math is 32-bit
+// within a sample (the wrapper checks that an output sample has fewer than
+// 2^31 floats), one division per thread. V = 1 takes C % 4 != 0 or pointers
+// that are not 16-byte aligned. The strip is the longest (up to UP_STRIP_MAX
+// rows) that still gives two blocks per SM.
+//
+// Measured against it per dense B=8 forward on an H100 (bench_cells.py):
+// 0.29 ms. A thread per source pixel writing its 2x2 quad (a 3x3 window and
+// all 16 taps, 154 registers at D = 2) took 0.34; the same with one row a
+// step (D = 1), 0.57: one row's loads are too few to cover the latency.
+// This design with plain stores: 0.31 at D = 4 or 8; streaming stores at
+// D = 2: 0.30.
 
 #include <cuda_runtime.h>
+#include <cstdint>
 
-__global__ void learned_upsample_kernel(const float* __restrict__ x,
-                                        const float* __restrict__ k,
-                                        const float* __restrict__ bias,
-                                        float* __restrict__ out, int N, int H,
-                                        int W, int C) {
-  const long idx = (long)blockIdx.x * blockDim.x + threadIdx.x;
-  const long total = (long)N * H * W * C;
-  if (idx >= total) return;
-  const int c = (int)(idx % C);
-  long r = idx / C;
-  const int b = (int)(r % W);
-  r /= W;
-  const int a = (int)(r % H);
-  const int n = (int)(r / H);
+constexpr int UP_THREADS = 256;
+constexpr int UP_STRIP_MAX = 16;
+constexpr int UP_ROWS = 4;  // source rows a step loads together (D)
 
-  float v[3][3];  // v[i][j] = x[a-1+i][b-1+j], zero outside the map
-  for (int i = 0; i < 3; ++i) {
-    const int ya = a - 1 + i;
-    for (int j = 0; j < 3; ++j) {
-      const int xb = b - 1 + j;
-      v[i][j] = (ya >= 0 && ya < H && xb >= 0 && xb < W)
-                    ? x[(((size_t)n * H + ya) * W + xb) * C + c]
-                    : 0.f;
-    }
+template <int V>
+__device__ __forceinline__ void load_vec(float (&d)[V], const float* p) {
+  if constexpr (V == 4) {
+    const float4 t = *reinterpret_cast<const float4*>(p);
+    d[0] = t.x;
+    d[1] = t.y;
+    d[2] = t.z;
+    d[3] = t.w;
+  } else {
+    d[0] = *p;
   }
-  // rows grouped by output row parity: R[rp][e][dv]
-  float R[2][2][3];
-  for (int dv = 0; dv < 3; ++dv) {
-    const float k0 = k[(0 * 3 + dv) * C + c];
-    const float k1 = k[(1 * 3 + dv) * C + c];
-    const float k2 = k[(2 * 3 + dv) * C + c];
-    R[0][0][dv] = k0;
-    R[0][1][dv] = k1 + k2;
-    R[1][0][dv] = k0 + k1;
-    R[1][1][dv] = k2;
+}
+
+template <int V>
+__device__ __forceinline__ void store_vec(float* p, const float (&s)[V]) {
+  if constexpr (V == 4) {
+    __stcs(reinterpret_cast<float4*>(p), make_float4(s[0], s[1], s[2], s[3]));
+  } else {
+    *p = s[0];
   }
-  const float bc = bias[c];
-  const int OH = 2 * H, OW = 2 * W;
-  for (int rp = 0; rp < 2; ++rp) {
-    for (int cp = 0; cp < 2; ++cp) {
-      float acc = bc;
-      for (int e = 0; e < 2; ++e) {
-        const float* row = R[rp][e];
-        // the same grouping over columns
-        const float t0 = cp == 0 ? row[0] : row[0] + row[1];
-        const float t1 = cp == 0 ? row[1] + row[2] : row[2];
-        acc += t0 * v[rp + e][cp] + t1 * v[rp + e][cp + 1];
-      }
-      out[(((size_t)n * OH + 2 * a + rp) * OW + 2 * b + cp) * C + c] = acc;
+}
+
+// v[f] = x[row][col0+f] (channels c..c+V-1), zero outside the map
+template <int V>
+__device__ __forceinline__ void load_cells(float (&v)[2][V],
+                                           const float* __restrict__ xs,
+                                           int row, int col0, int c, int H,
+                                           int W, int C) {
+  const bool in = row >= 0 && row < H;
+#pragma unroll
+  for (int f = 0; f < 2; ++f) {
+    const int col = col0 + f;
+    if (in && col >= 0 && col < W) {
+      load_vec<V>(v[f], xs + (row * W + col) * C + c);
+    } else {
+#pragma unroll
+      for (int i = 0; i < V; ++i) v[f][i] = 0.f;
     }
   }
 }
 
+// grid (ceil(2W*C/V / UP_THREADS), ceil(H/S), N)
+template <int V, int D>
+__global__ void __launch_bounds__(UP_THREADS)
+    learned_upsample_kernel(const float* __restrict__ x,
+                            const float* __restrict__ k,
+                            const float* __restrict__ bias,
+                            float* __restrict__ out, int H, int W, int C,
+                            int S) {
+  const int CG = C / V;
+  const int t = blockIdx.x * UP_THREADS + threadIdx.x;
+  if (t >= 2 * W * CG) return;
+  const int ox = t / CG;
+  const int c = (t - ox * CG) * V;
+  const int cp = ox & 1, col0 = (ox >> 1) + cp - 1;
+  const int n = blockIdx.z;
+  const int a0 = blockIdx.y * S;
+  const int a1 = a0 + S < H ? a0 + S : H;
+
+  // T[rp][e][f][i]: the stencil of output phase (rp, cp), channel c+i
+  float T[2][2][2][V], bc[V];
+#pragma unroll
+  for (int i = 0; i < V; ++i) {
+    float kk[3][3];  // kk[du][dv], the 3x3 taps of channel c+i
+#pragma unroll
+    for (int du = 0; du < 3; ++du)
+#pragma unroll
+      for (int dv = 0; dv < 3; ++dv) kk[du][dv] = k[(du * 3 + dv) * C + c + i];
+#pragma unroll
+    for (int rp = 0; rp < 2; ++rp)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        float R[3];  // kernel rows grouped by output row parity
+#pragma unroll
+        for (int dv = 0; dv < 3; ++dv)
+          R[dv] = rp == 0 ? (e == 0 ? kk[0][dv] : kk[1][dv] + kk[2][dv])
+                          : (e == 0 ? kk[0][dv] + kk[1][dv] : kk[2][dv]);
+        // the same grouping over columns
+        T[rp][e][0][i] = cp == 0 ? R[0] : R[0] + R[1];
+        T[rp][e][1][i] = cp == 0 ? R[1] + R[2] : R[2];
+      }
+    bc[i] = bias[c + i];
+  }
+
+  const float* xs = x + (size_t)n * H * W * C;
+  float* os = out + (size_t)n * 4 * H * W * C + ox * C + c;
+  const int OWC = 2 * W * C;  // floats in an output row
+  float v[D + 2][2][V];       // v[i][f] = x[a-1+i][col0+f]
+  load_cells<V>(v[0], xs, a0 - 1, col0, c, H, W, C);
+  load_cells<V>(v[1], xs, a0, col0, c, H, W, C);
+  for (int a = a0; a < a1; a += D) {
+#pragma unroll
+    for (int d = 0; d < D; ++d)
+      load_cells<V>(v[2 + d], xs, a + 1 + d, col0, c, H, W, C);
+#pragma unroll
+    for (int d = 0; d < D; ++d) {
+      if (d > 0 && a + d >= a1) break;
+#pragma unroll
+      for (int rp = 0; rp < 2; ++rp) {
+        float o[V];
+#pragma unroll
+        for (int i = 0; i < V; ++i) {
+          float acc = bc[i];
+#pragma unroll
+          for (int e = 0; e < 2; ++e)
+            acc += T[rp][e][0][i] * v[d + rp + e][0][i] +
+                   T[rp][e][1][i] * v[d + rp + e][1][i];
+          o[i] = acc;
+        }
+        store_vec<V>(os + (2 * (a + d) + rp) * OWC, o);
+      }
+    }
+#pragma unroll
+    for (int f = 0; f < 2; ++f)
+#pragma unroll
+      for (int i = 0; i < V; ++i) {
+        v[0][f][i] = v[D][f][i];
+        v[1][f][i] = v[D + 1][f][i];
+      }
+  }
+}
+
+// sms: the card's SM count, which sets the strip.
 extern "C" int dynmm_learned_upsample(const float* x, const float* k,
                                       const float* bias, float* out, int N,
-                                      int H, int W, int C, void* stream) {
+                                      int H, int W, int C, int sms,
+                                      void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  const long total = (long)N * H * W * C;
-  const int threads = 256;
-  const long blocks = (total + threads - 1) / threads;
-  learned_upsample_kernel<<<(unsigned)blocks, threads, 0, st>>>(
-      x, k, bias, out, N, H, W, C);
+  const bool vec = C % 4 == 0 && ((reinterpret_cast<uintptr_t>(x) |
+                                   reinterpret_cast<uintptr_t>(out)) &
+                                  15) == 0;
+  const int cols = 2 * W * (vec ? C / 4 : C);
+  const int bx = (cols + UP_THREADS - 1) / UP_THREADS;
+  // the longest strip up to UP_STRIP_MAX rows that leaves two blocks per SM
+  const long fill = (long)N * H * bx / (2L * (sms > 0 ? sms : 1));
+  const int S = fill < 1 ? 1 : fill > UP_STRIP_MAX ? UP_STRIP_MAX : (int)fill;
+  dim3 grid(bx, (H + S - 1) / S, N);
+  if (vec)
+    learned_upsample_kernel<4, UP_ROWS>
+        <<<grid, UP_THREADS, 0, st>>>(x, k, bias, out, H, W, C, S);
+  else
+    learned_upsample_kernel<1, UP_ROWS>
+        <<<grid, UP_THREADS, 0, st>>>(x, k, bias, out, H, W, C, S);
   return (int)cudaGetLastError();
 }

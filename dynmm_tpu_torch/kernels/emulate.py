@@ -15,9 +15,13 @@ its threads in a loop. The header defines ``DYNMM_EMULATED``: a source
 keeps its inline PTX under ``#ifndef DYNMM_EMULATED`` and emulates it
 otherwise, warp collectives (``mma.sync``) through a per-warp barrier of 32
 and a per-warp exchange buffer (``emu_warp_sync``, ``emu_warp_mem``), and
-``cp.async`` as a synchronous copy. Headers under ``csrc/`` (``*.cuh``) are
-included as they are, through ``-I``: they hold no launch and no
-``extern __shared__``, the two things this rewrite changes.
+``cp.async`` as a synchronous copy; ``__threadfence`` is a no-op and
+``atomicAdd`` a plain read-modify-write, since blocks run in turn on one OS
+thread; ``__stcs`` and ``__ldcg`` are plain stores and loads. Wrappers
+size their grids for ``SMS`` streaming multiprocessors, few, so that a
+test's small shapes still get several blocks. Headers under ``csrc/``
+(``*.cuh``) are included as they are, through ``-I``: they hold no launch
+and no ``extern __shared__``, the two things this rewrite changes.
 Indexing, masking, tiling and the arithmetic are the sources' own; what only
 the card shows (timing, races between warps, limits on registers and shared
 memory, the tensor cores' truncating sums) is not emulated. One launch runs
@@ -40,6 +44,8 @@ from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 from dynmm_tpu_torch.kernels import _build
+
+SMS = 2  # the SM count grids are sized for under emulation
 
 SHIM = r"""
 #pragma once
@@ -98,6 +104,15 @@ inline void emu_arrive(EmuBarrier& b) {
   swapcontext(&emu_cur->ctx, &emu_sched);
 }
 inline void __syncthreads() { emu_arrive(emu_block_bar); }
+// Blocks run one after another and a block's threads on one OS thread, so
+// memory is coherent: fences are no-ops, an atomic a plain read-modify-write.
+inline void __threadfence() {}
+template <class T>
+inline T atomicAdd(T* p, T v) { return std::exchange(*p, *p + v); }
+template <class T>
+inline T __ldcg(const T* p) { return *p; }
+template <class T>
+inline void __stcs(T* p, T v) { *p = v; }
 inline void emu_warp_sync() { emu_arrive(emu_cur->warp->bar); }
 // the buffer of this lane's next exchange; every lane calls it once each
 inline unsigned* emu_warp_mem() {
@@ -262,7 +277,7 @@ def build(out_dir: Path) -> dict[str, ctypes.CDLL]:
 def emulated(libs: dict[str, ctypes.CDLL]):
     """Within the block, wrappers given CPU tensors launch the emulated
     kernels (and count their launches) instead of the plain versions."""
-    saved = _build.function, _build.on_card, _build.stream
+    saved = _build.function, _build.on_card, _build.stream, _build.sm_count
 
     def function(lib, name, n_ptr, n_int):
         fn = getattr(libs[lib], name)
@@ -276,9 +291,10 @@ def emulated(libs: dict[str, ctypes.CDLL]):
             raise ValueError("emulated kernels take CPU tensors")
         return True
 
-    _build.function, _build.on_card, _build.stream = (function, on_card,
-                                                      lambda: None)
+    _build.function, _build.on_card, _build.stream, _build.sm_count = (
+        function, on_card, lambda: None, lambda t: SMS)
     try:
         yield
     finally:
-        _build.function, _build.on_card, _build.stream = saved
+        (_build.function, _build.on_card, _build.stream,
+         _build.sm_count) = saved

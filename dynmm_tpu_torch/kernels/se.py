@@ -10,7 +10,8 @@ path's SE-add fusion cells take (``SqueezeAndExciteFusionAdd.fuse_mixed``):
 
 Maps are NHWC (B, H, W, C) fp32; SE weights take the JAX layout
 ``w1 (C, C/16)``, ``w2 (C/16, C)``. Each wrapper takes its plain version
-for CPU tensors and launches its kernel for CUDA tensors.
+for CPU tensors and launches its kernel for CUDA tensors. Grids are sized
+from the card's SM count.
 """
 
 from __future__ import annotations
@@ -21,48 +22,35 @@ import torch
 
 from dynmm_tpu_torch.kernels import _build
 
-_TARGET_BLOCKS = 4 * 132  # four blocks per SM of an H100
-
-
-def _splits(batch: int, work: int, min_work: int) -> int:
-    """Blocks per sample: enough to give the card ~4 per SM, none with
-    fewer than ``min_work`` items."""
-    return max(1, min(math.ceil(_TARGET_BLOCKS / batch), work // min_work))
-
 
 # ---------------------------------------------------------------- sums
 def channel_sums_plain(rgb: torch.Tensor, depth: torch.Tensor):
     return rgb.sum(dim=(1, 2)), depth.sum(dim=(1, 2))
 
 
-def _launch_sums(a: torch.Tensor, b: torch.Tensor | None):
-    bsz, c = a.shape[0], a.shape[-1]
-    hw = a.numel() // (bsz * c)
-    _build.require(a, "x")
-    if b is not None:
-        _build.require(b, "depth", tuple(a.shape))
-    if c > 1024:
-        raise ValueError(f"channel_sums takes C <= 1024, got {c}")
-    splits = _splits(bsz, hw, 64)
-    maps = 1 if b is None else 2
-    partial = torch.empty((maps, bsz, splits, c), device=a.device,
-                          dtype=torch.float32)
-    out_a = torch.empty((bsz, c), device=a.device, dtype=torch.float32)
-    out_b = None if b is None else torch.empty_like(out_a)
-    fn = _build.function("se", "dynmm_channel_sums", 5, 4)
-    _build.check(fn(_build.ptr(a), _build.ptr(b), _build.ptr(partial),
-                    _build.ptr(out_a), _build.ptr(out_b), bsz, hw, c, splits,
-                    _build.stream()), "channel_sums")
-    _build.LAUNCHES["channel_sums"] += 1
-    return out_a, out_b
-
-
 def channel_sums(rgb: torch.Tensor, depth: torch.Tensor):
-    """Per-sample per-channel fp32 sums of two (B, H, W, C) maps in one
-    launch: ``(sums_rgb, sums_depth)``, each (B, C)."""
+    """Per-sample per-channel fp32 sums of two (B, H, W, C) maps (the stem
+    cell's pass 1): ``(sums_rgb, sums_depth)``, each (B, C)."""
     if not _build.on_card(rgb, depth):
         return channel_sums_plain(rgb, depth)
-    return _launch_sums(rgb, depth)
+    bsz, c = rgb.shape[0], rgb.shape[-1]
+    hw = rgb.numel() // (bsz * c)
+    _build.require(rgb, "rgb")
+    _build.require(depth, "depth", tuple(rgb.shape))
+    if c > 1024:
+        raise ValueError(f"channel_sums takes C <= 1024, got {c}")
+    # blocks per sample: ~4 per SM over the batch, each of at least 64 pixels
+    splits = max(1, min(math.ceil(4 * _build.sm_count(rgb) / bsz), hw // 64))
+    partial = torch.empty((2, bsz, splits, c), device=rgb.device,
+                          dtype=torch.float32)
+    out_r = torch.empty((bsz, c), device=rgb.device, dtype=torch.float32)
+    out_d = torch.empty_like(out_r)
+    fn = _build.function("se", "dynmm_channel_sums", 5, 4)
+    _build.check(fn(_build.ptr(rgb), _build.ptr(depth), _build.ptr(partial),
+                    _build.ptr(out_r), _build.ptr(out_d), bsz, hw, c, splits,
+                    _build.stream()), "channel_sums")
+    _build.LAUNCHES["channel_sums"] += 1
+    return out_r, out_d
 
 
 # ----------------------------------------------------------------- SE MLP
@@ -81,43 +69,86 @@ def se_fuse_mixed_plain(rgb, depth, w_rgb, wr1, br1, wr2, br2,
     return rgb * s_r[:, None, None, :] + depth * s_d[:, None, None, :]
 
 
-def _launch_mix(x_r, x_d, sums_r, sums_d, w_rgb, wr, wd):
+# blocks per SM the SE cell's grid aims at, and the fewest float4s of each
+# map a block reads: more blocks per sample would add partial sums (2·C floats
+# a block) that the sample's last block reads alone
+BLOCKS_PER_SM = 2
+MIN_ITEMS = 2 * 256
+_SE_THREADS = 256  # csrc/se.cu's SE_THREADS
+
+# Per-sample tickets of the squeeze's last-block finalize, one buffer per
+# device: zeroed once, grown with the batch; the kernel leaves every counter
+# at 0, so calls need no zeroing in between. This assumes one stream at a
+# time, as the port runs: squeezes in flight on two streams would share them.
+_COUNTERS: dict[torch.device, torch.Tensor] = {}
+
+
+def _counters(device: torch.device, bsz: int) -> torch.Tensor:
+    buf = _COUNTERS.get(device)
+    if buf is None or buf.numel() < bsz:
+        buf = torch.zeros(max(bsz, 16), dtype=torch.int32, device=device)
+        _COUNTERS[device] = buf
+    return buf
+
+
+def _se_splits(bsz: int, hw: int, c: int, sms: int) -> int:
+    """Blocks per sample of both SE launches: BLOCKS_PER_SM per SM over the
+    batch, each reading at least MIN_ITEMS float4s of a map, at most one per
+    pixel. Depends on the shape and the card only, so the summation order
+    never depends on the data."""
+    items = hw * (c // 4)
+    return max(1, min(math.ceil(BLOCKS_PER_SM * sms / bsz), items // MIN_ITEMS,
+                      hw))
+
+
+def _launch_se(x_r, x_d, w_rgb, wr, wd):
+    """Both SE launches: the squeeze (partial sums, then the scales from the
+    last block of each sample) and the mix."""
     bsz, c = x_r.shape[0], x_r.shape[-1]
     hw = x_r.numel() // (bsz * c)
-    if c % 4:
-        raise ValueError(f"se mix takes C % 4 == 0, got {c}")
-    cr = wr[0].shape[1]
-    for i, (a, shape) in enumerate(zip(wr, ((c, cr), (cr,), (cr, c), (c,)))):
+    _build.require(x_r, "x")
+    if c % 4 or c > 4 * _SE_THREADS:
+        raise ValueError(f"the SE cell takes C % 4 == 0 and C <= "
+                         f"{4 * _SE_THREADS}, got {c}")
+    cr = wr[0].shape[-1]
+    if not 1 <= cr <= _SE_THREADS:
+        raise ValueError(f"the SE cell takes 1 <= C/r <= {_SE_THREADS}, "
+                         f"got {cr}")
+    shapes = ((c, cr), (cr,), (cr, c), (c,))
+    for i, (a, shape) in enumerate(zip(wr, shapes)):
         _build.require(a, f"rgb SE weight {i}", shape)
     if x_d is not None:
         _build.require(x_d, "depth", tuple(x_r.shape))
-        for i, (a, shape) in enumerate(zip(wd, ((c, cr), (cr,), (cr, c), (c,)))):
+        for i, (a, shape) in enumerate(zip(wd, shapes)):
             _build.require(a, f"depth SE weight {i}", shape)
     if w_rgb is not None:
         _build.require(w_rgb, "w_rgb", (bsz,))
+    if any(t is not None and t.data_ptr() % 16 for t in (x_r, x_d)):
+        raise ValueError("the SE cell takes 16-byte aligned maps")
+    splits = _se_splits(bsz, hw, c, _build.sm_count(x_r))
+    partial = torch.empty((bsz, splits, 2, c), device=x_r.device,
+                          dtype=torch.float32)
+    scales = torch.empty((bsz, 2, c), device=x_r.device, dtype=torch.float32)
     out = torch.empty_like(x_r)
-    chunks = _splits(bsz, hw * c // 4, 256)
-    fn = _build.function("se", "dynmm_se_mix", 14, 5)
-    _build.check(fn(_build.ptr(x_r), _build.ptr(x_d), _build.ptr(sums_r),
-                    _build.ptr(sums_d), *map(_build.ptr, wr),
+    fn = _build.function("se", "dynmm_se_fuse", 15, 5)
+    _build.check(fn(_build.ptr(x_r), _build.ptr(x_d), *map(_build.ptr, wr),
                     *(map(_build.ptr, wd) if wd else [None] * 4),
-                    _build.ptr(w_rgb), _build.ptr(out), bsz, hw, c, cr,
-                    chunks, _build.stream()), "se_mix")
+                    _build.ptr(w_rgb), _build.ptr(partial), _build.ptr(scales),
+                    _build.ptr(_counters(x_r.device, bsz)), _build.ptr(out),
+                    bsz, hw, c, cr, splits, _build.stream()), "se_fuse")
     return out
 
 
 def se_fuse_mixed(rgb, depth, w_rgb, wr1, br1, wr2, br2, wd1, bd1, wd2, bd2):
     """Gate-mixed SE-add fusion of two (B, H, W, C) maps; ``w_rgb`` (B,) is
     the weight on the unfused rgb branch. Two launches on the card: the
-    shared ``channel_sums`` and the mix, which rebuilds both scale vectors
-    from the sums in hand-written code."""
+    squeeze, whose last block per sample computes both scale vectors once,
+    and the mix."""
     args = (wr1, br1, wr2, br2, wd1, bd1, wd2, bd2)
     if not _build.on_card(rgb, depth, w_rgb, *args):
         return se_fuse_mixed_plain(rgb, depth, w_rgb, *args)
-    _build.require(rgb, "rgb")
-    sums_r, sums_d = _launch_sums(rgb, depth)
-    out = _launch_mix(rgb, depth, sums_r, sums_d, w_rgb.float().contiguous(),
-                      args[:4], args[4:])
+    out = _launch_se(rgb, depth, w_rgb.float().contiguous(), args[:4],
+                     args[4:])
     _build.LAUNCHES["se_fuse_mixed"] += 1
     return out
 
@@ -130,13 +161,12 @@ def se_reference(x, w1, b1, w2, b2):
 
 
 def fused_se(x, w1, b1, w2, b2):
-    """Single-map SE with the JAX signature: x (HW, C) or (B, HW, C)."""
+    """Single-map SE with the JAX signature: x (HW, C) or (B, HW, C); on
+    the card the same two launches as ``se_fuse_mixed`` with w = 0."""
     if not _build.on_card(x, w1, b1, w2, b2):
         return se_reference(x, w1, b1, w2, b2)
     squeeze = x.dim() == 2
     xb = x[None] if squeeze else x
-    _build.require(xb, "x")
-    sums, _ = _launch_sums(xb, None)
-    out = _launch_mix(xb, None, sums, None, None, (w1, b1, w2, b2), None)
+    out = _launch_se(xb, None, None, (w1, b1, w2, b2), None)
     _build.LAUNCHES["fused_se"] += 1
     return out[0] if squeeze else out

@@ -4,7 +4,9 @@ Port of ``dynmm_tpu/kernels/upsample.py::fused_learned_upsample``: nearest
 ×2 then a zero-padded depthwise 3×3 conv plus bias ('learned-3x3-zeropad'),
 computed as four 2×2 polyphase stencils over the source so the 4× nearest
 intermediate is never written. Covers all five upsample sites of the main
-path, the 40-channel logits maps included.
+path, the 40-channel logits maps included: a thread owns 4 channels of one
+output column and slides its window of source cells down a strip of source
+rows (see ``csrc/upsample.cu``).
 """
 
 from __future__ import annotations
@@ -39,10 +41,14 @@ def learned_upsample(x: torch.Tensor, kernel: torch.Tensor,
     _build.require(xb, "x")
     _build.require(kernel, "kernel", (3, 3, c))
     _build.require(bias, "bias", (c,))
+    if 4 * h * w * c >= 2 ** 31:
+        raise ValueError("learned_upsample indexes a sample in 32 bits: "
+                         f"4·H·W·C = {4 * h * w * c} floats is too many")
     out = torch.empty((n, 2 * h, 2 * w, c), device=xb.device, dtype=xb.dtype)
-    fn = _build.function("upsample", "dynmm_learned_upsample", 4, 4)
+    fn = _build.function("upsample", "dynmm_learned_upsample", 4, 5)
     _build.check(fn(_build.ptr(xb), _build.ptr(kernel), _build.ptr(bias),
-                    _build.ptr(out), n, h, w, c, _build.stream()),
+                    _build.ptr(out), n, h, w, c, _build.sm_count(xb),
+                    _build.stream()),
                  "learned_upsample")
     _build.LAUNCHES["learned_upsample"] += 1
     return out[0] if squeeze else out

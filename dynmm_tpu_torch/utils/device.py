@@ -33,6 +33,29 @@ def time_ms(fn, warmup: int = 2, iters: int = 10) -> float:
     return start.elapsed_time(end) / iters
 
 
+def device_ms(fn, iters: int = 10, replays: int = 3) -> float:
+    """Mean device time of ``fn``: ``iters`` calls captured in one CUDA
+    graph (after a warm-up call) and its replays timed with CUDA events. The
+    host's cost of issuing a call, which ``time_ms`` measures instead where
+    a call's device work is shorter, is left out."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / (replays * iters)
+
+
 def resolve_device(device=None) -> torch.device:
     """``None`` means CUDA. Without a card that raises instead of silently
     running on the CPU; pass ``device="cpu"`` to ask for the CPU."""

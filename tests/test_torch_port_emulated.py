@@ -8,7 +8,9 @@ tiles of the pair's implicit-GEMM kernel (its ``mma.sync`` fragments
 exchanged inside each emulated warp) with ragged pixel and channel edges;
 the one-launch block's tiles cut by the image's last row and column, its
 partial chunks and groups of channels, its passes of items and its
-``cp.async`` staging; odd pooled sizes and C = 40 upsamples. The whole
+``cp.async`` staging; odd pooled sizes; the upsample's strips of rows at
+both vector widths and C = 40; the SE cell's last-block finalize over
+several squeeze blocks, and its counters reset between calls. The whole
 small model is served through the emulated kernels, densely and through the
 routed strategies, with the launch counts of its forward. On the card,
 ``chip_smoke.py`` holds the same sources, built by ``nvcc``, against the
@@ -221,6 +223,64 @@ def test_se_fuse_mixed_and_fused_se(libs, b, h, w, c, cr):
     _close(*_both(libs, se.fused_se, _randn(g, h * w, c), *ws))
 
 
+def _se_weights(g, c, cr):
+    return [_randn(g, c, cr, scale=0.3), _randn(g, cr), _randn(g, cr, c, scale=0.3),
+            _randn(g, c)]
+
+
+@pytest.fixture
+def several_squeeze_blocks(monkeypatch):
+    """Grids of several squeeze blocks per sample at the tests' small
+    shapes, so the last block's finalize adds more than one partial."""
+    monkeypatch.setattr(se, "BLOCKS_PER_SM", 8)
+    monkeypatch.setattr(se, "MIN_ITEMS", 1)
+
+
+@pytest.mark.parametrize("b,h,w,c,cr,w_rgb", [
+    (2, 3, 5, 40, 2, [0.0, 1.0]),       # C = 40; w exactly 0 and exactly 1
+    (1, 2, 3, 512, 32, [0.3]),          # the C = 512 level's C/16 = 32
+    (3, 4, 4, 64, 4, [1.0, 0.25, 0.0]),
+])
+def test_se_cell_several_squeeze_blocks(libs, several_squeeze_blocks,
+                                        b, h, w, c, cr, w_rgb):
+    """The two-launch SE cell with 6-8 squeeze blocks per sample: the
+    sample's last block adds their partials, runs both MLPs and folds in
+    w; single-map ``fused_se`` through the same kernels (w = 0)."""
+    assert se._se_splits(b, h * w, c, emulate.SMS) >= 6
+    g = _gen(c + b)
+    ws, wd = _se_weights(g, c, cr), _se_weights(g, c, cr)
+    rgb, depth = _randn(g, b, h, w, c), _randn(g, b, h, w, c)
+    _close(*_both(libs, se.se_fuse_mixed, rgb, depth, torch.tensor(w_rgb),
+                  *ws, *wd))
+    assert dict(LAUNCHES) == {"se_fuse_mixed": 1}
+    _close(*_both(libs, se.fused_se, _randn(g, b, h * w, c), *ws))
+    assert dict(LAUNCHES) == {"fused_se": 1}
+    assert not se._COUNTERS[torch.device("cpu")].any()
+
+
+def test_se_cell_repeats_bit_identical(libs, several_squeeze_blocks):
+    """Two calls in a row, and two batch sizes in a row, give bit-identical
+    results: the finalize leaves every per-sample counter at 0."""
+    g = _gen(11)
+    c, cr = 32, 2
+    ws, wd = _se_weights(g, c, cr), _se_weights(g, c, cr)
+    rgb, depth = _randn(g, 3, 5, 4, c), _randn(g, 3, 5, 4, c)
+    w_rgb = torch.rand(3, generator=g)
+
+    def cell(n):
+        out = se.se_fuse_mixed(rgb[:n], depth[:n], w_rgb[:n], *ws, *wd)
+        assert not se._COUNTERS[torch.device("cpu")].any()
+        return out
+
+    with emulate.emulated(libs):
+        outs = [cell(3), cell(3), cell(1), cell(1), cell(3)]
+    for a, b in ((0, 1), (2, 3), (0, 4)):
+        assert torch.equal(outs[a], outs[b])
+    _close(outs[0], se.se_fuse_mixed_plain(rgb, depth, w_rgb, *ws, *wd))
+    _close(outs[2], se.se_fuse_mixed_plain(rgb[:1], depth[:1], w_rgb[:1],
+                                           *ws, *wd))
+
+
 @pytest.mark.parametrize("b,h,w,c", [(2, 9, 10, 8), (1, 8, 12, 4)])
 @pytest.mark.parametrize("negative", [False, True])
 def test_stem_fuse_pool(libs, b, h, w, c, negative):
@@ -238,6 +298,42 @@ def test_learned_upsample(libs, shape):
     c = shape[-1]
     _close(*_both(libs, upsample.learned_upsample, _randn(g, *shape),
                   _randn(g, 3, 3, c), _randn(g, c)))
+
+
+@pytest.mark.parametrize("shape,sms,strips", [
+    ((3, 5, 4, 4), 2, 2),    # float4s; strips of 3 rows, the first ends
+                             # mid-image, steps of 4 rows cut by the strip
+    ((1, 11, 3, 4), 1, 3),   # strips of 5 rows: a full step, then one row
+    ((1, 7, 5, 6), 2, 7),    # C % 4 != 0: one channel a thread, 1-row strips
+    ((1, 1, 6, 40), 2, 1),   # one source row: both window rows are padding
+    ((3, 4, 1, 40), 2, 2),   # one source column; a last strip of one row
+    ((2, 6, 3, 40), 1, 1),   # one strip of 6 rows: a step of 4, then 2
+    ((1, 3, 1, 6), 2, 3),    # one column, one channel a thread
+])
+def test_learned_upsample_strips(libs, monkeypatch, shape, sms, strips):
+    """The sliding window across steps and strip boundaries (the kernel's
+    strip rule, for ``sms`` SMs, cuts the image into ``strips``), at the
+    image's edges, in both vector widths, at B = 1 and 3."""
+    monkeypatch.setattr(emulate, "SMS", sms)
+    n, h, w, c = shape
+    cols = 2 * w * (c // 4 if c % 4 == 0 else c)
+    rows = min(16, max(1, n * h * -(-cols // 256) // (2 * sms)))
+    assert -(-h // rows) == strips
+    g = _gen(sum(shape) + sms)
+    _close(*_both(libs, upsample.learned_upsample, _randn(g, *shape),
+                  _randn(g, 3, 3, c), _randn(g, c)))
+    assert dict(LAUNCHES) == {"learned_upsample": 1}
+
+
+def test_learned_upsample_unaligned_takes_scalar_path(libs):
+    """C % 4 == 0 but a map that is not 16-byte aligned: one channel a
+    thread, the same result."""
+    g = _gen(3)
+    x = torch.empty(2 * 3 * 5 * 8 + 1)[1:].view(2, 3, 5, 8)
+    x.copy_(_randn(g, 2, 3, 5, 8))
+    assert x.data_ptr() % 16
+    _close(*_both(libs, upsample.learned_upsample, x, _randn(g, 3, 3, 8),
+                  _randn(g, 8)))
 
 
 SMALL_CFG = ESANetConfig(height=64, width=64, num_classes=5,
@@ -258,8 +354,8 @@ def _small_launches(ran):
     stages at C = 64, 128, 256 and 512, the decoder 3 at C = 32; a block
     is one ``nbt1d_fused`` launch up to ``NBT1D_FUSED_MAX_C`` channels and
     two ``nbt1d_pair`` launches above. Every stage that ran adds its depth
-    blocks and one fusion cell (``se_fuse_mixed`` with its
-    ``channel_sums`` launch)."""
+    blocks and one fusion cell (``se_fuse_mixed``); ``channel_sums`` runs
+    in the stem cell only."""
     counts = {"nbt1d_fused": 0, "nbt1d_pair": 0, "channel_sums": 1,
               "stem_fuse_pool": 1, "se_fuse_mixed": 0, "learned_upsample": 5}
 
@@ -272,7 +368,6 @@ def _small_launches(ran):
     for (c, n), r in zip(((64, 2), (128, 1), (256, 1), (512, 1)), ran):
         blocks(c, n * (1 + int(r)))
         counts["se_fuse_mixed"] += int(r)
-        counts["channel_sums"] += int(r)
     blocks(32, 3)
     return {k: v for k, v in counts.items() if v}
 
