@@ -39,7 +39,29 @@ Run from the root of a checkout on a machine with one NVIDIA GPU:
    forward's launches must equal the counts its paths give (a skipped depth
    stage launches nothing), and each request must agree with the dense
    forward on the same paths as in phase 3.
-5. Prints the kernels' JSON line (launches summed over phases 3 and 4), the
+5. Recipe gate: reads ``bench_assets/gate_recipe.msgpack`` with the port's
+   own msgpack reader (it prints whether ``msgpack`` and ``flax`` could be
+   imported; it needs neither), merges it into a seeded 480×640 flagship and
+   serves ``make_recipe_eval_batch(8, 480, 640)`` (half depth-needed
+   samples) through ``dense``, ``batchmax`` and ``compact`` and its samples
+   one at a time through ``switch``. Prints the path mix beside the
+   asset's branch ratios and each mode's request time; as in phases 3-4,
+   each routed request must agree with the dense forward on the same input
+   (its max abs error printed), every request launch the counts its paths
+   give, and the kernels agree with the plain versions.
+6. Train: ``SegTrainer.fit`` on the 480×640 flagship (seeded weights,
+   SGD, lr 0.01, loss ratio 1e-4, temperature 1.0 → 0.001 over 60 epochs,
+   so the gate stays soft) for 2 epochs of 2 steps of batch 8 on
+   ``SyntheticSegDataset(mixed_modality_frac=0.5)``, validating each epoch.
+   Requires finite losses, no kernel launch during a train step and the
+   ``EXPECTED`` launches for each validation forward; then, on the trained
+   weights, the kernel eval path against the plain one (gate choices
+   identical, logits within 1e-3 relative), the rolling checkpoint loaded
+   into a fresh model giving equal eval logits (error 0), and one step
+   resumed from that checkpoint against one more step of the trained state
+   (every parameter and BN statistic within 1e-5 relative). Prints the ms
+   per train step (median after the first) and the peak memory.
+7. Prints the kernels' JSON line (launches summed over phases 3-6), the
    card line, and last ``{"ok": true, "device": {...}}``.
 
 TF32 is switched off for cuDNN convolutions and matmuls here, so the kernels
@@ -195,7 +217,9 @@ def kernel_cases(inp: Inputs) -> list[Case]:
     cases.append(Case("channel_sums", f"{b}x{h}x{w}x{c}", 1,
                   lambda r=r, d=d: se.channel_sums(r, d),
                   lambda r=r, d=d: se.channel_sums_plain(r, d),
-                  None, 2 * n * 4 + 2 * b * c * 4, 2.0 * n, None))
+                  lambda r=r, d=d: (torch.sum(r, dim=(1, 2)),
+                                    torch.sum(d, dim=(1, 2))),
+                  2 * n * 4 + 2 * b * c * 4, 2.0 * n, None))
     # K2: stem scale-add + dual max-pool
     r, d = inp.randn(b, h, w, c), inp.randn(b, h, w, c)
     s_r, s_d = inp.rand(b, c), inp.rand(b, c)
@@ -281,7 +305,10 @@ def check_kernels(report: dict) -> list[dict]:
                                            "on the same inputs differ")
             lib_ms = None
             if case.lib is not None:
-                lib_err = (case.lib() - outs_p[0]).abs().max().item() / scale
+                out_l = case.lib()
+                outs_l = out_l if isinstance(out_l, tuple) else (out_l,)
+                lib_err = max((a - p).abs().max().item()
+                              for a, p in zip(outs_l, outs_p)) / scale
                 if lib_err > KERNEL_TOL:
                     raise RuntimeError(f"{name} {label}: library call differs "
                                        f"({lib_err:.3g})")
@@ -593,6 +620,268 @@ def check_routed(model, report: dict) -> dict:
     return launches
 
 
+def _rel(a: torch.Tensor, b: torch.Tensor) -> float:
+    return ((a - b).abs().max() / b.abs().max()).item()
+
+
+def check_recipe_gate(report: dict) -> dict:
+    import importlib.util
+
+    from dynmm_tpu_torch.data.nyuv2 import make_recipe_eval_batch
+    from dynmm_tpu_torch.kernels import LAUNCHES, reset_launches
+    from dynmm_tpu_torch.nn.layers import first_argmax
+    from dynmm_tpu_torch.serve import build_flagship, serve
+    from dynmm_tpu_torch.utils.weights import load_recipe_gate
+
+    found = {m: importlib.util.find_spec(m) is not None
+             for m in ("msgpack", "flax")}
+    print(f"  importable on this machine: msgpack {found['msgpack']}, flax "
+          f"{found['flax']} (the asset is read with the port's own reader)",
+          flush=True)
+    model = build_flagship(HEIGHT, WIDTH, CLASSES, seed=0)
+    ratios, provenance = load_recipe_gate(model)
+    if ratios is None:
+        raise RuntimeError("bench_assets/gate_recipe.msgpack is missing")
+    rgb, depth = (torch.from_numpy(a).cuda()
+                  for a in make_recipe_eval_batch(BATCH, HEIGHT, WIDTH))
+    singles = [(rgb[i:i + 1].contiguous(), depth[i:i + 1].contiguous())
+               for i in range(BATCH)]
+    requests = [("dense", "dense", (rgb, depth)),
+                ("batchmax", "batchmax", (rgb, depth)),
+                ("compact", "compact", (rgb, depth)),
+                *((f"switch #{i}", "switch", one)
+                  for i, one in enumerate(singles))]
+    for _, mode, images in requests:  # warm-up, not counted
+        serve(model, *images, mode=mode)
+        serve(model, *images, mode="dense")
+    torch.cuda.synchronize()
+
+    reset_launches()
+    served = []
+    for label, mode, images in requests:
+        before = dict(LAUNCHES)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        class_map, weight = serve(model, *images, mode=mode)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        delta = {k: v - before.get(k, 0) for k, v in LAUNCHES.items()
+                 if v - before.get(k, 0)}
+        paths = weight.argmax(1).tolist()
+        expected = path_launches(
+            [True] * 4 if mode == "dense" else stages_run(mode, paths, {}),
+            False)
+        if delta != expected:
+            raise RuntimeError(f"recipe {label}: launches {delta} != {expected}")
+        served.append((class_map, weight, ms))
+    launches = dict(LAUNCHES)
+
+    methods = {"dense": "forward", "batchmax": "forward_switch_batched",
+               "compact": "forward_routed_compact", "switch": "forward_switch"}
+    rows = []
+    for (label, mode, (r, d)), (class_map, weight, ms) in zip(requests, served):
+        with torch.inference_mode():
+            kw = {"hard": True} if mode == "dense" else {}
+            logits = getattr(model, methods[mode])(r, d, **kw)
+            logits_d, weight_d = model(r, d, hard=True, return_weight=True)
+            logits_p, weight_p = model(r, d, hard=True, return_weight=True,
+                                       use_kernels=False)
+        routed_err = (logits - logits_d).abs().max().item()
+        routed_rel = _rel(logits, logits_d)
+        plain_rel = _rel(logits_d, logits_p)
+        agree = (class_map == first_argmax(logits_p)).float().mean().item()
+        same_gate = (torch.equal(weight, weight_d)
+                     and torch.equal(weight_d, weight_p))
+        row = {"request": label, "mode": mode, "batch": r.shape[0],
+               "paths": weight.argmax(1).tolist(), "ms": ms,
+               "routed_vs_dense_max_abs_err": routed_err,
+               "kernels_vs_plain_rel_err": plain_rel,
+               "class_map_agreement": agree, "same_gate": same_gate}
+        rows.append(row)
+        print(f"  {label:11s} B={r.shape[0]} paths {row['paths']}: {ms:.2f} ms;"
+              f" routed vs dense max abs err {routed_err:.3g}; kernels vs "
+              f"plain rel err {plain_rel:.3g}, class maps agree on "
+              f"{agree * 100:.4f} %, gate choices identical: {same_gate}",
+              flush=True)
+        if (routed_rel > 1e-3 or not same_gate or plain_rel > 1e-3
+                or agree < 0.999 or not bool(torch.isfinite(logits).all())):
+            raise RuntimeError(f"recipe {label}: disagreement")
+    paths = served[0][1].argmax(1)
+    mix = torch.nn.functional.one_hot(paths, 5).double().mean(0).tolist()
+    print(f"  path mix of the batch {mix} (paths {paths.tolist()}); the "
+          f"asset's branch ratios {ratios.tolist()}", flush=True)
+    report["recipe_gate"] = {"asset_branch_ratios": ratios.tolist(),
+                             "provenance": provenance, "path_mix": mix,
+                             "importable": found, "requests": rows}
+    return launches
+
+
+def check_train(report: dict) -> dict:
+    import shutil
+    import statistics
+
+    from dynmm_tpu_torch.cli.seg_build import compute_class_weights
+    from dynmm_tpu_torch.core.schedules import ExpDecayTemp
+    from dynmm_tpu_torch.data.nyuv2 import SyntheticSegDataset
+    from dynmm_tpu_torch.data.seg_preprocessing import SegLoader, SegPreprocessor
+    from dynmm_tpu_torch.kernels import LAUNCHES, reset_launches
+    from dynmm_tpu_torch.models.esanet import ESANetConfig
+    from dynmm_tpu_torch.models.skip_gate import SkipGateESANet
+    from dynmm_tpu_torch.nn.layers import pack_weights
+    from dynmm_tpu_torch.serve import build_flagship
+    from dynmm_tpu_torch.train.seg import (DOWN_RATES, SegTrainConfig,
+                                           SegTrainer)
+    from dynmm_tpu_torch.utils.checkpoint import load_ckpt
+    from dynmm_tpu_torch.utils.weights import load_checkpoint_into
+
+    epochs, steps = 2, 2
+    train_ds = SyntheticSegDataset(n=steps * BATCH, height=HEIGHT, width=WIDTH,
+                                   split="train", mixed_modality_frac=0.5)
+    test_ds = SyntheticSegDataset(n=BATCH, height=HEIGHT, width=WIDTH,
+                                  split="test", mixed_modality_frac=0.5)
+    pre = lambda phase: SegPreprocessor(train_ds.depth_mean, train_ds.depth_std,
+                                        HEIGHT, WIDTH, phase=phase)
+    train_loader = SegLoader(train_ds, pre("train"), batch_size=BATCH,
+                             shuffle=True, drop_last=True)
+    valid_loader = SegLoader(test_ds, pre("test"), batch_size=BATCH)
+    class_weights = compute_class_weights(train_ds, CLASSES,
+                                          "median_frequency")
+    # the recipe's stage B (bench_assets/gate_recipe_logs/stage_b_argsv.txt),
+    # its first epochs: epoch_hard 60 keeps the gate soft
+    cfg = SegTrainConfig(epochs=epochs, lr=0.01, optimizer="SGD",
+                         loss_ratio=1e-4, temp=1.0, end_temp=0.001,
+                         epoch_hard=60, eval_every=1, batch_size=BATCH)
+    model = build_flagship(HEIGHT, WIDTH, CLASSES, seed=3)
+    trainer = SegTrainer(model, cfg, class_weights)
+    state = trainer.init_state()
+
+    steps_run, forwards = [], []
+    train_step, model_forward = trainer.train_step, model.forward
+
+    def timed_step(*args, **kw):
+        before = dict(LAUNCHES)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = train_step(*args, **kw)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        steps_run.append({"ms": ms, "loss": float(out[0]),
+                          "launches": sum(LAUNCHES.values())
+                          - sum(before.values())})
+        return out
+
+    def counted_forward(*args, **kw):
+        before = dict(LAUNCHES)
+        out = model_forward(*args, **kw)
+        if not model.training:
+            forwards.append({k: v - before.get(k, 0) for k, v in LAUNCHES.items()
+                             if v - before.get(k, 0)})
+        return out
+
+    trainer.train_step = timed_step
+    model.forward = counted_forward
+    ckpt_dir = ROOT / "build" / "chip_smoke_train"
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    torch.cuda.reset_peak_memory_stats()
+    # the train path's run: counts at 0 just before, read just after
+    reset_launches()
+    t0 = time.perf_counter()
+    _, best_miou, _ = trainer.fit(state, train_loader, valid_loader,
+                                  str(ckpt_dir),
+                                  log_fn=lambda m: print(f"  {m}", flush=True))
+    fit_s = time.perf_counter() - t0
+    launches = dict(LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    trainer.train_step, model.forward = train_step, model_forward
+
+    if len(steps_run) != epochs * steps:
+        raise RuntimeError(f"{len(steps_run)} train steps, expected "
+                           f"{epochs * steps}")
+    if not all(math.isfinite(st["loss"]) for st in steps_run):
+        raise RuntimeError(f"non-finite train loss: {steps_run}")
+    if any(st["launches"] for st in steps_run):
+        raise RuntimeError(f"a port kernel launched during a train step: "
+                           f"{steps_run}")
+    if len(forwards) != epochs or any(f != EXPECTED for f in forwards):
+        raise RuntimeError(f"validation forwards launched {forwards}, expected "
+                           f"{epochs} x {EXPECTED}")
+    step_ms = statistics.median(st["ms"] for st in steps_run[1:])
+    print(f"  {len(steps_run)} train steps of B={BATCH}: "
+          f"{[round(st['ms'], 2) for st in steps_run]} ms (median after the "
+          f"first {step_ms:.2f} ms), losses "
+          f"{[round(st['loss'], 4) for st in steps_run]}; fit {fit_s:.2f} s; "
+          f"peak memory {peak / 2 ** 30:.2f} GiB; best mIoU {best_miou:.4f}; "
+          f"no kernel launch in a train step, {EXPECTED} in each of "
+          f"{len(forwards)} validation forwards", flush=True)
+
+    # the trained weights: kernel eval path against the plain one
+    batch = next(iter(valid_loader))
+    rgb = torch.from_numpy(batch["image"]).cuda()
+    depth = torch.from_numpy(batch["depth"]).cuda()
+    model.eval()
+    pack_weights(model)
+    with torch.inference_mode():
+        logits_k, w_k = model(rgb, depth, hard=True, return_weight=True)
+        logits_p, w_p = model(rgb, depth, hard=True, return_weight=True,
+                              use_kernels=False)
+    plain_rel = _rel(logits_k, logits_p)
+    same_gate = bool(torch.equal(w_k, w_p))
+    print(f"  trained weights, kernels vs plain: logits rel err "
+          f"{plain_rel:.3g}, gate choices identical: {same_gate} (paths "
+          f"{w_k.argmax(1).tolist()})", flush=True)
+    if plain_rel > 1e-3 or not same_gate:
+        raise RuntimeError("trained weights: kernel path disagrees with plain")
+
+    # the rolling checkpoint into a fresh model
+    latest = str(ckpt_dir / "ckpt_latest.msgpack")
+    fresh = SkipGateESANet(ESANetConfig(height=HEIGHT, width=WIDTH,
+                                        num_classes=CLASSES)).cuda()
+    fresh = fresh.to(memory_format=torch.channels_last).eval()
+    load_checkpoint_into(fresh, latest)
+    with torch.inference_mode():
+        logits_f = fresh(rgb, depth, hard=True)
+    ckpt_err = (logits_f - logits_k).abs().max().item()
+    print(f"  checkpoint loaded into a fresh model: eval logits max abs err "
+          f"{ckpt_err:.3g}", flush=True)
+    if ckpt_err != 0:
+        raise RuntimeError("checkpoint reload changes the eval logits")
+    del fresh
+
+    # one step resumed from the rolling checkpoint against one more step of
+    # the trained state, on the same batch
+    tb = next(iter(train_loader))
+    args = (torch.from_numpy(tb["image"]).cuda(),
+            torch.from_numpy(tb["depth"]).cuda(),
+            [torch.from_numpy(tb["label"]).cuda()]
+            + [torch.from_numpy(tb["label_down"][r]).cuda() for r in DOWN_RATES],
+            ExpDecayTemp(cfg.temp, cfg.end_temp, cfg.epoch_hard)(epochs),
+            False, False)
+    trainer.train_step(state, *args, torch.Generator())
+    after = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    del state, trainer, model
+    model2 = build_flagship(HEIGHT, WIDTH, CLASSES, seed=4)
+    trainer2 = SegTrainer(model2, cfg, class_weights)
+    state2, epoch, _, _ = load_ckpt(latest, trainer2.init_state())
+    trainer2.train_step(state2, *args, torch.Generator())
+    resume_rel = max(
+        ((v - after[k]).abs().max() / after[k].abs().max().clamp_min(1e-30)
+         ).item() for k, v in model2.state_dict().items())
+    print(f"  one step resumed from the epoch-{epoch} checkpoint vs one more "
+          f"step of the trained state: max rel err over every parameter and "
+          f"BN statistic {resume_rel:.3g}", flush=True)
+    if resume_rel > 1e-5:
+        raise RuntimeError("resumed training diverges from the trained state")
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    report["train"] = {"steps": steps_run, "step_ms_median": step_ms,
+                       "peak_memory_bytes": peak, "fit_s": fit_s,
+                       "best_miou": best_miou,
+                       "validation_launches": forwards,
+                       "trained_kernels_vs_plain_rel_err": plain_rel,
+                       "checkpoint_reload_max_abs_err": ckpt_err,
+                       "resume_max_rel_err": resume_rel}
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this check runs on the card",
@@ -628,8 +917,16 @@ def main() -> int:
     print(f"[4] serve the {HEIGHT}x{WIDTH} flagship through the routed "
           "strategies", flush=True)
     routed = check_routed(model, report)
+    del model
+    print(f"[5] recipe gate: the {HEIGHT}x{WIDTH} flagship with "
+          "bench_assets/gate_recipe.msgpack", flush=True)
+    recipe = check_recipe_gate(report)
+    print(f"[6] train the {HEIGHT}x{WIDTH} flagship: SegTrainer.fit, 2 epochs "
+          f"of 2 steps of B={BATCH}", flush=True)
+    trained = check_train(report)
     for k in kernels:
-        k["launches"] = launches.get(k["name"], 0) + routed.get(k["name"], 0)
+        k["launches"] = sum(run.get(k["name"], 0)
+                            for run in (launches, routed, recipe, trained))
         if k["launches"] == 0:
             raise RuntimeError(f"{k['name']} never launched on the main path")
     report["kernels"] = kernels

@@ -1,0 +1,148 @@
+"""Model factory and data preparation for the port's segmentation CLIs (the
+torch subset of ``dynmm_tpu/cli/seg_build.py``; the reference's
+``src/build_model.py`` and ``src/prepare_data.py``).
+
+The port builds the flagship's family, the global-gate SkipGateESANet
+(``--dynamic --global-gate``: NonBottleneck1D resnet18/resnet34 encoders,
+SE-add fusion, PPM, any ``--upsampling``), and reads ``--dataset
+synthetic``. ``check_supported`` raises ``NotImplementedError`` on every
+flag of a feature the port does not have yet, naming its ROADMAP item;
+none is silently ignored.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+from dynmm_tpu_torch.cli.seg_args import decoder_channels, nr_decoder_blocks
+from dynmm_tpu_torch.data.nyuv2 import SyntheticSegDataset
+from dynmm_tpu_torch.data.seg_preprocessing import SegLoader, SegPreprocessor
+from dynmm_tpu_torch.models.esanet import ESANetConfig
+from dynmm_tpu_torch.models.skip_gate import SkipGateESANet
+
+
+def check_supported(args) -> None:
+    """Raise on flags of features not ported yet."""
+    missing = []
+    if args.dataset != "synthetic":
+        missing.append(f"--dataset {args.dataset} (only synthetic; the "
+                       "on-disk datasets wait for their files, ROADMAP A5)")
+    if not (args.dynamic and args.global_gate):
+        missing.append("a model other than --dynamic --global-gate (the "
+                       "static ESANet and the local-gate SkipESANet, "
+                       "ROADMAP A7)")
+    if args.modality != "rgbd":
+        missing.append(f"--modality {args.modality} (ROADMAP A7)")
+    if args.mesh_data > 1 or args.mesh_model > 1:
+        missing.append("--mesh-data/--mesh-model above 1 (mesh training, "
+                       "ROADMAP A9)")
+    if args.packed_stem:
+        missing.append("--packed_stem (ROADMAP A3)")
+    if args.dtype != "float32":
+        missing.append(f"--dtype {args.dtype} (bf16, ROADMAP A3)")
+    if args.quant != "none":
+        missing.append(f"--quant {args.quant} (int8, ROADMAP A6)")
+    if args.pretrained_scenenet:
+        missing.append("--pretrained_scenenet (pretrained weights are not in "
+                       "the repo, ROADMAP A5)")
+    if missing:
+        raise NotImplementedError("not ported yet: " + "; ".join(missing))
+
+
+def build_config(args, n_classes: int) -> ESANetConfig:
+    encoder_depth = args.encoder_depth
+    if encoder_depth in (None, "None"):
+        encoder_depth = args.encoder
+    return ESANetConfig(
+        height=args.height,
+        width=args.width,
+        num_classes=n_classes,
+        encoder_rgb=args.encoder,
+        encoder_depth=encoder_depth,
+        encoder_block=args.encoder_block,
+        channels_decoder=decoder_channels(args),
+        nr_decoder_blocks=nr_decoder_blocks(args),
+        activation=args.activation,
+        encoder_decoder_fusion=args.encoder_decoder_fusion,
+        context_module=args.context_module,
+        fuse_depth_in_rgb_encoder=args.fuse_depth_in_rgb_encoder,
+        upsampling=args.upsampling,
+    )
+
+
+def build_model(args, n_classes: int) -> SkipGateESANet:
+    """The global-gate SkipGateESANet of the flags, with torch's default
+    initialisation (as the reference's torch model)."""
+    check_supported(args)
+    block_rule = tuple(int(s) for s in args.block_rule)
+    assert len(block_rule) == 4
+    return SkipGateESANet(build_config(args, n_classes))
+
+
+def make_dataset(args, split: str):
+    check_supported(args)
+    n_train = args.synthetic_n
+    return SyntheticSegDataset(
+        n=n_train if split == "train" else max(1, n_train // 2),
+        height=args.height,
+        width=args.width,
+        split=split,
+        mixed_modality_frac=args.synthetic_mixed_frac,
+    )
+
+
+def prepare_data(args):
+    """(train_loader, valid_loader[, full-resolution valid_loader]): train
+    shuffles and drops the ragged tail; valid keeps order with
+    ``--batch_size_valid``."""
+    train_ds = make_dataset(args, "train")
+    valid_ds = make_dataset(args, "test")
+    depth_mode = "raw" if args.raw_depth else "refined"
+    mean, std = train_ds.depth_mean, train_ds.depth_std
+    train_pre = SegPreprocessor(
+        mean, std, args.height, args.width, phase="train",
+        depth_mode=depth_mode,
+        scale_range=(args.aug_scale_min, args.aug_scale_max))
+    valid_pre = SegPreprocessor(mean, std, args.height, args.width,
+                                phase="test", depth_mode=depth_mode)
+    batch_valid = args.batch_size_valid or args.batch_size
+    train_loader = SegLoader(train_ds, train_pre, batch_size=args.batch_size,
+                             shuffle=True, drop_last=True)
+    valid_loader = SegLoader(valid_ds, valid_pre, batch_size=batch_valid)
+    if args.valid_full_res:
+        full_pre = SegPreprocessor(mean, std, None, None, phase="test",
+                                   depth_mode=depth_mode)
+        return train_loader, valid_loader, SegLoader(
+            make_dataset(args, "test"), full_pre, batch_size=batch_valid)
+    return train_loader, valid_loader
+
+
+def compute_class_weights(dataset, n_classes: int, mode: str, c: float = 1.02):
+    """Class weights over a map-style dataset (a copy of the JAX package's;
+    dataset_base.py:147-208):
+    linear = pixel counts; median_frequency = median(freq)/freq with freq =
+    pixels_of_class / pixels_of_images_containing_class; logarithmic =
+    1/log(c + p)."""
+    n_pixels = np.zeros(n_classes + 1)
+    n_image_pixels_with_class = np.zeros(n_classes + 1)
+    for i in range(len(dataset)):
+        label = dataset[i]["label"] if isinstance(dataset[i], dict) else dataset.load_label(i)
+        h, w = label.shape
+        dist = np.bincount(label.flatten(), minlength=n_classes + 1)[: n_classes + 1]
+        n_pixels += dist
+        n_image_pixels_with_class += (dist > 0) * h * w
+    n_pixels = n_pixels[1:]
+    n_image_pixels_with_class = n_image_pixels_with_class[1:]
+    if mode == "linear":
+        return n_pixels
+    if mode == "median_frequency":
+        freq = n_pixels / np.maximum(n_image_pixels_with_class, 1)
+        freq = np.where(freq > 0, freq, np.nan)
+        w = np.nanmedian(freq) / freq
+        return np.nan_to_num(w, nan=1.0)
+    if mode == "logarithmic":
+        p = n_pixels / n_pixels.sum()
+        return 1.0 / np.log(c + p)
+    if mode == "None":
+        return np.ones(n_classes)
+    raise ValueError(mode)

@@ -2,10 +2,12 @@
 ``dynmm_tpu/models/esanet.py``): config, decoder, encoders, fusion cells,
 skip projections and context module.
 
-Eval forward only: the decoder's ``side_output`` convs exist (their
-weights load) but run only in training, which is not ported yet, nor is the
-static ``ESANet``. ``low_res`` returns the H/4 logits. The port builds the
-flagship's family: SE-add fusion, additive skips and a PPM context module.
+In eval the decoder returns the logits (``low_res``: the H/4 logits). In
+training (``module.training``) it also returns the class maps of its three
+``side_output`` 1×1 convs, each taken on its module's map before the
+upsample: ``(out, down_8, down_16, down_32)``, from decoder modules 3, 2
+and 1. The port builds the flagship's family: SE-add fusion, additive skips
+and a PPM context module; the static ``ESANet`` is not ported yet.
 """
 
 from __future__ import annotations
@@ -55,10 +57,13 @@ class DecoderModule(nn.Module):
         self.upsample = Upsample(upsampling_mode, channels_dec)
 
     def forward(self, x, skip, use_kernels: bool = True):
+        """The upsampled map plus ``skip``; in training also the
+        ``side_output`` map taken before the upsample."""
         out = self.conv3x3(x)
         for block in self.decoder_blocks:
             out = block(out, use_kernels=use_kernels)
-        return self.upsample(out, use_kernels=use_kernels) + skip
+        up = self.upsample(out, use_kernels=use_kernels) + skip
+        return (up, self.side_output(out)) if self.training else up
 
 
 class Decoder(nn.Module):
@@ -81,16 +86,23 @@ class Decoder(nn.Module):
     def forward(self, enc_outs, use_kernels: bool = True,
                 low_res: bool = False):
         """Logits at full resolution, or with ``low_res`` the H/4 logits
-        after ``conv_out`` (the two 40-channel upsamples skipped)."""
+        after ``conv_out`` (the two 40-channel upsamples skipped). In
+        training: ``(out, down_8, down_16, down_32)`` at full resolution."""
         out, skip_16, skip_8, skip_4 = enc_outs
-        out = self.decoder_module_1(out, skip_16, use_kernels)
-        out = self.decoder_module_2(out, skip_8, use_kernels)
-        out = self.decoder_module_3(out, skip_4, use_kernels)
+        if self.training:
+            out, down_32 = self.decoder_module_1(out, skip_16, use_kernels)
+            out, down_16 = self.decoder_module_2(out, skip_8, use_kernels)
+            out, down_8 = self.decoder_module_3(out, skip_4, use_kernels)
+        else:
+            out = self.decoder_module_1(out, skip_16, use_kernels)
+            out = self.decoder_module_2(out, skip_8, use_kernels)
+            out = self.decoder_module_3(out, skip_4, use_kernels)
         out = self.conv_out(out)
-        if low_res:
+        if low_res and not self.training:
             return out
         out = self.upsample1(out, use_kernels=use_kernels)
-        return self.upsample2(out, use_kernels=use_kernels)
+        out = self.upsample2(out, use_kernels=use_kernels)
+        return (out, down_8, down_16, down_32) if self.training else out
 
 
 def build_encoder(cfg: ESANetConfig, which: str) -> ResNet:

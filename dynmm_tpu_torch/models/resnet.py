@@ -2,11 +2,13 @@
 ``dynmm_tpu/models/resnet.py``).
 
 ``ResNet.stem`` is the raw 7×7/2 conv + BN + act (the caller max-pools);
-``layer1..layer4`` run the four stages. Every stride-1 NonBottleneck1D block
-without a downsample runs on packed weights through ``nbt1d_block``: one
-``nbt1d_fused`` launch up to ``NBT1D_FUSED_MAX_C`` (64) channels, two
-``nbt1d_pair`` launches above; the stride-2 block0s stay plain torch convs.
-Modules take NCHW
+``layer1..layer4`` run the four stages. In eval every stride-1
+NonBottleneck1D block without a downsample runs on packed weights (BN folded
+from the running statistics) through ``nbt1d_block``: one ``nbt1d_fused``
+launch up to ``NBT1D_FUSED_MAX_C`` (64) channels, two ``nbt1d_pair``
+launches above; the stride-2 block0s stay plain torch convs. In training
+every block runs its unfused convs with BN on batch statistics, as the JAX
+model does (the kernels are inference-only). Modules take NCHW
 (channels_last) tensors.
 
 ``BasicBlock``, ``Bottleneck`` (resnet50) and the space-to-depth packed stem
@@ -79,7 +81,7 @@ class NonBottleneck1D(Packed):
                 self.conv1x3_2.bias, self.s2, self.t2)
 
     def forward(self, x, use_kernels: bool = True):
-        if self.fused:
+        if self.fused and not self.training:
             return nchw(nbt1d_block(nhwc(x), *self.packed(),
                                     use_kernels=use_kernels))
         out = self.act(self.conv3x1_1(x))

@@ -1,5 +1,5 @@
 """SkipGateESANet — fusion-level DynMM with a global 5-way gate (port of
-``dynmm_tpu/models/skip_gate.py``, eval).
+``dynmm_tpu/models/skip_gate.py``).
 
 One gate, computed after the stem from both modality maps, weights 5 paths
 ("fuse depth for the first k stages", k ∈ {0..4}). The dense forward
@@ -32,8 +32,14 @@ the unmixed form with w = 0) and the learned upsamples
 (``learned_upsample``; three with ``low_res``). ``use_kernels=False`` runs
 the plain PyTorch version of each instead, on the same weights.
 
-Training (the resource loss) and ``ini_stage`` exploration are not ported
-yet; ``FLOP_TABLES`` and ``capacity_ladders`` are kept here as numpy.
+Training (``model.train()``): ``forward`` is the dense soft- or hard-gated
+forward of the JAX ``__call__(train=True)``, with BN on batch statistics,
+every cell on its plain PyTorch version reading the parameters themselves
+(no kernel has a backward, as in JAX), and it returns
+``((out, down_8, down_16, down_32), expected_cost_loss(weight, table))``.
+``ini_stage`` (train or eval) draws uniform random one-hot paths from the
+``torch.Generator`` the caller passes. ``FLOP_TABLES`` and
+``capacity_ladders`` are kept here as numpy.
 """
 
 from __future__ import annotations
@@ -45,6 +51,7 @@ import torch
 import torch.nn as nn
 
 from dynmm_tpu_torch.core.gates import diff_softmax
+from dynmm_tpu_torch.core.resource import expected_cost_loss
 from dynmm_tpu_torch.core.routing import permute_rows, scatter_rows
 from dynmm_tpu_torch.models.esanet import ESANetConfig, _DualEncoderParts
 from dynmm_tpu_torch.nn.layers import BatchNorm2d, nchw, nhwc
@@ -143,7 +150,9 @@ class GlobalGate(nn.Module):
         self.fc = nn.Conv2d(hidden_dim, branch_num, 1, bias=False)
 
     def logits(self, rgb, depth):
-        x = self.conv(torch.cat([rgb.float(), depth.float()], dim=1))
+        # at least fp32, wider where the parameters are (float64 tests)
+        dt = torch.promote_types(torch.float32, self.fc.weight.dtype)
+        x = self.conv(torch.cat([rgb.to(dt), depth.to(dt)], dim=1))
         return self.fc(x.mean(dim=(2, 3), keepdim=True))[:, :, 0, 0]
 
     def forward(self, rgb, depth, temp: float = 1.0, hard: bool = False):
@@ -199,15 +208,30 @@ class SkipGateESANet(_DualEncoderParts):
         return torch.zeros((b, c, h, w), device=like.device, dtype=like.dtype
                            ).to(memory_format=torch.channels_last)
 
+    @staticmethod
+    def random_paths(bs: int, generator: torch.Generator) -> torch.Tensor:
+        """``ini_stage``'s uniform random paths in 0..4, (bs,) int64, drawn
+        on the generator's device."""
+        return torch.randint(0, 5, (bs,), generator=generator,
+                             device=generator.device)
+
     def gate_weights(self, rgb, depth, temp: float = 1.0, hard: bool = False,
-                     baseline: bool = False):
+                     baseline: bool = False, ini_stage: bool = False,
+                     generator: Optional[torch.Generator] = None):
         """(B, 5) path weights from the pooled stem maps; ``baseline``
-        forces path 4 (static ESANet)."""
+        forces path 4 (static ESANet); ``ini_stage`` draws uniform random
+        one-hot paths from ``generator`` (warm-up exploration)."""
+        bs = rgb.shape[0]
         if baseline:
-            w = torch.zeros((rgb.shape[0], 5), device=rgb.device,
-                            dtype=rgb.dtype)
+            w = torch.zeros((bs, 5), device=rgb.device, dtype=rgb.dtype)
             w[:, 4] = 1.0
             return w
+        if ini_stage:
+            if generator is None:
+                raise ValueError("ini_stage draws its paths from a "
+                                 "torch.Generator; pass generator=")
+            idx = self.random_paths(bs, generator).to(rgb.device)
+            return nn.functional.one_hot(idx, 5).to(rgb.dtype)
         return self.gate_layer(rgb, depth, temp=temp, hard=hard)
 
     def gate_only(self, rgb, depth, temp: float = 1.0,
@@ -218,12 +242,17 @@ class SkipGateESANet(_DualEncoderParts):
 
     def forward(self, rgb, depth, temp: float = 1.0, hard: bool = False,
                 baseline: bool = False, return_weight: bool = False,
-                low_res: bool = False, use_kernels: bool = True):
-        """Dense eval forward. Returns NHWC logits (H/4 with ``low_res``),
-        or ``(logits, weight)``."""
+                low_res: bool = False, use_kernels: bool = True,
+                ini_stage: bool = False,
+                generator: Optional[torch.Generator] = None):
+        """Dense forward. In eval: NHWC logits (H/4 with ``low_res``), or
+        ``(logits, weight)``. In training: ``(preds, loss_flop)``, preds the
+        NHWC ``(out, down_8, down_16, down_32)``, on the plain versions."""
+        use_kernels = use_kernels and not self.training
         rgb, depth = self._stems(rgb, depth, use_kernels)
+        ini = {"ini_stage": True, "generator": generator} if ini_stage else {}
         weight = self.gate_weights(rgb, depth, temp=temp, hard=hard,
-                                   baseline=baseline)
+                                   baseline=baseline, **ini)
         skips = []
         fused = rgb
         for i in (1, 2, 3, 4):
@@ -237,6 +266,11 @@ class SkipGateESANet(_DualEncoderParts):
                          use_kernels)
 
     def _out(self, fused, skips, weight, return_weight, low_res, use_kernels):
+        if self.training:
+            preds = self.head(fused, skips, use_kernels)
+            table = flop_table(self.cfg.encoder_rgb)
+            return (tuple(p.permute(0, 2, 3, 1) for p in preds),
+                    expected_cost_loss(weight, table))
         out = self.head(fused, skips, use_kernels, low_res).permute(0, 2, 3, 1)
         return (out, weight) if return_weight else out
 

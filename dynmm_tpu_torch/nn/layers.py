@@ -9,7 +9,10 @@ modules, so state_dicts converted from flax load with ``strict=True``.
 Modules whose weights a kernel takes in another layout (SE MLPs, learned
 upsample taps, NonBottleneck1D taps and folded BN) derive those copies once,
 in ``repack``, which runs after construction and after every
-``load_state_dict`` (``Packed``); a forward never repacks.
+``load_state_dict`` (``Packed``); an eval forward never repacks. In training
+(``module.training``) they read their parameters themselves, so gradients
+reach them; after optimizer steps, ``pack_weights`` rebuilds the copies
+before the next eval forward.
 """
 
 from __future__ import annotations
@@ -161,12 +164,20 @@ class SqueezeAndExcitation(Packed):
         self.act = get_activation(activation)
         self.repack()
 
+    def _mlp(self):
+        return (self.fc[0].weight[:, :, 0, 0].t(),
+                self.fc[2].weight[:, :, 0, 0].t())
+
     def repack(self):
-        self._set("w1", self.fc[0].weight[:, :, 0, 0].t())
-        self._set("w2", self.fc[2].weight[:, :, 0, 0].t())
+        w1, w2 = self._mlp()
+        self._set("w1", w1)
+        self._set("w2", w2)
 
     def weights(self):
-        return self.w1, self.fc[0].bias, self.w2, self.fc[2].bias
+        """(w1, b1, w2, b2): the packed copies in eval, the parameters
+        themselves in training."""
+        w1, w2 = self._mlp() if self.training else (self.w1, self.w2)
+        return w1, self.fc[0].bias, w2, self.fc[2].bias
 
     def scale(self, x_nhwc: torch.Tensor) -> torch.Tensor:
         """The (B, C) sigmoid recalibration vector of an NHWC map."""
@@ -278,15 +289,19 @@ class Upsample(Packed):
                 self.conv.bias.zero_()
             self.repack()
 
+    def _taps(self):
+        return self.conv.weight[:, 0].permute(1, 2, 0)
+
     def repack(self):
         if "learned-3x3" in self.mode:
-            self._set("taps", self.conv.weight[:, 0].permute(1, 2, 0))
+            self._set("taps", self._taps())
 
     def forward(self, x, use_kernels: bool = True):
         h, w = x.shape[2] * 2, x.shape[3] * 2
         if self.mode == "learned-3x3-zeropad":
             up = learned_upsample if use_kernels else learned_upsample_plain
-            return nchw(up(nhwc(x), self.taps, self.conv.bias))
+            taps = self._taps() if self.training else self.taps
+            return nchw(up(nhwc(x), taps, self.conv.bias))
         if self.mode == "learned-3x3":
             x = nchw(resize_nearest(nhwc(x), (h, w)))
             return self.conv(F.pad(x, (1, 1, 1, 1), mode="replicate"))

@@ -115,8 +115,10 @@ def _imports(path: Path):
 
 
 def _forbidden(name: str) -> bool:
+    """JAX, flax, the JAX package, and what the card lacks (msgpack, cv2)."""
     top = name.split(".")[0]
-    return top in ("jax", "jaxlib", "flax") or top == "dynmm_tpu"
+    return (top in ("jax", "jaxlib", "flax", "msgpack", "cv2")
+            or top == "dynmm_tpu")
 
 
 def test_port_imports_no_jax():
@@ -128,7 +130,9 @@ def test_port_imports_no_jax():
     assert bad == []
     # the guard tells the package's own name from the JAX package's
     assert not _forbidden("dynmm_tpu_torch.kernels")
+    assert not _forbidden("dynmm_tpu_torch.utils.msgpack")
     assert _forbidden("dynmm_tpu") and _forbidden("dynmm_tpu.native")
+    assert _forbidden("msgpack") and _forbidden("cv2")
 
 
 def test_entry_points_raise_without_a_card(monkeypatch):
