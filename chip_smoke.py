@@ -61,7 +61,30 @@ Run from the root of a checkout on a machine with one NVIDIA GPU:
    resumed from that checkpoint against one more step of the trained state
    (every parameter and BN statistic within 1e-5 relative). Prints the ms
    per train step (median after the first) and the peak memory.
-7. Prints the kernels' JSON line (launches summed over phases 3-6), the
+7. Modality-level DynMM (no kernel of the port runs here; the six launch
+   counters must not move). Serves the MM-IMDB router at B=4096 (text 300,
+   image 4096) and the CMU-MOSEI router at B=1024, T=50, lengths full (the
+   JAX bench's serving batches; seeded weights): dense soft, dense hard,
+   ``infer_mode=2`` (the static late-fusion baseline), the compacted routed
+   forward with ``force_k`` at 0/25/50 % on the expensive branch and with
+   the live gate, and ``forward_switch`` at B=1 for each branch (a gate
+   bias forces it). Each request is timed on the host clock ending in
+   ``torch.cuda.synchronize()`` (median of 5 after a warm-up), and one more
+   is traced with ``torch.profiler`` for its device time and the device's
+   busy share of its window; every
+   compact and switch request must equal dense eval of the same branches
+   (max abs error over max |dense| ≤ 1e-5, the same branch per sample), and
+   the card's dense forward the CPU's on the same weights (≤ 1e-4
+   relative; MOSEI on its first 128 rows). Then runs each CLI's
+   ``main(argv)`` (``imdb_dyn``, ``affect_dyn``: ``--synthetic --freeze
+   --no-pretrain --n-epochs 3 --device cuda``) from a temporary working
+   directory: finite losses, the result line, the frozen parameters
+   bit-identical to the CLI's seeded start and the gate's changed (the
+   IMDB fusion branch's BN statistics follow its train-mode forwards, as in
+   the JAX trainer), and the checkpoint in a fresh router giving the CLI
+   model's hard-eval outputs exactly (error 0). Prints ms per request and
+   per train step (median after the first).
+8. Prints the kernels' JSON line (launches summed over phases 3-6), the
    card line, and last ``{"ok": true, "device": {...}}``.
 
 TF32 is switched off for cuDNN convolutions and matmuls here, so the kernels
@@ -273,6 +296,35 @@ def kernel_cases(inp: Inputs) -> list[Case]:
     return cases
 
 
+def second_opinion(case: Case, outs_k: tuple, outs_p: tuple) -> None:
+    """After a kernel/plain mismatch, and before the check fails: the kernel
+    and the plain version once more on the same inputs, the plain version
+    with and without cuDNN, each held against the first outputs, so that the
+    failure says which side changed its answer."""
+    def as_tuple(o):
+        return o if isinstance(o, tuple) else (o,)
+
+    with torch.inference_mode():
+        runs = {"kernel": outs_k, "plain": outs_p,
+                "kernel again": as_tuple(case.kern()),
+                "plain again": as_tuple(case.plain())}
+        with torch.backends.cudnn.flags(enabled=False):
+            runs["plain without cuDNN"] = as_tuple(case.plain())
+        torch.cuda.synchronize()
+    for label, outs in runs.items():
+        finite = all(bool(torch.isfinite(o).all()) for o in outs)
+        print(f"  second opinion, {case.name} {case.label}: {label}: max |out| "
+              f"{max(o.abs().max().item() for o in outs):.6g}, finite "
+              f"{finite}", file=sys.stderr, flush=True)
+    names = list(runs)
+    for i, a in enumerate(names):
+        for b in names[i + 1:]:
+            err = max((x - y).abs().max().item()
+                      for x, y in zip(runs[a], runs[b]))
+            print(f"  second opinion: max |{a} - {b}| = {err:.6g}",
+                  file=sys.stderr, flush=True)
+
+
 def check_kernels(report: dict) -> list[dict]:
     from dynmm_tpu_torch.utils.device import device_ms
 
@@ -294,6 +346,7 @@ def check_kernels(report: dict) -> list[dict]:
             if not all(torch.isfinite(a).all() for a in outs_k):
                 raise RuntimeError(f"{name} {label}: non-finite output")
             if rel > KERNEL_TOL:
+                second_opinion(case, outs_k, outs_p)
                 raise RuntimeError(f"{name} {label}: max abs err {err:.3g} is "
                                    f"{rel:.3g} of max |plain| > {KERNEL_TOL}")
             if case.repeat:
@@ -882,6 +935,282 @@ def check_train(report: dict) -> dict:
     return launches
 
 
+MODALITY_TOL = 1e-5  # routed vs dense requests, max abs err / max |dense|
+CPU_TOL = 1e-4  # the card's dense forward vs the CPU's, same weights
+MODALITY_REPS = 5  # timed repeats of each request, after one warm-up
+IMDB_B, MOSEI_B, MOSEI_T = 4096, 1024, 50  # the JAX bench's serving batches
+
+
+def _timed(fn, reps: int = MODALITY_REPS):
+    """(median ms, every ms, last output, device) of ``fn`` on the host
+    clock ending in ``torch.cuda.synchronize()``, after one warm-up call;
+    ``device``: the device time of one more call and its busy share of that
+    call's window, from a ``torch.profiler`` trace."""
+    import statistics
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from dynmm_tpu_torch.profile_serve import _busy_us
+
+    out = fn()
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    spans = [(e.time_range.start, e.time_range.end) for e in prof.events()
+             if e.device_type == DeviceType.CUDA]
+    device = {"device_ms": sum(b - a for a, b in spans) / 1e3,
+              "busy_share": _busy_us(spans) / wall_us, "kernels": len(spans)}
+    return statistics.median(times), times, out, device
+
+
+def _forced_gate(fc: torch.nn.Linear, branch: int) -> dict:
+    """Zero the gate's last layer and bias it to ``branch``; returns the
+    saved weights for ``fc.load_state_dict``."""
+    saved = {k: v.clone() for k, v in fc.state_dict().items()}
+    with torch.no_grad():
+        fc.weight.zero_()
+        fc.bias.fill_(0.0)
+        fc.bias[branch] = 20.0
+    return saved
+
+
+def serve_router(name: str, model, args: tuple, gate_fc) -> dict:
+    """Phase 7's requests on one router (see the module docstring)."""
+    import copy
+
+    bsz = args[0][0].shape[0]
+    rows = []
+
+    def check(label, timed, out, ref, same_gate, extra=None):
+        ms, times, _, device = timed
+        err = (out - ref).abs().max().item()
+        rel = err / ref.abs().max().item()
+        ok = (rel <= MODALITY_TOL and same_gate
+              and bool(torch.isfinite(out).all()))
+        rows.append({"request": label, "ms": ms, "ms_all": times, **device,
+                     "max_abs_err": err, "rel_err": rel,
+                     "same_gate": same_gate, **(extra or {})})
+        print(f"  {name} {label:22s} {ms:9.3f} ms (median of "
+              f"{len(times)}; device {device['device_ms']:.3f} ms in "
+              f"{device['kernels']} kernels, busy "
+              f"{device['busy_share'] * 100:.1f} %); vs dense rel err "
+              f"{rel:.3g}, gate identical: {same_gate}", flush=True)
+        if not ok:
+            raise RuntimeError(f"{name} {label}: disagrees with dense eval")
+
+    with torch.inference_mode():
+        d1 = model(*args, infer_mode=1)[0]
+        d2 = model(*args, infer_mode=2)[0]
+        hard_out, _, w_hard = model(*args, hard=True)
+        k_gate = w_hard.argmax(1)
+        for label, kw in (("dense soft", {"hard": False}),
+                          ("dense hard", {"hard": True}),
+                          ("infer_mode=2", {"infer_mode": 2})):
+            timed = _timed(lambda kw=kw: model(*args, **kw))
+            out = timed[2][0]
+            ref = {"dense soft": out, "dense hard": hard_out,
+                   "infer_mode=2": d2}[label]
+            check(label, timed, out, ref, True)
+        for frac in (0.0, 0.25, 0.5):
+            fk = (torch.arange(bsz, device="cuda")
+                  < int(round(frac * bsz))).int()
+            timed = _timed(
+                lambda fk=fk: model.forward_routed_compact(*args, force_k=fk))
+            out, w = timed[2]
+            ref = torch.where(fk[:, None] == 1, d2, d1)
+            check(f"compact {int(frac * 100)} % expensive", timed, out, ref,
+                  torch.equal(w, w_hard), {"expensive_rows": int(fk.sum())})
+        timed = _timed(lambda: model.forward_routed_compact(*args))
+        out, w = timed[2]
+        check("compact live gate", timed, out, hard_out,
+              torch.equal(w, w_hard), {"expensive_rows": int(k_gate.sum())})
+        one = tuple([x[:1] for x in a] for a in args)
+        for branch in (0, 1):
+            saved = _forced_gate(gate_fc, branch)
+            try:
+                timed = _timed(lambda: model.forward_switch(*one))
+                ref, _, w_d = model(*one, hard=True)
+            finally:
+                gate_fc.load_state_dict(saved)
+            out, w = timed[2]
+            check(f"switch B=1 branch {branch + 1}", timed, out, ref,
+                  torch.equal(w, w_d) and int(w.argmax()) == branch)
+
+        # the card's dense forward against the CPU's on the same weights
+        n = bsz if name == "imdb" else 128
+        cpu = copy.deepcopy(model).cpu()
+        sub = tuple([x[:n].cpu() for x in a] for a in args)
+        cpu_err = {}
+        for label, kw in (("soft", {"hard": False}), ("branch 1",
+                          {"infer_mode": 1}), ("branch 2", {"infer_mode": 2})):
+            want = cpu(*sub, **kw)[0]
+            got = model(*args, **kw)[0][:n].cpu()
+            cpu_err[label] = ((got - want).abs().max()
+                              / want.abs().max()).item()
+        _, _, w_cpu = cpu(*sub, hard=True)
+        gate_agree = (w_cpu.argmax(1) == k_gate[:n].cpu()).float().mean().item()
+    print(f"  {name} card vs CPU on {n} rows: rel err {cpu_err}; hard gate "
+          f"choices agree on {gate_agree * 100:.3f} %; the live gate sends "
+          f"{int(k_gate.sum())} of {bsz} rows to the expensive branch",
+          flush=True)
+    if max(cpu_err.values()) > CPU_TOL:
+        raise RuntimeError(f"{name}: the card's forward differs from the CPU's")
+    return {"batch": bsz, "requests": rows, "cpu_rows": n,
+            "card_vs_cpu_rel_err": cpu_err, "card_vs_cpu_gate_agreement":
+            gate_agree, "live_gate_expensive_rows": int(k_gate.sum())}
+
+
+def train_cli(name: str, cli, argv: list, router: str, ckpt: str,
+              test_batch) -> dict:
+    """One CLI's ``main(argv)`` in a temporary working directory, with its
+    train steps timed (see the module docstring)."""
+    import contextlib
+    import io
+    import os
+    import statistics
+    import tempfile
+
+    import numpy as np
+
+    from dynmm_tpu_torch.models.modality import build_router
+    from dynmm_tpu_torch.train.supervised import SupervisedTrainer
+    from dynmm_tpu_torch.utils.checkpoint import load_checkpoint
+    from dynmm_tpu_torch.utils.weights import (flax_variables,
+                                               load_checkpoint_into)
+
+    steps, trainers = [], []
+    step = SupervisedTrainer.train_step
+
+    def timed_step(self, state, batch):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = step(self, state, batch)
+        torch.cuda.synchronize()
+        steps.append({"ms": (time.perf_counter() - t0) * 1e3,
+                      "loss": float(out[0])})
+        if not trainers:
+            trainers.append(self)
+        return out
+
+    log = io.StringIO()
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        os.chdir(tmp)
+        SupervisedTrainer.train_step = timed_step
+        try:
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(log):
+                cli.main(argv)
+            run_s = time.perf_counter() - t0
+        finally:
+            SupervisedTrainer.train_step = step
+            os.chdir(cwd)
+        payload = load_checkpoint(os.path.join(tmp, "log", ckpt))
+        fresh = build_router(router, seed=5, device="cuda")
+        load_checkpoint_into(fresh, os.path.join(tmp, "log", ckpt))
+    out_lines = log.getvalue().splitlines()
+    for line in out_lines:
+        print(f"    | {line[:200]}", flush=True)
+    result = [ln for ln in out_lines if "Total Flops" in ln]
+    if len(result) != 1:
+        raise RuntimeError(f"{name}: no result line")
+
+    def leaves(tree, path=()):
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                yield from leaves(v, path + (k,))
+            else:
+                yield path + (k,), np.asarray(v)
+
+    start = build_router(router, seed=0, device="cpu")  # the CLI's start
+    before = dict(leaves(flax_variables(start)["params"]))
+    after = dict(leaves(payload["state"]["params"]))
+    gate = [p for p in before if p[0] == "gate"]
+    frozen_same = all(np.array_equal(after[p], v) for p, v in before.items()
+                      if p[0] != "gate")
+    gate_moved = bool(gate) and not any(np.array_equal(after[p], before[p])
+                                        for p in gate)
+    stat_leaves = [v for _, v in leaves(payload["state"].get(
+        "model_state", {}).get("batch_stats", {}))]
+    stats_finite = all(np.isfinite(v).all() for v in stat_leaves)
+
+    model = trainers[0].model.eval()
+    with torch.inference_mode():
+        got = fresh(*test_batch, hard=True)
+        want = model(*test_batch, hard=True)
+    reload_err = max((g - w).abs().max().item() for g, w in zip(got, want))
+    losses = [st["loss"] for st in steps]
+    step_ms = statistics.median(st["ms"] for st in steps[1:])
+    print(f"  {name}: {len(steps)} train steps, {step_ms:.3f} ms a step "
+          f"(median after the first; all {[round(st['ms'], 3) for st in steps]}"
+          f"), losses {[round(x, 4) for x in losses]}; run {run_s:.2f} s; "
+          f"frozen parameters bit-identical: {frozen_same}; all {len(gate)} "
+          f"gate leaves moved: {gate_moved}; {len(stat_leaves)} BN statistics "
+          f"finite: {stats_finite}; checkpoint in a fresh router vs the CLI's "
+          f"model, hard eval max abs err {reload_err:.3g}", flush=True)
+    if not (all(math.isfinite(x) for x in losses) and frozen_same
+            and gate_moved and stats_finite and reload_err == 0):
+        raise RuntimeError(f"{name}: CLI training check failed")
+    return {"argv": argv, "steps": steps, "step_ms_median": step_ms,
+            "run_s": run_s, "result_line": result[0],
+            "frozen_params_identical": frozen_same, "gate_moved": gate_moved,
+            "bn_statistics": len(stat_leaves),
+            "checkpoint_reload_max_abs_err": reload_err}
+
+
+def check_modality(report: dict) -> None:
+    from dynmm_tpu_torch.cli import affect_dyn, imdb_dyn
+    from dynmm_tpu_torch.data.affect import synthetic_mosei_loaders
+    from dynmm_tpu_torch.data.imdb import synthetic_imdb_loaders
+    from dynmm_tpu_torch.kernels import LAUNCHES
+    from dynmm_tpu_torch.models.modality import build_router
+
+    before = dict(LAUNCHES)
+    inp = Inputs(seed=7)
+    imdb = build_router("imdb", seed=1)
+    mosei = build_router("mosei", seed=2)
+    lengths = torch.full((MOSEI_B,), MOSEI_T, dtype=torch.long, device="cuda")
+    section = {
+        "imdb": serve_router(
+            "imdb", imdb, ([inp.randn(IMDB_B, 300), inp.randn(IMDB_B, 4096)],),
+            imdb.gate.fc2),
+        "mosei": serve_router(
+            "mosei", mosei,
+            ([inp.randn(MOSEI_B, MOSEI_T, d) for d in (35, 74, 300)],
+             [lengths] * 3), mosei.gate.fc)}
+    del imdb, mosei
+
+    common = ["--synthetic", "--freeze", "--no-pretrain", "--n-epochs", "3",
+              "--device", "cuda"]
+    test = next(iter(synthetic_imdb_loaders(batch_size=128)[2]))
+    imdb_batch = ([torch.from_numpy(x).cuda() for x in test.inputs],)
+    section["imdb_train"] = train_cli(
+        "imdb_dyn", imdb_dyn, common + ["--reg", "0.1"], "imdb",
+        "imdb/DynMMNet_freezeTrue_reg_0.1.msgpack", imdb_batch)
+    test = next(iter(synthetic_mosei_loaders(batch_size=32)[2]))
+    mosei_batch = ([torch.from_numpy(x).cuda() for x in test.inputs],
+                   [torch.from_numpy(x).long().cuda() for x in test.lengths])
+    section["mosei_train"] = train_cli(
+        "affect_dyn", affect_dyn, common + ["--reg", "0.01"], "mosei",
+        "mosei/dyn_enc_transformer_reg_0.01freezeTrue.msgpack", mosei_batch)
+    if dict(LAUNCHES) != before:
+        raise RuntimeError(f"a port kernel launched in phase 7: {before} -> "
+                           f"{dict(LAUNCHES)}")
+    print("  no kernel launch counter moved in this phase", flush=True)
+    report["modality"] = section
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this check runs on the card",
@@ -924,6 +1253,11 @@ def main() -> int:
     print(f"[6] train the {HEIGHT}x{WIDTH} flagship: SegTrainer.fit, 2 epochs "
           f"of 2 steps of B={BATCH}", flush=True)
     trained = check_train(report)
+    print(f"[7] modality-level DynMM: MM-IMDB at B={IMDB_B}, CMU-MOSEI at "
+          f"B={MOSEI_B} T={MOSEI_T}; the imdb_dyn and affect_dyn CLIs",
+          flush=True)
+    check_modality(report)
+    print("[8] kernels", flush=True)
     for k in kernels:
         k["launches"] = sum(run.get(k["name"], 0)
                             for run in (launches, routed, recipe, trained))

@@ -1,5 +1,10 @@
-"""``--he_init`` (port of ``dynmm_tpu/utils/init.py::apply_he_init``; the
-reference's ``build_model.py:152-178``).
+"""Weight initialisation from an explicit ``torch.Generator``.
+
+``apply_he_init`` is ``--he_init`` (port of
+``dynmm_tpu/utils/init.py::apply_he_init``; the reference's
+``build_model.py:152-178``). ``flax_default_init`` draws the modality-level
+models' dense layers as flax initialises them (the JAX package's routers
+are built with flax's defaults).
 
 Kaiming-normal (fan-out, relu) re-draw of conv kernels, except the SE
 blocks (sigmoid-terminated), the learned upsamples, output layers
@@ -41,3 +46,24 @@ def apply_he_init(model: nn.Module, generator: torch.Generator,
                            device=generator.device, dtype=p.dtype)
         p.copy_(draw * std)
     pack_weights(model)
+
+
+@torch.no_grad()
+def flax_default_init(model: nn.Module, generator: torch.Generator) -> None:
+    """Every ``nn.Linear`` as flax's ``Dense`` defaults: kernel
+    ``lecun_normal`` (a normal truncated to ±2 standard deviations, scaled
+    to variance 1/fan_in), bias 0. LayerNorm and BN keep their ones and
+    zeros, which are flax's too."""
+    lo, hi = (1 + math.erf(-2 / math.sqrt(2))) / 2, (1 + math.erf(2 / math.sqrt(2))) / 2
+    for m in model.modules():
+        if not isinstance(m, nn.Linear):
+            continue
+        w = m.weight
+        u = torch.rand(w.shape, generator=generator, dtype=torch.float64,
+                       device=generator.device)
+        z = math.sqrt(2) * torch.erfinv(2 * (lo + (hi - lo) * u) - 1)
+        # .87962566103423978: the std of a standard normal truncated to ±2
+        std = math.sqrt(1.0 / w.shape[1]) / .87962566103423978
+        w.copy_((z * std).to(w.dtype))
+        if m.bias is not None:
+            m.bias.zero_()

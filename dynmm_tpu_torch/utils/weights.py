@@ -11,6 +11,16 @@ is the inverse, so a checkpoint the port writes holds the flax tree layout
 and loads into the JAX package. ``load_recipe_gate`` merges the repo's
 recipe-trained gate asset into a model; ``load_checkpoint_into`` loads the
 weights of a flax msgpack checkpoint.
+
+The modality-level models (``models/modality``, ``nn/mlp.py``,
+``nn/sequence.py``; classes with ``flax_tree = True``) name their
+submodules after the flax tree itself, so their bridge is a tree walk
+(``encoders_i`` ↔ the ``ModuleList`` ``encoders.i``) plus layout rules:
+dense kernels (in, out) ↔ (out, in); attention ``query``/``key``/``value``
+kernels (in, H, D) ↔ (H·D, in) and biases (H, D) ↔ (H·D,); the attention
+``out`` kernel (H, D, out) ↔ (out, H·D); LayerNorm and BN ``scale`` ↔
+``weight``; BN ``mean``/``var`` ↔ running statistics. ``load_flax_variables``
+and ``flax_variables`` pick the rules from the model.
 """
 
 from __future__ import annotations
@@ -159,12 +169,97 @@ def flax_from_state_dict(sd: dict[str, torch.Tensor]) -> dict:
     return out
 
 
+def uses_flax_tree(model: torch.nn.Module) -> bool:
+    """Whether ``model`` holds modules named after the flax tree (the
+    modality-level models) rather than the reference's torch names."""
+    return any(getattr(m, "flax_tree", False) for m in model.modules())
+
+
+_LIST_ITEM = re.compile(r"^(encoders)_(\d+)$")
+_QKV = ("query", "key", "value")
+
+
+def _tree_state_dict(variables: dict) -> dict[str, torch.Tensor]:
+    """Flax variables of a modality-level model → its state_dict."""
+    out: dict[str, torch.Tensor] = {}
+    for coll in ("params", "batch_stats"):
+        for path, value in _leaf_paths(variables.get(coll) or {}):
+            mods = [_LIST_ITEM.sub(r"\1.\2", p) for p in path[:-1]]
+            leaf, arr = path[-1], np.asarray(value)
+            if coll == "batch_stats":
+                name = f"running_{leaf}"
+            elif leaf == "kernel":
+                name = "weight"
+                if arr.ndim == 3 and mods[-1] in _QKV:  # (in, H, D)
+                    arr = arr.reshape(arr.shape[0], -1)
+                elif arr.ndim == 3:  # out: (H, D, out)
+                    arr = arr.reshape(-1, arr.shape[-1])
+                arr = arr.T
+            else:
+                name = {"scale": "weight"}.get(leaf, leaf)
+                arr = arr.reshape(-1)  # q/k/v biases are (H, D)
+            out[".".join(mods + [name])] = torch.tensor(np.ascontiguousarray(arr))
+    return out
+
+
+def tree_flax_path(name: str, ndim: int) -> tuple[tuple[str, ...], str]:
+    """(flax path, collection) of a modality-level model's parameter or
+    buffer name: ``encoders.i`` → ``encoders_i``; ``weight`` → ``kernel``
+    (2-D) or ``scale`` (1-D); ``running_mean``/``running_var`` →
+    ``batch_stats`` ``mean``/``var``."""
+    *mods, leaf = name.split(".")
+    path: list[str] = []
+    for m in mods:
+        if m.isdigit():
+            path[-1] = f"{path[-1]}_{m}"
+        else:
+            path.append(m)
+    if leaf.startswith("running_"):
+        return tuple(path) + (leaf[len("running_"):],), "batch_stats"
+    if leaf == "weight":
+        leaf = "kernel" if ndim > 1 else "scale"
+    return tuple(path) + (leaf,), "params"
+
+
+def _tree_variables(model: torch.nn.Module) -> dict:
+    """A modality-level model's state → flax variables (numpy copies)."""
+    from dynmm_tpu_torch.nn.sequence import MultiHeadDotProductAttention
+
+    out: dict = {"params": {}, "batch_stats": {}}
+    for name, t in model.state_dict().items():
+        arr = t.detach().cpu().numpy().copy()
+        path, coll = tree_flax_path(name, arr.ndim)
+        mods = name.split(".")[:-1]
+        owner = model.get_submodule(".".join(mods[:-1]))
+        if path[-1] == "kernel":
+            arr = arr.T
+        if isinstance(owner, MultiHeadDotProductAttention):
+            heads = (owner.num_heads, owner.head_dim)
+            if mods[-1] != "out":  # q/k/v: (in, H, D) kernels, (H, D) biases
+                arr = arr.reshape(*arr.shape[:-1], *heads)
+            elif path[-1] == "kernel":  # out: (H, D, out)
+                arr = arr.reshape(*heads, arr.shape[-1])
+        _set_path(out[coll], path, np.ascontiguousarray(arr))
+    return out
+
+
+def flax_variables(model: torch.nn.Module) -> dict:
+    """``{"params": ..., "batch_stats": ...}`` of ``model`` as flax trees
+    of numpy copies (either naming scheme)."""
+    if uses_flax_tree(model):
+        return _tree_variables(model)
+    return flax_from_state_dict(model.state_dict())
+
+
 def load_flax_variables(model: torch.nn.Module, variables: dict) -> None:
     """Load ``{"params": ..., "batch_stats": ...}`` (numpy leaves) into
     ``model`` with ``strict=True``. Modules that keep kernel-packed copies
     of their weights repack them from a load hook."""
-    sd = state_dict_from_flax(variables.get("params", {}),
-                              variables.get("batch_stats"))
+    if uses_flax_tree(model):
+        sd = _tree_state_dict(variables)
+    else:
+        sd = state_dict_from_flax(variables.get("params", {}),
+                                  variables.get("batch_stats"))
     model.load_state_dict(sd, strict=True)
 
 
