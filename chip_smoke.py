@@ -84,8 +84,27 @@ Run from the root of a checkout on a machine with one NVIDIA GPU:
    the JAX trainer), and the checkpoint in a fresh router giving the CLI
    model's hard-eval outputs exactly (error 0). Prints ms per request and
    per train step (median after the first).
-8. Prints the kernels' JSON line (launches summed over phases 3-6), the
-   card line, and last ``{"ok": true, "device": {...}}``.
+8. The eval and predict CLIs on prepared data: writes a NYUv2-layout test
+   split of 16 samples at 480×640 (``SyntheticSegDataset``, half
+   depth-needed) with the port's PNG codec, and the flagship with seeded
+   weights and the recipe gate merged as ``.msgpack`` and ``.pth``. Runs
+   ``cli.eval.main`` at B=8 (hard from each checkpoint: equal mIoU; two
+   noise runs; quarter resolution; capacity factor 8.0, which must score
+   the exact chain's mIoU; the packed stem) and ``cli.predict.main`` in
+   every serve mode (batchmax, dense, compact, compact with capacity
+   factor 1.25, switch and switch_host at B=1 on 4 samples, quarter
+   resolution, packed stem). Counts at 0 before each run: the launches
+   must be those the samples' paths give (the strict capacity runs add
+   their ``gate_only`` calibration). Predict's PNGs, read back, must equal
+   ``serve()``'s class maps of the same batches through the palette
+   (error 0); the kernels' class maps of one batch must agree with the
+   plain versions' on ≥ 99.9 % of pixels, raw and packed, and the packed
+   stem's logits lie within 1e-4 relative of the raw stem's. Prints each
+   eval run's seconds a batch, predict's frames/s, the path mix and the
+   host's share of a batch (PNG decode, preprocessing, packing) beside the
+   forward. Deletes its files.
+9. Prints the kernels' JSON line (launches summed over phases 3-6 and 8),
+   the card line, and last ``{"ok": true, "device": {...}}``.
 
 TF32 is switched off for cuDNN convolutions and matmuls here, so the kernels
 and their plain versions compare in fp32. Any failure exits non-zero before
@@ -1211,6 +1230,354 @@ def check_modality(report: dict) -> None:
     report["modality"] = section
 
 
+CLI_SAMPLES = 16  # the prepared test split of phase 8: two batches of 8
+CLI_SWITCH_NUM = 4  # samples predict serves at B=1 in the switch modes
+# launches of one gate_only call (the stems and the gate): the stem cell
+GATE_ONLY_LAUNCHES = {"channel_sums": 1, "stem_fuse_pool": 1}
+
+
+def _add(total: dict, more: dict, times: int = 1) -> dict:
+    for k, v in more.items():
+        total[k] = total.get(k, 0) + v * times
+    return total
+
+
+def _write_layout(root: Path) -> float:
+    """The prepared NYUv2 layout of phase 8 (``data/png.py``): test/rgb,
+    test/depth (uint16 mm), test/labels_40 and the split lists (the train
+    list names the same ids; eval never reads the train files)."""
+    import numpy as np
+
+    from dynmm_tpu_torch.data import png
+    from dynmm_tpu_torch.data.nyuv2 import SyntheticSegDataset
+
+    ds = SyntheticSegDataset(n=CLI_SAMPLES, height=HEIGHT, width=WIDTH,
+                             split="test", mixed_modality_frac=0.5)
+    for kind in ("rgb", "depth", "labels_40"):
+        (root / "test" / kind).mkdir(parents=True)
+    t0 = time.perf_counter()
+    ids = []
+    for i in range(CLI_SAMPLES):
+        s, name = ds[i], f"{i:05d}"
+        ids.append(name)
+        png.write(str(root / "test" / "rgb" / f"{name}.png"), s["image"])
+        png.write(str(root / "test" / "depth" / f"{name}.png"),
+                  np.round(s["depth"]).astype(np.uint16))
+        png.write(str(root / "test" / "labels_40" / f"{name}.png"), s["label"])
+    for split in ("train", "test"):
+        (root / f"{split}.txt").write_text("\n".join(ids) + "\n")
+    return time.perf_counter() - t0
+
+
+def _host_share(root: Path, model, report: dict) -> None:
+    """One batch's host work, each part apart: PNG decode (rgb, depth,
+    label), preprocessing (resize, normalise, label maps), stacking, stem
+    packing; beside the dense B=8 forward on the card."""
+    import statistics
+
+    import numpy as np
+
+    from dynmm_tpu_torch.data.nyuv2 import NYUv2Dataset
+    from dynmm_tpu_torch.data.seg_preprocessing import (SegLoader,
+                                                        SegPreprocessor,
+                                                        pack_stem_batch)
+    from dynmm_tpu_torch.serve import serve
+
+    ds = NYUv2Dataset(str(root), "test")
+    pre = SegPreprocessor(ds.depth_mean, ds.depth_std, HEIGHT, WIDTH,
+                          phase="test")
+    rng = np.random.default_rng(0)
+    parts = {"png_decode": [], "preprocess": [], "stack": [], "pack": [],
+             "forward": []}
+    for _ in range(3):
+        t0 = time.perf_counter()
+        samples = [ds[i] for i in range(BATCH)]
+        t1 = time.perf_counter()
+        samples = [pre(s, rng) for s in samples]
+        t2 = time.perf_counter()
+        batch = SegLoader._stack(samples)
+        t3 = time.perf_counter()
+        pack_stem_batch(batch)
+        t4 = time.perf_counter()
+        rgb = torch.from_numpy(batch["image"]).cuda()
+        depth = torch.from_numpy(batch["depth"]).cuda()
+        torch.cuda.synchronize()
+        t5 = time.perf_counter()
+        serve(model, rgb, depth, mode="dense")
+        torch.cuda.synchronize()
+        t6 = time.perf_counter()
+        for k, (a, b) in zip(parts, ((t0, t1), (t1, t2), (t2, t3), (t3, t4),
+                                     (t5, t6))):
+            parts[k].append((b - a) * 1e3)
+    ms = {k: statistics.median(v) for k, v in parts.items()}
+    loader_ms = ms["png_decode"] + ms["preprocess"] + ms["stack"]
+    keeps_up = loader_ms + ms["pack"] <= ms["forward"]
+    print("  host work of one B=8 batch (median of 3): "
+          + ", ".join(f"{k} {v:.2f} ms" for k, v in ms.items())
+          + f"; the loader thread's {loader_ms + ms['pack']:.2f} ms (packed) "
+          f"{'keeps' if keeps_up else 'does not keep'} up with the "
+          f"{ms['forward']:.2f} ms forward", flush=True)
+    report["host_ms_per_batch"] = ms
+    report["host_keeps_up"] = keeps_up
+
+
+def check_clis(report: dict) -> dict:
+    """Phase 8: ``cli.eval`` and ``cli.predict`` on a prepared layout."""
+    import contextlib
+    import io
+    import shutil
+
+    import numpy as np
+
+    from dynmm_tpu_torch.cli import eval as eval_cli
+    from dynmm_tpu_torch.cli import predict as predict_cli
+    from dynmm_tpu_torch.data import png
+    from dynmm_tpu_torch.data.nyuv2 import NYUv2Dataset, class_colors
+    from dynmm_tpu_torch.data.seg_preprocessing import (SegLoader,
+                                                        SegPreprocessor,
+                                                        pack_stem_batch)
+    from dynmm_tpu_torch.kernels import LAUNCHES, reset_launches
+    from dynmm_tpu_torch.models.skip_gate import capacity_ladders
+    from dynmm_tpu_torch.serve import build_flagship, serve
+    from dynmm_tpu_torch.train.seg import SegTrainer
+    from dynmm_tpu_torch.utils.checkpoint import save_checkpoint
+    from dynmm_tpu_torch.utils.device import card_line
+    from dynmm_tpu_torch.utils.weights import (flax_from_state_dict,
+                                               load_recipe_gate)
+
+    card = card_line()
+    root = ROOT / "build" / "chip_smoke_cli"
+    shutil.rmtree(root, ignore_errors=True)
+    section: dict = {"eval": [], "predict": []}
+    validate = SegTrainer.validate
+    try:
+        write_s = _write_layout(root)
+        model = build_flagship(HEIGHT, WIDTH, CLASSES, seed=0)
+        load_recipe_gate(model)
+        v = flax_from_state_dict(model.state_dict())
+        ckpt = str(root / "flagship.msgpack")
+        save_checkpoint(ckpt, {"params": v["params"],
+                               "model_state": {"batch_stats":
+                                               v["batch_stats"]}}, epoch=0)
+        pth = str(root / "flagship.pth")
+        torch.save({k: t.cpu() for k, t in model.state_dict().items()}, pth)
+        print(f"  wrote {CLI_SAMPLES} samples at {HEIGHT}x{WIDTH} in "
+              f"{write_s:.2f} s, the flagship (recipe gate merged) as "
+              ".msgpack and .pth", flush=True)
+
+        # the test batches as the CLIs' loaders give them, raw and packed,
+        # and each sample's path (the launches each run must give)
+        ds = NYUv2Dataset(str(root), "test")
+        pre = SegPreprocessor(ds.depth_mean, ds.depth_std, HEIGHT, WIDTH,
+                              phase="test")
+        batches = []
+        for b in SegLoader(ds, pre, batch_size=BATCH, prefetch=0):
+            p = pack_stem_batch(b)
+            batches.append({k: torch.from_numpy(x).cuda() for k, x in (
+                ("rgb", b["image"]), ("depth", b["depth"]),
+                ("prgb", p["image"]), ("pdepth", p["depth"]))})
+        with torch.inference_mode():
+            paths = [model.gate_only(b["rgb"], b["depth"]).argmax(1).tolist()
+                     for b in batches]
+            ppaths = [model.gate_only(b["prgb"], b["pdepth"]).argmax(1)
+                      .tolist() for b in batches]
+        flat = sum(paths, [])
+        mix = np.bincount(flat, minlength=5) / len(flat)
+        print(f"  paths of the {len(flat)} samples {flat}, mix "
+              f"{mix.tolist()}; packed inputs take the same paths: "
+              f"{ppaths == paths}", flush=True)
+        if ppaths != paths:
+            raise RuntimeError(f"packed-stem gate choices {ppaths} != {paths}")
+        ratios = mix.astype(np.float32)  # GateStats over the calib batches
+        _host_share(root, model, section)
+
+        # kernels against the plain versions on one batch, raw and packed;
+        # the packed stem's logits against the raw stem's
+        b0 = batches[0]
+        with torch.inference_mode():
+            agree = {}
+            for kind, (r, d) in (("raw", (b0["rgb"], b0["depth"])),
+                                 ("packed", (b0["prgb"], b0["pdepth"]))):
+                cm_k, _ = serve(model, r, d, mode="dense")
+                cm_p, _ = serve(model, r, d, mode="dense", use_kernels=False)
+                agree[kind] = (cm_k == cm_p).float().mean().item()
+            packed_rel = _rel(model(b0["prgb"], b0["pdepth"], hard=True),
+                              model(b0["rgb"], b0["depth"], hard=True))
+        print(f"  kernels vs plain class maps agree on {agree['raw'] * 100:.4f}"
+              f" % (raw), {agree['packed'] * 100:.4f} % (packed); packed vs "
+              f"raw stem logits rel err {packed_rel:.3g}", flush=True)
+        section.update(kernels_vs_plain_agreement=agree,
+                       packed_vs_raw_logits_rel_err=packed_rel,
+                       paths=flat, path_mix=mix.tolist())
+        if min(agree.values()) < 0.999 or packed_rel > 1e-4:
+            raise RuntimeError("phase 8: kernel/plain or packed/raw mismatch")
+
+        dense = path_launches([True] * 4, False)
+        # the capacity runs' calibration: gate_only on every batch
+        # (--calib_batches 8 ≥ 2)
+        calib = _add({}, GATE_ONLY_LAUNCHES, len(batches))
+
+        def strict(factor, p):
+            return {"caps": capacity_ladders(ratios, len(p),
+                                             capacity_factor=factor),
+                    "strict_caps": True}
+
+        def routed(mode, low_res=False, kw=lambda p: {}, pp=paths):
+            out = {}
+            for p in pp:
+                _add(out, path_launches(stages_run(mode, p, kw(p)), low_res))
+            return out
+
+        timings = []
+
+        def timed_validate(self, *a, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = validate(self, *a, **k)
+            torch.cuda.synchronize()
+            timings.append((time.perf_counter() - t0,
+                            out[1]["time_forward"]))
+            return out
+
+        SegTrainer.validate = timed_validate
+        base = ["--dataset", "nyuv2", "--dataset_dir", str(root),
+                "--height", str(HEIGHT), "--width", str(WIDTH),
+                "--batch_size", str(BATCH)]
+        hard = [*base, "--dynamic", "--global-gate", "--hard"]
+        n_b = len(batches)
+        evals = [
+            ("msgpack", [*hard, "--ckpt_path", ckpt], _add({}, dense, n_b)),
+            (".pth", [*hard, "--ckpt_path", pth], _add({}, dense, n_b)),
+            ("noise x2", [*hard, "--ckpt_path", ckpt, "--num_runs", "2",
+                          "--mode", "2", "--noise", "0.5"],
+             _add({}, dense, 2 * n_b)),
+            ("quarter", [*hard, "--ckpt_path", ckpt, "--output_res",
+                         "quarter"],
+             _add({}, path_launches([True] * 4, True), n_b)),
+            ("capacity 8.0", [*hard, "--ckpt_path", ckpt,
+                              "--capacity_factor", "8.0"],
+             _add(routed("compact", kw=lambda p: strict(8.0, p)), calib)),
+            ("packed", [*hard, "--ckpt_path", ckpt, "--packed_stem"],
+             _add({}, dense, n_b)),
+        ]
+        # warm-up (cuDNN picks its algorithms), not counted
+        with contextlib.redirect_stdout(io.StringIO()):
+            eval_cli.main(evals[0][1])
+        timings.clear()
+        launches: dict = {}
+        mious = {}
+        for label, argv, expected in evals:
+            out = io.StringIO()
+            # each run: counts at 0 just before, read just after
+            reset_launches()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(out):
+                result = eval_cli.main(argv)
+            wall = time.perf_counter() - t0
+            got = dict(LAUNCHES)
+            _add(launches, got)
+            if {k: v for k, v in got.items() if v} != expected:
+                raise RuntimeError(f"eval {label}: launches {got} != "
+                                   f"{expected}")
+            runs = [timings.pop(0) for _ in range(len(result))]
+            s_batch = sum(t for t, _ in runs) / (len(runs) * n_b)
+            fwd_batch = sum(f for _, f in runs) / (len(runs) * n_b)
+            mious[label] = result.tolist()
+            lines = [ln for ln in out.getvalue().splitlines()
+                     if ln.startswith(("Run", "  branch", "capacity"))]
+            row = {"run": label, "miou": result.tolist(), "wall_s": wall,
+                   "s_per_batch": s_batch, "forward_s_per_batch": fwd_batch,
+                   "launches": got, "lines": lines}
+            section["eval"].append(row)
+            print(f"  eval {label:12s}: mIoU "
+                  f"{[round(float(m), 4) for m in result]}, "
+                  f"{s_batch:.4f} s a batch of {BATCH} ({fwd_batch:.4f} s "
+                  f"forward to class map), {wall:.2f} s in all [{card}]",
+                  flush=True)
+            for ln in lines:
+                print(f"    {ln.strip()}", flush=True)
+        SegTrainer.validate = validate
+        if mious[".pth"] != mious["msgpack"]:
+            raise RuntimeError(f"eval: .pth mIoU {mious['.pth']} != msgpack "
+                               f"{mious['msgpack']}")
+        if mious["capacity 8.0"] != mious["msgpack"]:
+            raise RuntimeError("eval: capacity factor 8.0 differs from the "
+                               "exact chain")
+
+        colors = class_colors(CLASSES + 1)
+        pbase = [*base, "--ckpt_path", ckpt]
+        sw = ["--batch_size", "1", "--num", str(CLI_SWITCH_NUM)]
+        singles = [[p] for p in flat[:CLI_SWITCH_NUM]]
+        predicts = [
+            ("batchmax", [], "batchmax", False, False, {},
+             routed("batchmax")),
+            ("dense", ["--serve_mode", "dense"], "dense", False, False, {},
+             _add({}, dense, n_b)),
+            ("compact", ["--serve_mode", "compact"], "compact", False, False,
+             {}, routed("compact")),
+            ("compact x1.25", ["--serve_mode", "compact", "--capacity_factor",
+                               "1.25"], "compact", False, False, "cf",
+             _add(routed("compact", kw=lambda p: strict(1.25, p)), calib)),
+            ("switch", ["--serve_mode", "switch", *sw], "switch", False,
+             False, {}, routed("switch", pp=singles)),
+            ("switch_host", ["--serve_mode", "switch_host", *sw],
+             "switch_host", False, False, {}, routed("switch", pp=singles)),
+            ("quarter", ["--output_res", "quarter"], "batchmax", True, False,
+             {}, routed("batchmax", low_res=True)),
+            ("packed", ["--packed_stem"], "batchmax", False, True, {},
+             routed("batchmax")),
+        ]
+        for label, extra, mode, low_res, packed, kw, expected in predicts:
+            out_dir = root / f"pred_{label.replace(' ', '_')}"
+            out = io.StringIO()
+            reset_launches()
+            with contextlib.redirect_stdout(out):
+                res = predict_cli.main([*pbase, *extra, "--out_dir",
+                                        str(out_dir)])
+            got = dict(LAUNCHES)
+            _add(launches, got)
+            if {k: v for k, v in got.items() if v} != expected:
+                raise RuntimeError(f"predict {label}: launches {got} != "
+                                   f"{expected}")
+            # the written maps against serve()'s on the same batches
+            single = mode in ("switch", "switch_host")
+            keys = ("prgb", "pdepth") if packed else ("rgb", "depth")
+            reqs = ([tuple(b[k][i:i + 1] for k in keys)
+                     for b in batches for i in range(BATCH)] if single else
+                    [tuple(b[k] for k in keys) for b in batches])
+            maps = []
+            for r, d in reqs:
+                r, d = r.contiguous(), d.contiguous()
+                skw = strict(1.25, [0] * r.shape[0]) if kw == "cf" else {}
+                cm, _ = serve(model, r, d, mode=mode, low_res=low_res, **skw)
+                maps.extend(cm.cpu().numpy())
+                if len(maps) >= res["n"]:
+                    break
+            diff = [np.abs(png.read(str(out_dir / f"pred_{i:05d}.png"))
+                           .astype(np.int32) - colors[maps[i] + 1])
+                    for i in range(res["n"])]
+            err = max(int(d.max()) for d in diff)
+            same = float(np.mean([(d == 0).all(axis=-1).mean() for d in diff]))
+            row = {"run": label, "n": res["n"], "fps": res["fps"],
+                   "path_distribution": np.asarray(res["ratios"]).tolist(),
+                   "png_max_abs_err": err, "png_pixels_equal": same,
+                   "launches": got}
+            section["predict"].append(row)
+            print(f"  predict {label:13s}: {res['n']} maps, "
+                  f"{res['fps']:.2f} frames/s, path distribution "
+                  f"{np.round(np.float64(res['ratios']), 3).tolist()}, PNGs "
+                  f"vs serve() max abs err {err} ({same * 100:.4f} % of "
+                  f"pixels equal) [{card}]", flush=True)
+            if err != 0:
+                raise RuntimeError(f"predict {label}: written maps differ "
+                                   "from serve()'s")
+    finally:
+        SegTrainer.validate = validate
+        shutil.rmtree(root, ignore_errors=True)
+    report["clis"] = section
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this check runs on the card",
@@ -1257,10 +1624,13 @@ def main() -> int:
           f"B={MOSEI_B} T={MOSEI_T}; the imdb_dyn and affect_dyn CLIs",
           flush=True)
     check_modality(report)
-    print("[8] kernels", flush=True)
+    print(f"[8] the eval and predict CLIs on a prepared NYUv2 layout of "
+          f"{CLI_SAMPLES} samples at {HEIGHT}x{WIDTH}, B={BATCH}", flush=True)
+    clis = check_clis(report)
+    print("[9] kernels", flush=True)
     for k in kernels:
-        k["launches"] = sum(run.get(k["name"], 0)
-                            for run in (launches, routed, recipe, trained))
+        k["launches"] = sum(run.get(k["name"], 0) for run in
+                            (launches, routed, recipe, trained, clis))
         if k["launches"] == 0:
             raise RuntimeError(f"{k['name']} never launched on the main path")
     report["kernels"] = kernels

@@ -4,10 +4,12 @@ torch subset of ``dynmm_tpu/cli/seg_build.py``; the reference's
 
 The port builds the flagship's family, the global-gate SkipGateESANet
 (``--dynamic --global-gate``: NonBottleneck1D resnet18/resnet34 encoders,
-SE-add fusion, PPM, any ``--upsampling``), and reads ``--dataset
-synthetic``. ``check_supported`` raises ``NotImplementedError`` on every
-flag of a feature the port does not have yet, naming its ROADMAP item;
-none is silently ignored.
+SE-add fusion, PPM, any ``--upsampling``), with the 2×2 packed stem under
+``--packed_stem``, and reads every ``--dataset``: the prepared on-disk
+layouts (``data/nyuv2.py``, ``data/other_datasets.py``) and ``synthetic``.
+``check_supported`` raises ``NotImplementedError`` on every flag of a
+feature the port does not have yet, naming its ROADMAP item; none is
+silently ignored.
 """
 
 from __future__ import annotations
@@ -15,8 +17,10 @@ from __future__ import annotations
 import numpy as np
 
 from dynmm_tpu_torch.cli.seg_args import decoder_channels, nr_decoder_blocks
-from dynmm_tpu_torch.data.nyuv2 import SyntheticSegDataset
-from dynmm_tpu_torch.data.seg_preprocessing import SegLoader, SegPreprocessor
+from dynmm_tpu_torch.data.nyuv2 import NYUv2Dataset, SyntheticSegDataset
+from dynmm_tpu_torch.data.other_datasets import DATASETS
+from dynmm_tpu_torch.data.seg_preprocessing import (SegLoader, SegPreprocessor,
+                                                    pack_stem_batch)
 from dynmm_tpu_torch.models.esanet import ESANetConfig
 from dynmm_tpu_torch.models.skip_gate import SkipGateESANet
 
@@ -24,9 +28,6 @@ from dynmm_tpu_torch.models.skip_gate import SkipGateESANet
 def check_supported(args) -> None:
     """Raise on flags of features not ported yet."""
     missing = []
-    if args.dataset != "synthetic":
-        missing.append(f"--dataset {args.dataset} (only synthetic; the "
-                       "on-disk datasets wait for their files, ROADMAP A5)")
     if not (args.dynamic and args.global_gate):
         missing.append("a model other than --dynamic --global-gate (the "
                        "static ESANet and the local-gate SkipESANet, "
@@ -36,15 +37,10 @@ def check_supported(args) -> None:
     if args.mesh_data > 1 or args.mesh_model > 1:
         missing.append("--mesh-data/--mesh-model above 1 (mesh training, "
                        "ROADMAP A9)")
-    if args.packed_stem:
-        missing.append("--packed_stem (ROADMAP A3)")
     if args.dtype != "float32":
         missing.append(f"--dtype {args.dtype} (bf16, ROADMAP A3)")
     if args.quant != "none":
         missing.append(f"--quant {args.quant} (int8, ROADMAP A6)")
-    if args.pretrained_scenenet:
-        missing.append("--pretrained_scenenet (pretrained weights are not in "
-                       "the repo, ROADMAP A5)")
     if missing:
         raise NotImplementedError("not ported yet: " + "; ".join(missing))
 
@@ -81,20 +77,31 @@ def build_model(args, n_classes: int) -> SkipGateESANet:
 
 def make_dataset(args, split: str):
     check_supported(args)
-    n_train = args.synthetic_n
-    return SyntheticSegDataset(
-        n=n_train if split == "train" else max(1, n_train // 2),
-        height=args.height,
-        width=args.width,
-        split=split,
-        mixed_modality_frac=args.synthetic_mixed_frac,
-    )
+    depth_mode = "raw" if args.raw_depth else "refined"
+    if args.dataset == "nyuv2":
+        return NYUv2Dataset(args.dataset_dir, split=split,
+                            depth_mode=depth_mode)
+    if args.dataset == "synthetic":
+        n_train = args.synthetic_n
+        return SyntheticSegDataset(
+            n=n_train if split == "train" else max(1, n_train // 2),
+            height=args.height,
+            width=args.width,
+            split=split,
+            mixed_modality_frac=args.synthetic_mixed_frac,
+        )
+    if args.dataset in DATASETS:
+        return DATASETS[args.dataset](args.dataset_dir, split=split,
+                                      depth_mode=depth_mode)
+    raise NotImplementedError(f"Unknown dataset {args.dataset}")
 
 
 def prepare_data(args):
     """(train_loader, valid_loader[, full-resolution valid_loader]): train
     shuffles and drops the ragged tail; valid keeps order with
-    ``--batch_size_valid``."""
+    ``--batch_size_valid``. ``--packed_stem`` packs the train batches in the
+    loader's prefetch thread (``pack_stem_batch``); validation packs in its
+    loop, after eval.py's noise is injected on the raw layout."""
     train_ds = make_dataset(args, "train")
     valid_ds = make_dataset(args, "test")
     depth_mode = "raw" if args.raw_depth else "refined"
@@ -106,8 +113,9 @@ def prepare_data(args):
     valid_pre = SegPreprocessor(mean, std, args.height, args.width,
                                 phase="test", depth_mode=depth_mode)
     batch_valid = args.batch_size_valid or args.batch_size
-    train_loader = SegLoader(train_ds, train_pre, batch_size=args.batch_size,
-                             shuffle=True, drop_last=True)
+    train_loader = SegLoader(
+        train_ds, train_pre, batch_size=args.batch_size, shuffle=True,
+        drop_last=True, post=pack_stem_batch if args.packed_stem else None)
     valid_loader = SegLoader(valid_ds, valid_pre, batch_size=batch_valid)
     if args.valid_full_res:
         full_pre = SegPreprocessor(mean, std, None, None, phase="test",
@@ -115,6 +123,25 @@ def prepare_data(args):
         return train_loader, valid_loader, SegLoader(
             make_dataset(args, "test"), full_pre, batch_size=batch_valid)
     return train_loader, valid_loader
+
+
+def compute_depth_stats(dataset, depth_mode: str = "refined") -> dict:
+    """Train-split depth mean/std (dataset_base.py:210-263): raw mode
+    excludes invalid zero pixels from the statistics."""
+    def valid_depths():
+        for i in range(len(dataset)):
+            depth = dataset[i]["depth"]
+            yield depth[depth > 0] if depth_mode == "raw" else depth.reshape(-1)
+
+    pixel_sum, pixel_nr = 0.0, 0
+    for valid in valid_depths():
+        pixel_sum += float(valid.sum())
+        pixel_nr += valid.size
+    mean = pixel_sum / max(pixel_nr, 1)
+    sq_sum = sum(float(np.square(valid - mean).sum())
+                 for valid in valid_depths())
+    std = float(np.sqrt(sq_sum / max(pixel_nr, 1)))
+    return {"mean": mean, "std": std}
 
 
 def compute_class_weights(dataset, n_classes: int, mode: str, c: float = 1.02):

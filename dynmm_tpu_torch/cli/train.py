@@ -11,9 +11,13 @@ batch_size/8 as in the reference; the args are written to ``args.json`` and
 ``<results_dir>/<dataset>/checkpoints_<time>/``. ``--last_ckpt`` resumes
 from a checkpoint of either package (a JAX one restarts the optimizer);
 ``--finetune`` loads the weights of a flax msgpack checkpoint, or of a
-``.pth`` state_dict in the reference's torch names; ``--he_init`` re-draws
-the conv kernels. Flags of features the port does not have yet raise
-(``cli/seg_build.py::check_supported``).
+``.pth`` in the reference's torch names, merged as the JAX importer merges
+(``utils/torch_import.py``); ``--pretrained_scenenet`` warm-starts from a
+SceneNet ``.pth`` without its heads; ``--he_init`` re-draws the conv
+kernels. ``--dataset`` reads the prepared on-disk layouts
+(``cli/seg_build.py::make_dataset``); ``--packed_stem`` trains on batches
+packed 2×2 in the loader's prefetch thread. Flags of features the port does
+not have yet raise (``cli/seg_build.py::check_supported``).
 """
 
 from __future__ import annotations
@@ -33,18 +37,8 @@ from dynmm_tpu_torch.cli.seg_build import (build_model, check_supported,
 from dynmm_tpu_torch.train.seg import SegTrainConfig, SegTrainer
 from dynmm_tpu_torch.utils.checkpoint import load_ckpt
 from dynmm_tpu_torch.utils.init import apply_he_init
-from dynmm_tpu_torch.utils.weights import load_checkpoint_into
-
-
-def load_torch_weights(model: torch.nn.Module, path: str) -> None:
-    """A reference-style ``.pth``: a state_dict (or ``{"state_dict": ...}``)
-    in the reference's torch names, ``module.`` prefixes and BN
-    ``num_batches_tracked`` counters dropped, loaded strictly."""
-    sd = torch.load(path, map_location="cpu", weights_only=True)
-    sd = sd.get("state_dict", sd)
-    sd = {k.removeprefix("module."): v for k, v in sd.items()
-          if not k.endswith("num_batches_tracked")}
-    model.load_state_dict(sd, strict=True)
+from dynmm_tpu_torch.utils.torch_import import (import_scenenet_pretrain,
+                                                load_any_checkpoint)
 
 
 def parse_args(argv=None):
@@ -96,7 +90,8 @@ def main(argv=None) -> None:
         eval_every=args.eval_every, save_every=args.save_every,
         baseline=args.baseline, freeze=args.freeze, soft_eval=args.soft_eval,
         dynamic=args.dynamic, global_gate=args.global_gate,
-        grad_accum=args.grad_accum, modality=args.modality, debug=args.debug)
+        grad_accum=args.grad_accum, modality=args.modality, debug=args.debug,
+        packed_stem=args.packed_stem)
     trainer = SegTrainer(model, cfg, class_weights, device=args.device)
     state = trainer.init_state()
 
@@ -106,14 +101,12 @@ def main(argv=None) -> None:
             args.last_ckpt, state)
         start_epoch = epoch_last + 1
         print(f"=> loaded checkpoint '{args.last_ckpt}' (epoch {epoch_last})")
+    if args.pretrained_scenenet:
+        import_scenenet_pretrain(model, args.pretrained_scenenet,
+                                 context_module=args.context_module)
+        print(f"Loaded pretrained SceneNet weights: {args.pretrained_scenenet}")
     if args.finetune:
-        if not os.path.isfile(args.finetune):
-            print(f"=> no checkpoint found at '{args.finetune}'")
-            sys.exit(1)
-        if args.finetune.endswith((".pth", ".pt")):
-            load_torch_weights(model, args.finetune)
-        else:
-            load_checkpoint_into(model, args.finetune)
+        load_any_checkpoint(model, args.finetune)
         print(f"Loaded weights for finetuning: {args.finetune}")
     if args.he_init:
         apply_he_init(model, torch.Generator().manual_seed(42), n_classes)

@@ -1,21 +1,160 @@
-"""Synthetic RGB-D segmentation data and the NYUv2 constants (a copy of
-the numpy parts of ``dynmm_tpu/data/nyuv2.py``, which the port does not
-import), and ``make_recipe_eval_batch``, the port's twin of
+"""NYU Depth V2 RGB-D segmentation data (a copy of the numpy parts of
+``dynmm_tpu/data/nyuv2.py``, which the port does not import), and
+``make_recipe_eval_batch``, the port's twin of
 ``bench.py::make_recipe_eval_batch``.
 
+``NYUv2Dataset`` reads the ESANet-prepared layout the reference consumes
+(``FusionDynMM/src/datasets/nyuv2/pytorch_dataset.py``): per split
+``{split}/rgb/*.png`` (H,W,3 uint8), ``{split}/depth/*.png`` (uint16 mm;
+``depth_raw`` for raw mode) and ``{split}/labels_40/*.png`` (uint8,
+0=void), with ``{split}.txt`` listing sample ids. PNGs are decoded by
+``data/png.py`` (the JAX package uses cv2).
+
 NYUv2 constants as the reference has them: refined-depth train statistics
-mean 2841.94941 / std 1417.25943 mm, one camera 'kv1', 40 classes plus void.
-The on-disk ``NYUv2Dataset`` is not ported yet.
+mean 2841.94941 / std 1417.25943 mm, one camera 'kv1', 40 classes plus
+void; the palettes of ``class_colors``.
 """
 
 from __future__ import annotations
 
+import contextlib
+import os
+
 import numpy as np
+
+from dynmm_tpu_torch.data import png
 
 DEPTH_MEAN = 2841.94941272766
 DEPTH_STD = 1417.2594281672277
 N_CLASSES = 40  # without void
 CAMERAS = ("kv1",)
+
+CLASS_NAMES_40 = [
+    "wall", "floor", "cabinet", "bed", "chair", "sofa", "table", "door",
+    "window", "bookshelf", "picture", "counter", "blinds", "desk", "shelves",
+    "curtain", "dresser", "pillow", "mirror", "floor mat", "clothes",
+    "ceiling", "books", "refridgerator", "television", "paper", "towel",
+    "shower curtain", "box", "whiteboard", "person", "night stand", "toilet",
+    "sink", "lamp", "bathtub", "bag", "otherstructure", "otherfurniture",
+    "otherprop",
+]
+
+
+# Fixed 13-class palette published with the dataset tooling the reference
+# vendors (FusionDynMM/src/datasets/nyuv2/nyuv2.py:312-326).
+CLASS_COLORS_13 = np.array(
+    [
+        [0, 0, 0], [0, 0, 255], [232, 88, 47], [0, 217, 0], [148, 0, 240],
+        [222, 241, 23], [255, 205, 205], [0, 223, 228], [106, 135, 204],
+        [116, 28, 41], [240, 35, 235], [0, 166, 156], [249, 139, 0],
+        [225, 228, 194],
+    ],
+    dtype=np.uint8,
+)
+
+
+def voc_colormap(n: int) -> np.ndarray:
+    """Standard PASCAL-VOC bit-interleaved colormap ((n,3) uint8).
+
+    Color i spreads i's bits across the high bits of r/g/b (bit 3k of i →
+    bit 7-k of r, 3k+1 → g, 3k+2 → b). This is the palette the reference's
+    40/894-class colored label maps use
+    (``nyuv2/nyuv2.py:8-24`` → ``CLASS_COLORS_40``, :327).
+    """
+    idx = np.arange(n, dtype=np.uint32)
+    cmap = np.zeros((n, 3), dtype=np.uint8)
+    for j in range(8):
+        for ch in range(3):
+            bit = (idx >> (3 * j + ch)) & 1
+            cmap[:, ch] |= (bit << (7 - j)).astype(np.uint8)
+    return cmap
+
+
+def class_colors(n: int = N_CLASSES + 1, seed: int = 1) -> np.ndarray:
+    """Visualization palette ((n,3) uint8; index 0 = void/black): the fixed
+    13-class list for n=14, the VOC colormap otherwise (reference
+    CLASS_COLORS_40/894). ``seed`` is kept for the JAX package's signature
+    and ignored (the palette is deterministic)."""
+    del seed
+    if n == len(CLASS_COLORS_13):
+        return CLASS_COLORS_13.copy()
+    return voc_colormap(n)
+
+
+class NYUv2Dataset:
+    """Map-style access to the prepared on-disk dataset.
+
+    Multi-camera datasets (SUNRGBD) can ship an optional
+    ``{split}_cameras.txt`` (one camera name per sample line); the
+    ``filter_camera`` context manager then narrows the dataset to one
+    camera's samples — the reference's per-camera validation protocol
+    (``dataset_base.py:20-29``, ``train.py:402-409``). Without the file every
+    sample belongs to the first camera.
+    """
+
+    def __init__(self, root: str, split: str = "train",
+                 depth_mode: str = "refined"):
+        assert split in ("train", "test")
+        assert depth_mode in ("refined", "raw")
+        self.root = root
+        self.split = split
+        self.depth_mode = depth_mode
+        self.cameras = CAMERAS
+        self.n_classes_without_void = N_CLASSES
+        with open(os.path.join(root, f"{split}.txt")) as f:
+            self.ids = [line.strip() for line in f if line.strip()]
+        self._all_ids = list(self.ids)
+        cam_file = os.path.join(root, f"{split}_cameras.txt")
+        if os.path.exists(cam_file):
+            with open(cam_file) as f:
+                self.sample_cameras = [l.strip() for l in f if l.strip()]
+            assert len(self.sample_cameras) == len(self.ids)
+        else:
+            self.sample_cameras = None
+
+    @contextlib.contextmanager
+    def filter_camera(self, camera: str):
+        """Context manager narrowing the dataset to one camera's samples."""
+        saved = self.ids
+        if self.sample_cameras is not None:
+            self.ids = [i for i, cam in zip(self._all_ids, self.sample_cameras)
+                        if cam == camera]
+        try:
+            yield self
+        finally:
+            self.ids = saved
+
+    def __len__(self) -> int:
+        return len(self.ids)
+
+    def _png(self, kind: str, idx: int) -> np.ndarray:
+        return png.read(os.path.join(self.root, self.split, kind,
+                                     f"{self.ids[idx]}.png"))
+
+    def load_image(self, idx: int) -> np.ndarray:
+        return self._png("rgb", idx)
+
+    def load_depth(self, idx: int) -> np.ndarray:
+        return self._png("depth" if self.depth_mode == "refined"
+                         else "depth_raw", idx)
+
+    def load_label(self, idx: int) -> np.ndarray:
+        return self._png("labels_40", idx)
+
+    def __getitem__(self, idx: int) -> dict:
+        return {
+            "image": self.load_image(idx),
+            "depth": self.load_depth(idx).astype(np.float32),
+            "label": self.load_label(idx),
+        }
+
+    @property
+    def depth_mean(self) -> float:
+        return DEPTH_MEAN
+
+    @property
+    def depth_std(self) -> float:
+        return DEPTH_STD
 
 
 class SyntheticSegDataset:

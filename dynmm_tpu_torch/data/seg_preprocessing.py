@@ -15,8 +15,8 @@ caller's ``np.random.Generator`` as the JAX package, so one seed gives the
 same crops, flips and HSV jitter. Resizes run through the native library
 (``dynmm_tpu_torch/native``) with cv2's semantics; the port has no cv2
 fallback. Batching happens in ``SegLoader``. Layout is NHWC throughout.
-Host-side space-to-depth stem packing (``pack_stem_batch``) and eval.py's
-noise injection (``inject_eval_noise``) are not ported.
+Also here: eval.py's noise injection (``inject_eval_noise``, the same numpy
+draws) and the packed stem's host feed (``pack_stem_batch``).
 """
 
 from __future__ import annotations
@@ -186,6 +186,49 @@ class SegPreprocessor:
         return (depth - self.depth_mean) / self.depth_std
 
 
+def inject_eval_noise(image: np.ndarray, depth: np.ndarray, mode: int,
+                      noise: float, rng) -> tuple[np.ndarray, np.ndarray]:
+    """Gaussian-noise robustness injection (eval.py:91-102): with per-batch
+    probability 1/3, add noise scaled by ``noise * mean(|x|)``; mode 0 = rgb,
+    1 = depth, 2 = either (1/3 rgb, 1/3 depth). ``rng`` is the run's seeded
+    ``np.random.Generator``: ``rng.random()`` first, then one
+    ``standard_normal`` of the raw NHWC batch's shape, as the JAX package
+    draws them."""
+    r = rng.random()
+
+    def noisy(x):
+        return x + noise * np.abs(x).mean() * rng.standard_normal(
+            x.shape).astype(np.float32)
+
+    if mode == 0 and r < 0.33:
+        image = noisy(image)
+    elif mode == 1 and r < 0.33:
+        depth = noisy(depth)
+    elif mode == 2:
+        if r < 0.33:
+            image = noisy(image)
+        elif r < 0.66:
+            depth = noisy(depth)
+    return image, depth
+
+
+def pack_stem_batch(batch: dict) -> dict:
+    """The packed stem's host feed: raw rgb (C=3) and depth (C=1) of a
+    stacked batch dict with even H and W become their ``(N, H/2, W/2, 4C)``
+    space-to-depth forms (``models/resnet.py::space_to_depth_host``).
+    Channel-guarded, so an already-packed batch passes unchanged. Meant as
+    a ``SegLoader`` ``post=`` hook, which runs it in the prefetch thread."""
+    from dynmm_tpu_torch.models.resnet import space_to_depth_host
+
+    out = dict(batch)
+    for key, raw_c in (("image", 3), ("depth", 1)):
+        x = batch.get(key)
+        if (x is not None and x.ndim == 4 and x.shape[-1] == raw_c
+                and x.shape[1] % 2 == 0 and x.shape[2] % 2 == 0):
+            out[key] = space_to_depth_host(np.asarray(x))
+    return out
+
+
 class SegLoader:
     """Batched loader over a map-style RGB-D dataset + preprocessor.
 
@@ -195,7 +238,8 @@ class SegLoader:
     NYUv2 is uniform 480×640 so any batch size works).
 
     ``post`` (optional) transforms each stacked batch dict inside the
-    prefetch thread, overlapping host-side work with device compute.
+    prefetch thread (e.g. ``pack_stem_batch``), overlapping host-side work
+    with device compute.
     """
 
     def __init__(

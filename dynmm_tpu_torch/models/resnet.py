@@ -11,13 +11,19 @@ every block runs its unfused convs with BN on batch statistics, as the JAX
 model does (the kernels are inference-only). Modules take NCHW
 (channels_last) tensors.
 
-``BasicBlock``, ``Bottleneck`` (resnet50) and the space-to-depth packed stem
-are not ported yet.
+The stem also takes its input 2×2 space-to-depth packed (``stem``,
+``space_to_depth_host``, ``s2d_weight``): a 4×4 stride-1 conv over 4C
+channels computes the 7×7/2 conv, with the same state_dict.
+
+``BasicBlock`` and ``Bottleneck`` (resnet50) are not ported yet.
 """
 
 from __future__ import annotations
 
+import numpy as np
+import torch
 import torch.nn as nn
+import torch.nn.functional as F
 
 from dynmm_tpu_torch.kernels.nbt1d import fold_bn, nbt1d_block
 from dynmm_tpu_torch.nn.layers import (BatchNorm2d, Packed, get_activation,
@@ -112,12 +118,42 @@ class ResNetStage(nn.ModuleList):
         return x
 
 
+def s2d_weight(w: torch.Tensor) -> torch.Tensor:
+    """Re-tile an OIHW (O, C, 7, 7) stride-2 pad-3 stem kernel into the
+    equivalent (O, 4C, 4, 4) kernel over 2×2 space-to-depth-packed input
+    (``dynmm_tpu/models/resnet.py::_s2d_kernel``).
+
+    Tap u (offset t = u − 3) reads packed row ⌊t/2⌋ + 2 at parity t mod 2.
+    With one zero tap put in front (p = u + 1), that is row p // 2, parity
+    p % 2: the padded 8×8 kernel reshaped to (4 rows, 2 parities) per axis.
+    Packed-channel order (r, s, c) → r·2C + s·C + c. Pad, reshape and
+    permute, so a gradient of the packed kernel reaches ``w``."""
+    o, c = w.shape[:2]
+    wp = F.pad(w, (1, 0, 1, 0)).reshape(o, c, 4, 2, 4, 2)  # o c a r b s
+    return wp.permute(0, 3, 5, 1, 2, 4).reshape(o, 4 * c, 4, 4)
+
+
+def space_to_depth_host(x: np.ndarray) -> np.ndarray:
+    """Host-side 2×2 space-to-depth packing
+    (``dynmm_tpu/models/resnet.py::space_to_depth_host``): (N, H, W, C) → (N, H/2, W/2, 4C), channel order
+    (row parity, col parity, c). float32 goes through the native OpenMP
+    copy (``native.space_to_depth``), other dtypes through numpy."""
+    if x.dtype == np.float32:
+        from dynmm_tpu_torch import native
+
+        return native.space_to_depth(x)
+    n, h, w, c = x.shape
+    x = x.reshape(n, h // 2, 2, w // 2, 2, c).transpose(0, 1, 3, 2, 4, 5)
+    return np.ascontiguousarray(x.reshape(n, h // 2, w // 2, 4 * c))
+
+
 class ResNet(nn.Module):
     """Staged NonBottleneck1D ResNet encoder."""
 
     def __init__(self, layers, input_channels: int = 3,
                  activation: str = "relu"):
         super().__init__()
+        self.input_channels = input_channels
         self.conv1 = nn.Conv2d(input_channels, 64, 7, stride=2, padding=3,
                                bias=False)
         self.bn1 = BatchNorm2d(64)
@@ -133,8 +169,24 @@ class ResNet(nn.Module):
         return {2: 64, 4: 64, 8: 128, 16: 256, 32: 512}
 
     def stem(self, x):
-        """7×7/2 conv (pad 3) + BN + act; the max-pool is the caller's."""
-        return self.act(self.bn1(self.conv1(x)))
+        """7×7/2 conv (pad 3) + BN + act; the max-pool is the caller's.
+
+        An input of ``4·input_channels`` channels is taken as already 2×2
+        space-to-depth packed (``space_to_depth_host``, channel order
+        (r, s, c)): it is padded ((2, 1), (2, 1)) and convolved at stride 1
+        with ``s2d_weight(conv1.weight)``, the same function as the 7×7/2
+        conv on the raw input (cuDNN sums in another order: ~1e-6
+        relative)."""
+        c = x.shape[1]
+        if c == 4 * self.input_channels:
+            x = F.conv2d(F.pad(x, (2, 1, 2, 1)), s2d_weight(self.conv1.weight))
+        elif c == self.input_channels:
+            x = self.conv1(x)
+        else:
+            raise ValueError(
+                f"stem expects {self.input_channels} channels (raw) or "
+                f"{4 * self.input_channels} (space-to-depth packed); got {c}")
+        return self.act(self.bn1(x))
 
     def forward(self, x, use_kernels: bool = True):
         x = max_pool_3x3_s2(self.stem(x))

@@ -78,7 +78,12 @@ class Packed(nn.Module):
 
     def __init__(self):
         super().__init__()
-        self.register_load_state_dict_post_hook(lambda m, _keys: m.repack())
+        self.register_load_state_dict_post_hook(Packed._after_load)
+
+    @staticmethod
+    def _after_load(module: "Packed", _keys) -> None:
+        # a named function, not a lambda: whole modules stay picklable
+        module.repack()
 
     def repack(self) -> None:
         raise NotImplementedError
@@ -249,6 +254,25 @@ def resize_nearest(x: torch.Tensor, out_hw: tuple[int, int]) -> torch.Tensor:
     idx_h = (torch.arange(oh, device=x.device) * h) // oh
     idx_w = (torch.arange(ow, device=x.device) * w) // ow
     return x[:, idx_h][:, :, idx_w]
+
+
+def resize_nearest_centers(x: torch.Tensor, out_hw: tuple[int, int]
+                           ) -> torch.Tensor:
+    """Nearest resize of (B, H, W, ...) sampled at pixel centres, as
+    ``jax.image.resize(..., "nearest")``: source index ⌊(i + 0.5)·in/out⌋,
+    computed in float32 in the same order (torch's 'nearest-exact', not the
+    floor indexing of ``resize_nearest``; the two agree only at integer
+    ratios: 5 → 7 gives [0 1 1 2 3 3 4] here, [0 0 1 2 2 3 4] there)."""
+    def index(n_in: int, n_out: int) -> torch.Tensor:
+        pos = torch.arange(n_out, dtype=torch.float32, device=x.device) + 0.5
+        return (pos * n_in / n_out).floor().long()
+
+    (h, w), (oh, ow) = x.shape[1:3], out_hw
+    if oh != h:
+        x = x[:, index(h, oh)]
+    if ow != w:
+        x = x[:, :, index(w, ow)]
+    return x
 
 
 def resize_bilinear(x: torch.Tensor, out_hw: tuple[int, int]) -> torch.Tensor:

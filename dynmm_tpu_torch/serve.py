@@ -77,8 +77,10 @@ def serve(model: SkipGateESANet, rgb: torch.Tensor, depth: torch.Tensor,
           force_path: int | None = None, low_res: bool = False,
           use_kernels: bool = True):
     """Hard-gate inference on NHWC images: rgb (B,H,W,3), depth (B,H,W,1),
-    fp32 on the model's device. Returns the class map (B,H,W) int32 (first
-    index on ties) and the gate weights (B,5).
+    fp32 on the model's device, or both 2×2 space-to-depth packed
+    ((B,H/2,W/2,12) and (B,H/2,W/2,4), ``data/seg_preprocessing.py::
+    pack_stem_batch``) for the packed stem. Returns the class map (B,H,W)
+    int32 (first index on ties) and the gate weights (B,5).
 
     ``mode`` (predict.py's ``--serve_mode``): ``dense`` (every branch,
     ``forward``), ``batchmax`` (``forward_switch_batched``, the default),
@@ -97,7 +99,9 @@ def serve(model: SkipGateESANet, rgb: torch.Tensor, depth: torch.Tensor,
     if (caps is not None or strict_caps) and mode != "compact":
         raise ValueError("caps and strict_caps apply to mode 'compact'")
     dev = next(model.parameters()).device
+    pack = 2 if rgb.dim() == 4 and rgb.shape[-1] == 12 else 1
     for name, x, c in (("rgb", rgb, 3), ("depth", depth, 1)):
+        c *= pack * pack
         if x.dim() != 4 or x.shape[-1] != c or x.dtype != torch.float32:
             raise ValueError(f"{name}: expected float32 (B,H,W,{c}), got "
                              f"{x.dtype} {tuple(x.shape)}")
@@ -120,7 +124,7 @@ def serve(model: SkipGateESANet, rgb: torch.Tensor, depth: torch.Tensor,
         logits, weight = fwd(rgb.contiguous(), depth.contiguous(), **kw)
         class_map = first_argmax(logits, dim=-1)
         if low_res:
-            scale = rgb.shape[1] // class_map.shape[1]
+            scale = rgb.shape[1] * pack // class_map.shape[1]
             class_map = class_map.repeat_interleave(scale, dim=1
                                                     ).repeat_interleave(scale, dim=2)
         return class_map, weight

@@ -14,7 +14,13 @@ the eval core of ``eval.py``).
   ``hard = epoch ≥ epoch_hard`` and ``ini = epoch < epoch_ini`` (the
   latter carries into validation).
 * Validation per camera: eval forward → bilinear resize to the label size →
-  first argmax → void mask → label − 1 → confusion matrix, mIoU.
+  first argmax → void mask → label − 1 → confusion matrix, mIoU. eval.py's
+  chains: seeded noise injection (``noise_mode``, ``noise``, ``run_seed``:
+  one ``np.random.default_rng(run_seed)`` across the cameras of a run, the
+  noise on the raw layout, packed after), ``low_res_eval`` (argmax of the
+  H/4 logits, nearest-resized at pixel centres to the label size, no valid
+  loss) and ``serve_capacity_factor`` (``forward_routed_compact`` on the
+  strict ``capacity_ladders`` of ``serve_ratios``, per batch size).
 * ``fit`` writes what the JAX trainer writes: ``logs.csv`` (same header),
   ``confusion_matrices/cm_epoch_*.pickle``, the rolling
   ``ckpt_latest.msgpack``, periodic and best ``ckpt_epoch_*.msgpack`` and
@@ -25,13 +31,13 @@ plain PyTorch version under autograd (the port's kernels, like the JAX
 package's, are inference-only). Validation runs ``eval()`` after
 ``pack_weights``, so on the card the eval forward launches the kernels on
 the trained weights. The global-gate SkipGateESANet is the model this
-engine trains; the mesh, int8 calibration, packed stems, eval.py's noise
-injection and the capacity-factor / quarter-resolution validation chains
-are not ported.
+engine trains, on raw or 2×2 packed stem inputs (``packed_stem``); the
+mesh and int8 calibration are not ported.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 import os
@@ -45,7 +51,11 @@ import torch.nn as nn
 
 from dynmm_tpu_torch.core.resource import GateStats
 from dynmm_tpu_torch.core.schedules import ExpDecayTemp
-from dynmm_tpu_torch.nn.layers import first_argmax, pack_weights, resize_bilinear
+from dynmm_tpu_torch.data.seg_preprocessing import (inject_eval_noise,
+                                                    pack_stem_batch)
+from dynmm_tpu_torch.models.skip_gate import capacity_ladders
+from dynmm_tpu_torch.nn.layers import (first_argmax, pack_weights,
+                                       resize_bilinear, resize_nearest_centers)
 from dynmm_tpu_torch.train.metrics import ConfusionMatrix, confusion_update_counts
 from dynmm_tpu_torch.train.seg_losses import StreamingValidLoss, multiscale_ce
 from dynmm_tpu_torch.utils.checkpoint import save_ckpt, save_ckpt_every_epoch
@@ -86,6 +96,15 @@ class SegTrainConfig:
     grad_accum: int = 1  # optimizer step every N batches (optax.MultiSteps)
     modality: str = "rgbd"
     debug: bool = False  # one batch per train/valid pass
+    # 2×2 space-to-depth packed stem inputs (raw batches are packed in the
+    # loops; a loader with the pack_stem_batch hook packs them already)
+    packed_stem: bool = False
+    # eval.py --output_res quarter: argmax the H/4 logits, nearest-resize
+    # the class map to the label size; no valid loss
+    low_res_eval: bool = False
+    # > 0: eval through forward_routed_compact on the strict capacity
+    # schedule of the trainer's serve_ratios (eval.py --capacity_factor)
+    serve_capacity_factor: float = 0.0
 
 
 def onecycle_lr(cfg: SegTrainConfig) -> Callable[[int], float]:
@@ -298,6 +317,9 @@ class SegTrainer:
         self.model = model.to(self.device, memory_format=torch.channels_last)
         self.class_weights = torch.as_tensor(
             np.asarray(class_weights, np.float32), device=self.device)
+        # estimated branch ratios for serve_capacity_factor's schedule (set
+        # by the eval CLI before validation)
+        self.serve_ratios = None
 
     def init_state(self) -> TrainState:
         """The model (which holds its weights already, where the JAX
@@ -306,6 +328,14 @@ class SegTrainer:
 
     def _tensor(self, x) -> torch.Tensor:
         return torch.as_tensor(np.asarray(x)).to(self.device)
+
+    def _packed(self, image, depth):
+        """``(image, depth)`` 2×2-packed under ``packed_stem``
+        (``pack_stem_batch``: raw inputs of even size only)."""
+        if not self.cfg.packed_stem:
+            return image, depth
+        batch = pack_stem_batch({"image": image, "depth": depth})
+        return batch["image"], batch["depth"]
 
     def _sync(self) -> None:
         if self.device.type == "cuda":
@@ -344,10 +374,10 @@ class SegTrainer:
         for batch in loader:
             targets = [self._tensor(batch["label"])] + [
                 self._tensor(batch["label_down"][r]) for r in DOWN_RATES]
+            image, depth = self._packed(batch["image"], batch["depth"])
             total, per_scale, loss_flop = self.train_step(
-                state, self._tensor(batch["image"]),
-                self._tensor(batch["depth"]), targets, temp, hard, ini,
-                generator)
+                state, self._tensor(image), self._tensor(depth), targets,
+                temp, hard, ini, generator)
             total = float(total)
             if np.isnan(total):
                 raise ValueError("Loss is None")
@@ -370,11 +400,14 @@ class SegTrainer:
         return state, logs
 
     def validate(self, state, loader, logs: Optional[dict] = None,
+                 noise_mode: int = -1, noise: float = 0.0, run_seed: int = 0,
                  valid_loss: Optional[StreamingValidLoss] = None,
                  collect_weights: Optional[GateStats] = None,
                  ini_stage: bool = False, out_cms: Optional[dict] = None):
-        """Per-camera eval: returns ({camera: miou}, logs). ``out_cms`` (if
-        given) is filled with {camera: confusion matrix array}."""
+        """Per-camera eval: returns ({camera: miou}, logs). ``noise_mode``
+        ≥ 0 injects eval.py's noise (``inject_eval_noise``) from one
+        generator seeded with ``run_seed``. ``out_cms`` (if given) is filled
+        with {camera: confusion matrix array}."""
         logs = logs if logs is not None else {}
         n_classes = int(self.class_weights.shape[0])
         cameras = getattr(loader.dataset, "cameras", ("kv1",))
@@ -382,6 +415,7 @@ class SegTrainer:
         model = state.model if hasattr(state, "model") else state
         model.eval()
         pack_weights(model)  # the kernels' weight copies from the trained ones
+        rng = np.random.default_rng(run_seed)
 
         t_val0 = time.time()
         self._phase_forward = self._phase_post = self._phase_cm = 0.0
@@ -390,13 +424,13 @@ class SegTrainer:
             valid_loss.reset()
         for camera in cameras:
             cm = ConfusionMatrix(n_classes)
-            if hasattr(loader.dataset, "filter_camera"):
-                with loader.dataset.filter_camera(camera):
-                    self._validate_camera(model, loader, cm, valid_loss,
-                                          collect_weights, ini_stage)
-            else:
-                self._validate_camera(model, loader, cm, valid_loss,
-                                      collect_weights, ini_stage)
+            camera_ctx = (loader.dataset.filter_camera(camera)
+                          if hasattr(loader.dataset, "filter_camera")
+                          else contextlib.nullcontext())
+            with camera_ctx:
+                self._validate_camera(model, loader, cm, noise_mode, noise,
+                                      rng, valid_loss, collect_weights,
+                                      ini_stage)
             miou[camera] = cm.miou()
             logs[f"mIoU_{split}_{camera}"] = miou[camera]
             if out_cms is not None:
@@ -409,28 +443,61 @@ class SegTrainer:
             logs[f"loss_{split}"] = valid_loss.compute()
         return miou, logs
 
-    def _validate_camera(self, model, loader, cm, valid_loss, collect_weights,
-                         ini_stage):
+    def _eval_forward(self, model, image, depth, ini_stage, generator):
+        """(logits, weight) of the eval chain: the dense forward, or under
+        ``serve_capacity_factor`` the strict compact one with caps from this
+        batch's size (a ragged tail batch gets its own schedule)."""
+        cfg = self.cfg
+        hard = not cfg.soft_eval
+        if cfg.serve_capacity_factor > 0:
+            if not hard or cfg.baseline or ini_stage:
+                raise ValueError(
+                    "serve_capacity_factor needs hard non-baseline non-ini "
+                    "eval (it scores the serving chain)")
+            if self.serve_ratios is None:
+                raise ValueError(
+                    "set trainer.serve_ratios (estimated branch ratios) "
+                    "before capacity-factor validation")
+            caps = capacity_ladders(self.serve_ratios, image.shape[0],
+                                    capacity_factor=cfg.serve_capacity_factor)
+            return model.forward_routed_compact(
+                image, depth, caps=caps, strict_caps=True,
+                low_res=cfg.low_res_eval, return_weight=True)
+        return model(image, depth, hard=hard, baseline=cfg.baseline,
+                     return_weight=True, low_res=cfg.low_res_eval,
+                     ini_stage=ini_stage, generator=generator)
+
+    def _validate_camera(self, model, loader, cm, noise_mode, noise, rng,
+                         valid_loss, collect_weights, ini_stage):
         cfg = self.cfg
         n_classes = cm.n_classes
         # the reference's ini_stage flag persists into validation
         generator = torch.Generator().manual_seed(0) if ini_stage else None
         for batch in loader:
+            image, depth = batch["image"], batch["depth"]
+            if noise_mode >= 0:
+                image, depth = inject_eval_noise(image, depth, noise_mode,
+                                                 noise, rng)
+            # packed after the noise: the draws are those of the raw layout
+            image, depth = self._packed(image, depth)
             label_orig = batch.get("label_orig", batch.get("label"))
             out_hw = (label_orig.shape[1], label_orig.shape[2])
             t0 = time.time()
             with torch.inference_mode():
-                logits, weight = model(
-                    self._tensor(batch["image"]), self._tensor(batch["depth"]),
-                    hard=not cfg.soft_eval, baseline=cfg.baseline,
-                    return_weight=True, ini_stage=ini_stage,
-                    generator=generator)
-                pred_full = first_argmax(resize_bilinear(logits, out_hw))
+                logits, weight = self._eval_forward(
+                    model, self._tensor(image), self._tensor(depth),
+                    ini_stage, generator)
+                if cfg.low_res_eval:
+                    pred_full = resize_nearest_centers(first_argmax(logits),
+                                                       out_hw)
+                else:
+                    pred_full = first_argmax(resize_bilinear(logits, out_hw))
                 self._sync()
                 self._phase_forward += time.time() - t0
 
                 t0 = time.time()
-                if valid_loss is not None and "label" in batch:
+                if (valid_loss is not None and "label" in batch
+                        and not cfg.low_res_eval):  # H/4 logits: no loss
                     valid_loss.add_batch(logits, self._tensor(batch["label"]))
                 if collect_weights is not None:
                     collect_weights.append(weight)

@@ -5,8 +5,8 @@ pickles, the rolling and best checkpoints, ``finished.txt``); the best
 checkpoint loads into the JAX model and gives the port's eval logits
 (within 1e-4 of their largest magnitude, identical gate choices);
 ``--last_ckpt`` resumes at the next epoch; flags of features not ported
-raise; ``--finetune`` reads a reference-style ``.pth``; ``--he_init``
-re-draws the same kernels as the JAX package's."""
+raise (those ported since parse); ``--finetune`` reads a reference-style
+``.pth``; ``--he_init`` re-draws the same kernels as the JAX package's."""
 
 import csv
 import json
@@ -30,9 +30,10 @@ from dynmm_tpu.models.skip_gate import SkipGateESANet as JaxSkipGate
 from dynmm_tpu.utils import checkpoint as jax_ckpt
 from dynmm_tpu.utils.init import apply_he_init as jax_he_init
 from dynmm_tpu_torch.cli.seg_build import build_config, build_model
-from dynmm_tpu_torch.cli.train import load_torch_weights, parse_args
+from dynmm_tpu_torch.cli.train import parse_args
 from dynmm_tpu_torch.data.nyuv2 import make_recipe_eval_batch
 from dynmm_tpu_torch.utils.init import apply_he_init
+from dynmm_tpu_torch.utils.torch_import import load_any_checkpoint
 from dynmm_tpu_torch.utils.weights import (flax_from_state_dict,
                                            load_checkpoint_into)
 
@@ -135,13 +136,35 @@ def test_last_ckpt_resumes_at_the_next_epoch(run_dir, tmp_path):
 
 
 @pytest.mark.parametrize("flags", [
-    ["--dataset", "nyuv2"], ["--packed_stem"], ["--modality", "rgb"],
-    ["--mesh-data", "2"], ["--dtype", "bfloat16"], ["--quant", "int8"],
-    ["--pretrained_scenenet", "x.pth"]],
+    ["--modality", "rgb"], ["--mesh-data", "2"], ["--dtype", "bfloat16"],
+    ["--quant", "int8"]],
     ids=lambda f: f[0].lstrip("-"))
 def test_unported_flags_raise(flags):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         parse_args([*TINY, *flags])
+
+
+@pytest.mark.parametrize("flags", [
+    ["--dataset", "nyuv2"], ["--packed_stem"],
+    ["--pretrained_scenenet", "x.pth"]],
+    ids=lambda f: f[0].lstrip("-"))
+def test_flags_ported_with_the_eval_slice_parse(flags):
+    """Flags that raised until the eval/predict slice ported their
+    features: they parse, and the packed stem packs the train batches in
+    the loader's prefetch thread."""
+    from dynmm_tpu_torch.cli.seg_build import prepare_data
+    from dynmm_tpu_torch.data.seg_preprocessing import pack_stem_batch
+
+    args = parse_args([*TINY, *flags])
+    if flags[0] == "--packed_stem":
+        train_loader, valid_loader = prepare_data(args)
+        assert train_loader.post is pack_stem_batch
+        assert valid_loader.post is None  # validation packs after noise
+        batch = next(iter(train_loader))
+        assert batch["image"].shape == (2, H // 2, W // 2, 12)
+        assert batch["depth"].shape == (2, H // 2, W // 2, 4)
+    else:
+        assert getattr(args, flags[0].lstrip("-")) == flags[1]
 
 
 def test_local_gate_and_static_models_raise():
@@ -160,9 +183,59 @@ def test_finetune_reads_a_reference_pth(tmp_path):
     sd["module.encoder_rgb.bn1.num_batches_tracked"] = torch.tensor(3)
     torch.save({"state_dict": sd, "epoch": 7}, tmp_path / "ref.pth")
     dst = _tiny_model()
-    load_torch_weights(dst, str(tmp_path / "ref.pth"))
+    # what --finetune calls for a .pth
+    load_any_checkpoint(dst, str(tmp_path / "ref.pth"))
     ours, ref = dst.state_dict(), src.state_dict()
     assert all(torch.equal(ours[k], ref[k]) for k in ref)
+
+
+@pytest.mark.parametrize("flag, printed", [
+    ("--finetune", "unconsumed: bogus_extra"),
+    ("--pretrained_scenenet", "scenenet import: 1 unconsumed keys")],
+    ids=["finetune", "pretrained_scenenet"])
+def test_train_cli_merges_a_pth_non_strictly(tmp_path, monkeypatch, capsys,
+                                             flag, printed):
+    """``cli.train.main`` with a ``.pth`` holding an extra key and lacking
+    one: the extra key is reported as the JAX importer reports it, the
+    missing one keeps the model's value, the rest is the file's."""
+    import dynmm_tpu_torch.cli.train as train_cli
+    from dynmm_tpu_torch.train.seg import SegTrainer
+
+    src = _tiny_model()
+    for p in src.parameters():  # other values than a fresh model's
+        p.data.add_(1.0)
+    dropped = "encoder_depth.bn1.weight"
+    sd = dict(src.state_dict())
+    sd.pop(dropped)
+    sd["bogus_extra"] = torch.ones(3)
+    torch.save({"state_dict": sd, "epoch": 3}, tmp_path / "odd.pth")
+
+    built, trained = [], []
+
+    def build(args, n_classes):
+        model = _tiny_model()
+        built.append((model, {k: v.clone()
+                              for k, v in model.state_dict().items()}))
+        return model
+
+    monkeypatch.setattr(train_cli, "build_model", build)
+    monkeypatch.setattr(SegTrainer, "fit",
+                        lambda self, *a, **k: trained.append(self.model))
+    train_cli.main([*TINY, "--epochs", "1", "--results_dir",
+                    str(tmp_path / "out"), flag, str(tmp_path / "odd.pth")])
+    out = capsys.readouterr().out
+    assert printed in out and "Training completed" in out
+    ((model, start),) = built
+    assert trained == [model]
+    got, file = model.state_dict(), src.state_dict()
+    # the model's own value where the file lacks the key
+    assert torch.equal(got[dropped], start[dropped])
+    assert not torch.equal(got[dropped], file[dropped])
+    assert torch.equal(got["encoder_rgb.conv1.weight"],
+                       file["encoder_rgb.conv1.weight"])
+    head = "decoder.conv_out.weight"  # SceneNet's import drops the heads
+    assert torch.equal(got[head], file[head] if flag == "--finetune"
+                       else start[head])
 
 
 def test_he_init_redraws_the_jax_set_of_kernels(monkeypatch):
