@@ -23,7 +23,10 @@ Run from the root of a checkout on a machine with one NVIDIA GPU:
    ``learned_upsample`` and ``se_fuse_mixed`` run at B=1 too, and at every
    shape make 20 back-to-back calls whose outputs must be bit-identical
    (the SE squeeze's last-block tickets and fences race only on the card).
-   The time of each kernel per dense forward is printed for B=8 and B=1.
+   The SE cell also runs at the R50 net's four stage shapes (C = 256 to
+   2048), the single-map ``fused_se`` at the R34 one-modality net's five
+   shapes and at C = 2048. The time of each kernel per dense forward is
+   printed for B=8 and B=1, of the flagship and of the R50 net.
 3. Serve, dense: builds the 480×640 flagship with seeded random weights,
    serves 3 batches of 8 and 3 of 1 through ``dynmm_tpu_torch.serve.serve``
    (``mode="dense"``) with every launch count at 0 before, checks the
@@ -102,9 +105,34 @@ Run from the root of a checkout on a machine with one NVIDIA GPU:
    stem's logits lie within 1e-4 relative of the raw stem's. Prints each
    eval run's seconds a batch, predict's frames/s, the path mix and the
    host's share of a batch (PNG decode, preprocessing, packing) beside the
-   forward. Deletes its files.
-9. Prints the kernels' JSON line (launches summed over phases 3-6 and 8),
-   the card line, and last ``{"ok": true, "device": {...}}``.
+   forward. It also serves the R50 net (recipe gate merged) through
+   ``cli.predict --encoder resnet50``: launches of the samples' paths,
+   PNGs equal to ``serve()``'s maps. Deletes its files.
+9. R50: builds the 480×640 SkipGateESANet on Bottleneck ResNet50 encoders
+   with seeded weights, merges ``bench_assets/gate_recipe_resnet50.msgpack``
+   and serves ``make_recipe_eval_batch(8, 480, 640)`` in every mode the JAX
+   bench runs it: dense, ``baseline``, ``batchmax`` (live and forced to
+   paths 0, 2, 4), ``compact`` on ``capacity_ladders`` of the asset's
+   ratios, strict ``compact`` at capacity factor 1.25, dense and
+   ``batchmax`` at B=1 and ``switch`` for each sample at B=1. Counts at 0
+   before; each request's launches must be those of its paths, its logits
+   equal the dense forward's on the same paths (error 0; a strict rung
+   that drops participants is reported instead), and the plain path's
+   (gate choices identical, logits within 1e-3 relative, class maps on
+   ≥ 99.9 % of pixels). Prints each request's ms and the path mix beside
+   the asset's ratios.
+10. Trains the R50 net through ``cli.train.main``: 2 steps of B=8 at
+   480×640 on synthetic data, then its validation; finite losses, no
+   kernel launch in a step, the validation forward's launches; prints the
+   step times and the peak memory.
+11. For the static ESANet, the local-gate SkipESANet (block rule 1122) and
+   the one-modality net on rgb with SE, R34-NBt1D at 480×640:
+   ``cli.train`` for 1 epoch of 2 steps of B=8, then ``cli.eval`` on the
+   rolling checkpoint; each run's launches those of the net's kernel sites
+   (the local gates' ``channel_sums``, the single-map ``fused_se``), and
+   the trained weights' kernel eval path against the plain one.
+12. Prints the kernels' JSON line (launches summed over phases 3-6 and
+   8-11), the card line, and last ``{"ok": true, "device": {...}}``.
 
 TF32 is switched off for cuDNN convolutions and matmuls here, so the kernels
 and their plain versions compare in fp32. Any failure exits non-zero before
@@ -152,7 +180,14 @@ SOURCES = {
     "stem_fuse_pool": ("stem_fuse.cu", "dynmm_tpu/kernels/stem_fuse.py:198"),
     "learned_upsample": ("upsample.cu", "dynmm_tpu/kernels/upsample.py:130"),
     "se_fuse_mixed": ("se.cu", "dynmm_tpu/kernels/se.py:66"),
+    "fused_se": ("se.cu", "dynmm_tpu/kernels/se.py:66"),
 }
+# the net whose forward each kernel's totals in the kernels line count:
+# the flagship, or for the single-map SE cell the R34-NBt1D one-modality
+# net with SE (five calls a forward)
+TOTALS_NET = {"fused_se": "R34 one-modality"}
+# ResNet50 encoders: Bottleneck blocks (cuDNN), no stride-1 NBt1D block
+R50_ENCODER_BLOCKS = ()
 
 
 def bound(n_bytes: float, n_flops: float,
@@ -179,6 +214,8 @@ class Case(NamedTuple):
     batch: int = BATCH
     peak: float = PEAK_FP32_FLOPS
     repeat: bool = False
+    net: str = "R34"
+    r50_calls: int = 0  # calls per dense forward of the R50 net
 
 
 class Inputs:
@@ -203,6 +240,12 @@ def upsample_library_weight(taps: torch.Tensor) -> torch.Tensor:
                      device=taps.device)
     kt = torch.einsum("us,stc,vt->cuv", a, taps, a)  # (C, 4, 4)
     return kt.flip(1, 2).unsqueeze(1).contiguous()
+
+
+def se_weight_bytes(c: int, maps: int) -> int:
+    """Bytes of ``maps`` SE MLPs (C/16 hidden units), each read once."""
+    cr = c // 16
+    return maps * (2 * c * cr + cr + c) * 4
 
 
 def kernel_cases(inp: Inputs) -> list[Case]:
@@ -240,7 +283,8 @@ def kernel_cases(inp: Inputs) -> list[Case]:
                     lambda a=args, e=extra: nbt1d.nbt1d_pair(*a, **e),
                     lambda a=args, e=extra: nbt1d.nbt1d_pair_plain(*a, **e),
                     None, n_bytes, 12.0 * c * c * bb * h * w, batch=bb,
-                    peak=PEAK_TF32X3_FLOPS))
+                    peak=PEAK_TF32X3_FLOPS,
+                    r50_calls=0 if fused else dict(DECODER_BLOCKS).get(c, 0)))
             # the one-launch block at every level, served or not
             args = (xb, *params)
             cases.append(Case(
@@ -261,7 +305,7 @@ def kernel_cases(inp: Inputs) -> list[Case]:
                   lambda r=r, d=d: se.channel_sums_plain(r, d),
                   lambda r=r, d=d: (torch.sum(r, dim=(1, 2)),
                                     torch.sum(d, dim=(1, 2))),
-                  2 * n * 4 + 2 * b * c * 4, 2.0 * n, None))
+                  2 * n * 4 + 2 * b * c * 4, 2.0 * n, None, r50_calls=1))
     # K2: stem scale-add + dual max-pool
     r, d = inp.randn(b, h, w, c), inp.randn(b, h, w, c)
     s_r, s_d = inp.rand(b, c), inp.rand(b, c)
@@ -270,7 +314,8 @@ def kernel_cases(inp: Inputs) -> list[Case]:
     cases.append(Case("stem_fuse_pool", f"{b}x{h}x{w}x{c}", 1,
                   lambda a=args: stem_fuse.stem_fuse_pool(*a),
                   lambda a=args: stem_fuse.stem_fuse_pool_plain(*a),
-                  None, (2 * n + 2 * n // 4) * 4, 3.0 * n + 18.0 * n / 4, None))
+                  None, (2 * n + 2 * n // 4) * 4, 3.0 * n + 18.0 * n / 4, None,
+                  r50_calls=1))
     # K3: three decoder-module upsamples and the two logits upsamples
     for c, h, w in ((512, 15, 20), (256, 30, 40), (128, 60, 80),
                     (40, 120, 160), (40, 240, 320)):
@@ -290,7 +335,7 @@ def kernel_cases(inp: Inputs) -> list[Case]:
                         x.permute(0, 3, 1, 2), wt, bb, stride=2, padding=1,
                         groups=c).permute(0, 2, 3, 1)),
                 (n + 4 * n) * 4 + 10 * c * 4, 8.0 * 4 * n, None, batch=bb,
-                repeat=True))
+                repeat=True, r50_calls=1))
     # K4: the four gate-mixed SE fusion cells (squeeze + mix)
     for c, h, w in ((64, 120, 160), (128, 60, 80), (256, 30, 40),
                     (512, 15, 20)):
@@ -311,7 +356,50 @@ def kernel_cases(inp: Inputs) -> list[Case]:
                 lambda r=rb, d=db, wr=wb, ws=wts: se.se_fuse_mixed(r, d, wr, *ws),
                 lambda r=rb, d=db, wr=wb, ws=wts: se.se_fuse_mixed_plain(
                     r, d, wr, *ws),
-                None, 3 * n * 4, 5.0 * n, None, batch=bb, repeat=True))
+                None, 3 * n * 4 + se_weight_bytes(c, 2), 5.0 * n, None,
+                batch=bb, repeat=True))
+    # the SE cell at the R50 net's four stage shapes (above C = 1024 a
+    # thread owns two float4 groups), and the single-map cell: the R34
+    # one-modality net's five SE calls and C = 2048
+    # (the 1×1 map at C = 2048 reads almost nothing: its time is the
+    # finalize's serial tail, the cell's share of which it gives)
+    for c, h, w in ((256, 120, 160), (512, 60, 80), (1024, 30, 40),
+                    (2048, 15, 20), (2048, 1, 1)):
+        cr = c // 16
+        wts = []
+        for _ in range(2):
+            wts += [inp.randn(c, cr, scale=1 / math.sqrt(c)),
+                    inp.randn(cr, scale=0.1),
+                    inp.randn(cr, c, scale=1 / math.sqrt(cr)),
+                    inp.randn(c, scale=0.1)]
+        r, d, w_rgb = inp.randn(b, h, w, c), inp.randn(b, h, w, c), inp.rand(b)
+        for bb in (b, 1):
+            rb, db, wb = r[:bb].contiguous(), d[:bb].contiguous(), w_rgb[:bb]
+            n = bb * h * w * c
+            cases.append(Case(
+                "se_fuse_mixed", f"{bb}x{h}x{w}x{c}", 0,
+                lambda r=rb, d=db, wr=wb, ws=wts: se.se_fuse_mixed(r, d, wr, *ws),
+                lambda r=rb, d=db, wr=wb, ws=wts: se.se_fuse_mixed_plain(
+                    r, d, wr, *ws),
+                None, 3 * n * 4 + se_weight_bytes(c, 2), 5.0 * n, None,
+                batch=bb, repeat=True, r50_calls=int(h > 1)))
+    for c, h, w, net in ((64, 240, 320, "R34 one-modality"),
+                         (64, 120, 160, "R34 one-modality"),
+                         (128, 60, 80, "R34 one-modality"),
+                         (256, 30, 40, "R34 one-modality"),
+                         (512, 15, 20, "R34 one-modality"),
+                         (2048, 15, 20, "R50 one-modality")):
+        cr = c // 16
+        wts = [inp.randn(c, cr, scale=1 / math.sqrt(c)), inp.randn(cr, scale=0.1),
+               inp.randn(cr, c, scale=1 / math.sqrt(cr)), inp.randn(c, scale=0.1)]
+        x = inp.randn(b, h * w, c)
+        n = b * h * w * c
+        cases.append(Case(
+            "fused_se", f"{b}x{h}x{w}x{c}", 1,
+            lambda x=x, ws=wts: se.fused_se(x, *ws),
+            lambda x=x, ws=wts: se.se_reference(x, *ws),
+            None, 2 * n * 4 + se_weight_bytes(c, 1), 3.0 * n, None,
+            repeat=True, net=net))
     return cases
 
 
@@ -391,7 +479,8 @@ def check_kernels(report: dict) -> list[dict]:
         fp32_ms, _ = bound(case.n_bytes, case.n_flops)
         tflops = case.n_flops / ms / 1e9
         row = {"kernel": name, "shape": label, "batch": case.batch,
-               "calls_per_forward": calls, "max_abs_err": err,
+               "calls_per_forward": calls, "r50_calls_per_forward":
+               case.r50_calls, "max_abs_err": err,
                "max_rel_err": rel, "ms": ms, "plain_ms": plain_ms,
                "library_ms": lib_ms, "bound_ms": b_ms, "bound_by": b_by,
                "fp32_bound_ms": fp32_ms, "tflops": tflops,
@@ -402,18 +491,22 @@ def check_kernels(report: dict) -> list[dict]:
         bounds = (f"bound {b_ms:.4f} ms ({b_by})" if case.peak == PEAK_FP32_FLOPS
                   else f"bound 3xTF32 {b_ms:.4f} ms ({b_by}), fp32 "
                        f"{fp32_ms:.4f} ms")
-        print(f"  {name:16s} {label:22s} x{calls:<2d} err {err:.3g} "
+        print(f"  {name:16s} {label:22s} x{calls:<2d} R50 x{case.r50_calls} "
+              f"err {err:.3g} "
               f"(rel {rel:.3g})  kernel {ms:.4f} ms ({tflops:.1f} TFLOP/s)  "
               f"plain {plain_ms:.4f} ms  "
               f"library {'-' if lib_ms is None else f'{lib_ms:.4f} ms'}  "
               + bounds
               + ("" if case.alt is None else f"  two nbt1d_pair {alt_ms:.4f} ms"),
               flush=True)
-        tot = per_forward.setdefault((name, case.batch), [0.0] * 4)
-        tot[0] += ms * calls
-        tot[1] += b_ms * calls
-        tot[2] += fp32_ms * calls
-        tot[3] += plain_ms * calls
+        for net, n_calls in ((case.net, calls), ("R50", case.r50_calls)):
+            if not n_calls:
+                continue
+            tot = per_forward.setdefault((name, net, case.batch), [0.0] * 4)
+            tot[0] += ms * n_calls
+            tot[1] += b_ms * n_calls
+            tot[2] += fp32_ms * n_calls
+            tot[3] += plain_ms * n_calls
         agg = per_kernel.setdefault(name, {
             "name": name, "route": "cuda",
             "source": f"dynmm_tpu_torch/kernels/csrc/{SOURCES[name][0]}",
@@ -421,7 +514,7 @@ def check_kernels(report: dict) -> list[dict]:
             "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "bound_by": b_by,
             "library_ms": 0.0 if lib_ms is not None else None})
         agg["max_abs_err"] = max(agg["max_abs_err"], err)
-        if case.batch != BATCH:
+        if case.batch != BATCH or case.net != TOTALS_NET.get(name, "R34"):
             continue
         # per-forward totals at B=8: each shape's time times its calls
         agg["ms"] += ms * calls
@@ -430,11 +523,11 @@ def check_kernels(report: dict) -> list[dict]:
         if lib_ms is not None:
             agg["library_ms"] += lib_ms * calls
     report["per_forward"] = []
-    for (name, b), (ms, b_ms, fp32_ms, plain_ms) in per_forward.items():
+    for (name, net, b), (ms, b_ms, fp32_ms, plain_ms) in per_forward.items():
         report["per_forward"].append({
-            "kernel": name, "batch": b, "ms": ms, "bound_ms": b_ms,
-            "fp32_bound_ms": fp32_ms, "plain_ms": plain_ms})
-        print(f"  {name} per dense B={b} forward: {ms:.4f} ms; bound "
+            "kernel": name, "net": net, "batch": b, "ms": ms,
+            "bound_ms": b_ms, "fp32_bound_ms": fp32_ms, "plain_ms": plain_ms})
+        print(f"  {name} per dense {net} B={b} forward: {ms:.4f} ms; bound "
               f"{b_ms:.4f} ms" + (f", on fp32 CUDA cores {fp32_ms:.4f} ms"
                                   if fp32_ms != b_ms else "")
               + f"; plain {plain_ms:.4f} ms", flush=True)
@@ -537,13 +630,16 @@ class PathGate:
         return torch.nn.functional.one_hot(idx, 5).to(rgb.dtype)
 
 
-def path_launches(ran: list[bool], low_res: bool) -> dict:
+def path_launches(ran: list[bool], low_res: bool,
+                  encoder_blocks=ENCODER_BLOCKS) -> dict:
     """Launches of one flagship forward whose depth stages 1-4 ran as
     ``ran`` says. Always: the rgb encoder's and the decoder's stride-1
     blocks (one ``nbt1d_fused`` each up to ``NBT1D_FUSED_MAX_C`` channels,
     two ``nbt1d_pair`` above), the stem cell (``stem_fuse_pool`` and its
     ``channel_sums``), 5 upsamples (3 at ``low_res``). A depth stage that
-    ran adds its blocks and one fusion cell (``se_fuse_mixed``)."""
+    ran adds its blocks and one fusion cell (``se_fuse_mixed``).
+    ``encoder_blocks``: the encoders' stride-1 NBt1D blocks per stage
+    (none for ResNet50's Bottleneck encoders, whose stages still fuse)."""
     from dynmm_tpu_torch.kernels.nbt1d import NBT1D_FUSED_MAX_C
 
     counts = {"nbt1d_fused": 0, "nbt1d_pair": 0, "channel_sums": 1,
@@ -556,8 +652,10 @@ def path_launches(ran: list[bool], low_res: bool) -> dict:
         else:
             counts["nbt1d_pair"] += 2 * n
 
-    for (c, n), r in zip(ENCODER_BLOCKS, ran):
-        blocks(c, n * (1 + int(r)))
+    for i, r in enumerate(ran):
+        if encoder_blocks:
+            c, n = encoder_blocks[i]
+            blocks(c, n * (1 + int(r)))
         counts["se_fuse_mixed"] += int(r)
     for c, n in DECODER_BLOCKS:
         blocks(c, n)
@@ -788,6 +886,154 @@ def check_recipe_gate(report: dict) -> dict:
     return launches
 
 
+def check_r50(report: dict) -> dict:
+    """Phase 9: the R50 SkipGateESANet (Bottleneck ResNet50 encoders, SE
+    cells at 64/256/512/1024/2048 channels) with its recipe gate, served in
+    every mode the JAX bench serves it."""
+    from dynmm_tpu_torch.data.nyuv2 import make_recipe_eval_batch
+    from dynmm_tpu_torch.kernels import LAUNCHES, reset_launches
+    from dynmm_tpu_torch.models.skip_gate import capacity_ladders
+    from dynmm_tpu_torch.nn.layers import first_argmax
+    from dynmm_tpu_torch.serve import build_flagship, serve
+    from dynmm_tpu_torch.utils.device import card_line
+    from dynmm_tpu_torch.utils.weights import load_recipe_gate
+
+    card = card_line()
+    t0 = time.perf_counter()
+    model = build_flagship(HEIGHT, WIDTH, CLASSES, seed=0, encoder="resnet50")
+    ratios, _ = load_recipe_gate(model, "resnet50")
+    if ratios is None:
+        raise RuntimeError("bench_assets/gate_recipe_resnet50.msgpack is "
+                           "missing")
+    torch.cuda.synchronize()
+    print(f"  R50 net built with its recipe gate in "
+          f"{time.perf_counter() - t0:.2f} s "
+          f"({sum(p.numel() for p in model.parameters())} parameters)",
+          flush=True)
+    gate = PathGate(model)
+    big = tuple(torch.from_numpy(a).cuda()
+                for a in make_recipe_eval_batch(BATCH, HEIGHT, WIDTH))
+    one = tuple(x[:1].contiguous() for x in big)
+    ladders = capacity_ladders(ratios, BATCH)
+    strict = capacity_ladders(ratios, BATCH, capacity_factor=1.25)
+    # (label, mode, images, serve kwargs); mode "baseline" is the dense
+    # forward with path 4 forced (the static ESANet's compute)
+    requests = [
+        ("dense", "dense", big, {}),
+        ("baseline", "baseline", big, {}),
+        ("batchmax", "batchmax", big, {}),
+        *((f"batchmax k={k}", "batchmax", big, {"force_path": k})
+          for k in (0, 2, 4)),
+        ("compact ladders", "compact", big, {"caps": ladders}),
+        ("compact x1.25", "compact", big,
+         {"caps": strict, "strict_caps": True}),
+        ("dense B=1", "dense", one, {}),
+        ("batchmax B=1", "batchmax", one, {}),
+        *((f"switch #{i}", "switch",
+           tuple(x[i:i + 1].contiguous() for x in big), {})
+          for i in range(BATCH)),
+    ]
+
+    def run(req, use_kernels=True):
+        _, mode, (rgb, depth), kw = req
+        if mode == "baseline":
+            with torch.inference_mode():
+                logits, w = model(rgb, depth, hard=True, baseline=True,
+                                  return_weight=True, use_kernels=use_kernels)
+                return first_argmax(logits), w, logits
+        cm, w = serve(model, rgb, depth, mode=mode, use_kernels=use_kernels,
+                      **kw)
+        return cm, w, None
+
+    gate.paths = None
+    for req in requests:  # warm-up (cuDNN picks its algorithms), not counted
+        run(req)
+        run(req, use_kernels=False)
+    torch.cuda.synchronize()
+
+    # the R50 path's run: counts at 0 just before, read just after
+    reset_launches()
+    served = []
+    for req in requests:
+        label, mode, images, kw = req
+        before = dict(LAUNCHES)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        class_map, weight, _ = run(req)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        delta = {k: v - before.get(k, 0) for k, v in LAUNCHES.items()
+                 if v - before.get(k, 0)}
+        paths = weight.argmax(1).tolist()
+        ran = ([True] * 4 if mode in ("dense", "baseline")
+               else stages_run(mode, paths, kw))
+        expected = path_launches(ran, False, R50_ENCODER_BLOCKS)
+        if delta != expected:
+            raise RuntimeError(f"R50 {label}: launches {delta} != {expected} "
+                               f"(depth stages run {ran})")
+        served.append((class_map, weight, ms, ran))
+    launches = dict(LAUNCHES)
+
+    methods = {"dense": "forward", "baseline": "forward",
+               "batchmax": "forward_switch_batched",
+               "compact": "forward_routed_compact", "switch": "forward_switch"}
+    rows = []
+    for req, (class_map, weight, ms, ran) in zip(requests, served):
+        label, mode, (r, d), kw = req
+        paths = weight.argmax(1).tolist()
+        b = r.shape[0]
+        with torch.inference_mode():
+            dkw = {"hard": True, "baseline": mode == "baseline"}
+            fwd = getattr(model, methods[mode])
+            mkw = dkw if mode in ("dense", "baseline") else kw
+            logits = fwd(r, d, **mkw)
+            # dense on the request's own paths (its forced or live choices)
+            gate.paths = paths
+            logits_d = model(r, d, hard=True)
+            gate.paths = None
+            _, weight_p, _ = run(req, use_kernels=False)
+            logits_p = fwd(r, d, use_kernels=False, **mkw)
+        # a strict rung below a stage's participants drops their depth term
+        counts = [sum(p >= i for p in paths) for i in range(1, 5)]
+        overflow = kw.get("strict_caps", False) and any(
+            n > c[-1] for n, c in zip(counts, kw["caps"]))
+        routed_err = (logits - logits_d).abs().max().item()
+        plain_rel = _rel(logits, logits_p)
+        agree = (first_argmax(logits) == first_argmax(logits_p)
+                 ).float().mean().item()
+        same_gate = bool(torch.equal(weight, weight_p))
+        ok_shape = (class_map.shape == (b, HEIGHT, WIDTH)
+                    and logits.shape == (b, HEIGHT, WIDTH, CLASSES))
+        row = {"request": label, "mode": mode, "batch": b, "paths": paths,
+               "depth_stages_run": ran, "ms": ms,
+               "routed_vs_dense_max_abs_err": routed_err,
+               "strict_overflow": overflow,
+               "kernels_vs_plain_rel_err": plain_rel,
+               "class_map_agreement": agree, "same_gate": same_gate,
+               "launches": path_launches(ran, False, R50_ENCODER_BLOCKS)}
+        rows.append(row)
+        print(f"  {label:16s} B={b} paths {paths} stages run "
+              f"{[int(x) for x in ran]}: {ms:.2f} ms; routed vs dense max "
+              f"abs err {routed_err:.3g}{' (strict overflow)' if overflow else ''}"
+              f"; kernels vs plain rel err {plain_rel:.3g}, class maps agree "
+              f"on {agree * 100:.4f} %, gate choices identical: {same_gate}",
+              flush=True)
+        if ((routed_err != 0 and not overflow) or not same_gate
+                or plain_rel > 1e-3 or agree < 0.999 or not ok_shape
+                or not bool(torch.isfinite(logits).all())):
+            raise RuntimeError(f"R50 {label}: disagreement")
+    mix = torch.nn.functional.one_hot(served[0][1].argmax(1), 5
+                                      ).double().mean(0).tolist()
+    print(f"  path mix of the batch {mix}; the asset's branch ratios "
+          f"{ratios.tolist()}; ladders {ladders}, strict x1.25 {strict} "
+          f"[{card}]", flush=True)
+    report["r50"] = {"asset_branch_ratios": ratios.tolist(), "path_mix": mix,
+                     "ladders": ladders, "strict": strict, "requests": rows,
+                     "card": card}
+    del model
+    return launches
+
+
 def check_train(report: dict) -> dict:
     import shutil
     import statistics
@@ -952,6 +1198,240 @@ def check_train(report: dict) -> dict:
                        "checkpoint_reload_max_abs_err": ckpt_err,
                        "resume_max_rel_err": resume_rel}
     return launches
+
+
+def _cli_run(fn, argv: list):
+    """(result, printed lines) of a CLI's ``main(argv)``, stdout captured."""
+    import contextlib
+    import io
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        result = fn(argv)
+    return result, out.getvalue().splitlines()
+
+
+class StepProbe:
+    """Patches ``SegTrainer.train_step``: each step's ms (host clock ending
+    in a synchronize), loss and the port's kernel launches during it."""
+
+    def __init__(self):
+        from dynmm_tpu_torch.train.seg import SegTrainer
+
+        self.cls, self.orig, self.steps = SegTrainer, SegTrainer.train_step, []
+        probe = self
+
+        def step(trainer, *args, **kw):
+            from dynmm_tpu_torch.kernels import LAUNCHES
+
+            before = sum(LAUNCHES.values())
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = probe.orig(trainer, *args, **kw)
+            torch.cuda.synchronize()
+            probe.steps.append({
+                "ms": (time.perf_counter() - t0) * 1e3,
+                "loss": float(out[0]),
+                "launches": sum(LAUNCHES.values()) - before})
+            return out
+
+        SegTrainer.train_step = step
+
+    def close(self):
+        self.cls.train_step = self.orig
+
+    def check(self, label: str, n: int) -> None:
+        if len(self.steps) != n:
+            raise RuntimeError(f"{label}: {len(self.steps)} train steps, "
+                               f"expected {n}")
+        if not all(math.isfinite(st["loss"]) for st in self.steps):
+            raise RuntimeError(f"{label}: non-finite loss {self.steps}")
+        if any(st["launches"] for st in self.steps):
+            raise RuntimeError(f"{label}: a port kernel launched during a "
+                               f"train step: {self.steps}")
+
+
+def _synthetic_argv(root: Path, height: int, width: int) -> list:
+    return ["--dataset", "synthetic", "--height", str(height), "--width",
+            str(width), "--batch_size", str(BATCH), "--synthetic_n",
+            str(2 * BATCH), "--synthetic_mixed_frac", "0.5", "--epochs", "1",
+            "--results_dir", str(root)]
+
+
+def check_r50_train(report: dict) -> dict:
+    """Phase 10: ``cli.train`` on the R50 SkipGateESANet, 2 steps of B=8 at
+    480×640 and one validation batch."""
+    import shutil
+
+    from dynmm_tpu_torch.cli import train as train_cli
+    from dynmm_tpu_torch.kernels import LAUNCHES, reset_launches
+
+    root = ROOT / "build" / "chip_smoke_r50_train"
+    shutil.rmtree(root, ignore_errors=True)
+    argv = [*_synthetic_argv(root, HEIGHT, WIDTH), "--encoder", "resnet50",
+            "--dynamic", "--global-gate", "--loss-ratio", "1e-4"]
+    probe = StepProbe()
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        t0 = time.perf_counter()
+        _, lines = _cli_run(train_cli.main, argv)
+        wall = time.perf_counter() - t0
+        launches = dict(LAUNCHES)
+        peak = torch.cuda.max_memory_allocated()
+        probe.check("R50 cli.train", 2)
+    finally:
+        probe.close()
+        shutil.rmtree(root, ignore_errors=True)
+    # one validation batch of B=8, the dense hard forward
+    expected = path_launches([True] * 4, False, R50_ENCODER_BLOCKS)
+    got = {k: v for k, v in launches.items() if v}
+    if got != expected:
+        raise RuntimeError(f"R50 cli.train: launches {got} != {expected}")
+    steps = probe.steps
+    print(f"  R50 cli.train: steps {[round(st['ms'], 2) for st in steps]} ms,"
+          f" losses {[round(st['loss'], 4) for st in steps]}; peak memory "
+          f"{peak / 2 ** 30:.2f} GiB; {wall:.2f} s in all; no kernel launch "
+          f"in a step, {got} in the validation forward", flush=True)
+    for ln in lines:
+        if ln.startswith(("Epoch", "Test mIoU")):
+            print(f"    {ln}", flush=True)
+    report["r50_train"] = {"steps": steps, "peak_memory_bytes": peak,
+                           "wall_s": wall, "validation_launches": got}
+    return launches
+
+
+def variant_launches(kind: str) -> dict:
+    """Launches of one eval forward of the R34-NBt1D variants: ``static``
+    (the dense flagship's), ``local`` (the stem through ``stem_fuse_pool``
+    with unit scales, one ``channel_sums`` a local gate, plain-add fusion),
+    ``rgb-se`` (one encoder, five single-map SE cells)."""
+    from dynmm_tpu_torch.kernels.nbt1d import NBT1D_FUSED_MAX_C
+
+    if kind == "static":
+        return dict(EXPECTED)
+    counts = {"nbt1d_fused": 0, "nbt1d_pair": 0, "learned_upsample": 5}
+    encoders = 2 if kind == "local" else 1
+    for c, n in [(c, n * encoders) for c, n in ENCODER_BLOCKS] + list(
+            DECODER_BLOCKS):
+        if c <= NBT1D_FUSED_MAX_C:
+            counts["nbt1d_fused"] += n
+        else:
+            counts["nbt1d_pair"] += 2 * n
+    if kind == "local":
+        counts.update(channel_sums=4, stem_fuse_pool=1)
+    else:
+        counts["fused_se"] = 5
+    return counts
+
+
+VARIANTS = {  # name: (kind, flags)
+    "static ESANet": ("static", []),
+    "SkipESANet 1122": ("local", ["--dynamic", "--block-rule", "1122"]),
+    "one-modality rgb SE": ("rgb-se", ["--modality", "rgb"]),
+}
+
+
+def check_variants(report: dict) -> dict:
+    """Phase 11: ``cli.train`` (1 epoch of 2 steps of B=8) then ``cli.eval``
+    on the rolling checkpoint for the static ESANet, the local-gate
+    SkipESANet and the one-modality net with SE, R34-NBt1D at 480×640; the
+    kernel eval path against the plain one on the trained weights."""
+    import shutil
+
+    from dynmm_tpu_torch.cli import eval as eval_cli
+    from dynmm_tpu_torch.cli import train as train_cli
+    from dynmm_tpu_torch.cli.seg_build import build_model
+    from dynmm_tpu_torch.data.nyuv2 import make_recipe_eval_batch
+    from dynmm_tpu_torch.kernels import LAUNCHES, reset_launches
+    from dynmm_tpu_torch.nn.layers import first_argmax, pack_weights
+    from dynmm_tpu_torch.utils.device import card_line
+    from dynmm_tpu_torch.utils.weights import load_checkpoint_into
+
+    card = card_line()
+    total: dict = {}
+    rows = []
+    rgb, depth = (torch.from_numpy(a).cuda()
+                  for a in make_recipe_eval_batch(BATCH, HEIGHT, WIDTH))
+    for name, (kind, flags) in VARIANTS.items():
+        root = ROOT / "build" / "chip_smoke_variants"
+        shutil.rmtree(root, ignore_errors=True)
+        probe = StepProbe()
+        try:
+            reset_launches()
+            t0 = time.perf_counter()
+            _, train_lines = _cli_run(train_cli.main, [
+                *_synthetic_argv(root, HEIGHT, WIDTH), *flags])
+            train_s = time.perf_counter() - t0
+            train_launches = dict(LAUNCHES)
+            probe.check(f"{name} cli.train", 2)
+            (ckpt,) = root.glob("synthetic/checkpoints_*/ckpt_latest.msgpack")
+            eval_argv = [*_synthetic_argv(root, HEIGHT, WIDTH)[:-4], *flags,
+                         *(["--hard"] if "--dynamic" in flags else []),
+                         "--ckpt_path", str(ckpt)]
+            reset_launches()
+            t0 = time.perf_counter()
+            result, eval_lines = _cli_run(eval_cli.main, eval_argv)
+            eval_s = time.perf_counter() - t0
+            eval_launches = dict(LAUNCHES)
+            # the trained weights: kernel eval path against the plain one
+            args = eval_cli.build_parser().parse_args(eval_argv)
+            model = build_model(args, CLASSES)
+            load_checkpoint_into(model, str(ckpt))
+            model = model.cuda().to(memory_format=torch.channels_last).eval()
+            pack_weights(model)
+            with torch.inference_mode():
+                outs = []
+                for use_kernels in (True, False):
+                    if kind == "local":
+                        logits, ws = model(
+                            rgb, depth, torch.Generator().manual_seed(0),
+                            test=True, return_weights=True,
+                            use_kernels=use_kernels)
+                        outs.append((logits, torch.cat(ws, 1)))
+                    else:
+                        inputs = (rgb,) if kind == "rgb-se" else (rgb, depth)
+                        logits = model(*inputs, use_kernels=use_kernels)
+                        outs.append((logits, None))
+            del model
+        finally:
+            probe.close()
+            shutil.rmtree(root, ignore_errors=True)
+        (lk, wk), (lp, wp) = outs
+        rel = _rel(lk, lp)
+        agree = (first_argmax(lk) == first_argmax(lp)).float().mean().item()
+        same_gate = wk is None or bool(torch.equal(wk, wp))
+        expected = variant_launches(kind)
+        got_train = {k: v for k, v in train_launches.items() if v}
+        got_eval = {k: v for k, v in eval_launches.items() if v}
+        _add(total, got_train)
+        _add(total, got_eval)
+        miou_valid = next((ln.split()[2] for ln in train_lines
+                           if ln.startswith("Test mIoU")), None)
+        steps = probe.steps
+        row = {"model": name, "steps": steps, "train_s": train_s,
+               "eval_s": eval_s, "eval_miou": result.tolist(),
+               "train_valid_miou": miou_valid, "train_launches": got_train,
+               "eval_launches": got_eval,
+               "kernels_vs_plain_rel_err": rel, "class_map_agreement": agree,
+               "same_gate": same_gate}
+        rows.append(row)
+        print(f"  {name:20s}: steps {[round(st['ms'], 2) for st in steps]} "
+              f"ms, losses {[round(st['loss'], 4) for st in steps]}; "
+              f"validation mIoU {miou_valid}, cli.eval mIoU "
+              f"{result.tolist()} ({eval_s:.2f} s); kernels vs plain rel "
+              f"err {rel:.3g}, class maps agree on {agree * 100:.4f} %, gate "
+              f"choices identical: {same_gate} [{card}]", flush=True)
+        if got_train != expected or got_eval != expected:
+            raise RuntimeError(f"{name}: launches train {got_train}, eval "
+                               f"{got_eval}, expected {expected} each")
+        if (rel > 1e-3 or agree < 0.999 or not same_gate
+                or not bool(torch.isfinite(lk).all())
+                or not math.isfinite(float(result[0]))):
+            raise RuntimeError(f"{name}: kernel eval path disagrees with the "
+                               "plain one")
+    report["variants"] = rows
+    return total
 
 
 MODALITY_TOL = 1e-5  # routed vs dense requests, max abs err / max |dense|
@@ -1571,6 +2051,52 @@ def check_clis(report: dict) -> dict:
             if err != 0:
                 raise RuntimeError(f"predict {label}: written maps differ "
                                    "from serve()'s")
+
+        # the R50 net (recipe gate merged) through predict --encoder resnet50
+        del model
+        r50 = build_flagship(HEIGHT, WIDTH, CLASSES, seed=0,
+                             encoder="resnet50")
+        load_recipe_gate(r50, "resnet50")
+        v = flax_from_state_dict(r50.state_dict())
+        r50_ckpt = str(root / "r50.msgpack")
+        save_checkpoint(r50_ckpt, {"params": v["params"], "model_state": {
+            "batch_stats": v["batch_stats"]}}, epoch=0)
+        with torch.inference_mode():
+            r50_paths = [r50.gate_only(b["rgb"], b["depth"]).argmax(1)
+                         .tolist() for b in batches]
+        expected = {}
+        for p in r50_paths:
+            _add(expected, path_launches(stages_run("batchmax", p, {}), False,
+                                         R50_ENCODER_BLOCKS))
+        out_dir = root / "pred_r50"
+        reset_launches()
+        res, _ = _cli_run(predict_cli.main, [
+            *pbase[:-1], r50_ckpt, "--encoder", "resnet50", "--out_dir",
+            str(out_dir)])
+        got = dict(LAUNCHES)
+        _add(launches, got)
+        if {k: v for k, v in got.items() if v} != expected:
+            raise RuntimeError(f"predict R50: launches {got} != {expected}")
+        maps = []
+        for b in batches:
+            cm, _ = serve(r50, b["rgb"], b["depth"], mode="batchmax")
+            maps.extend(cm.cpu().numpy())
+        err = max(int(np.abs(png.read(str(out_dir / f"pred_{i:05d}.png"))
+                             .astype(np.int32) - colors[maps[i] + 1]).max())
+                  for i in range(res["n"]))
+        row = {"run": "R50 batchmax", "n": res["n"], "fps": res["fps"],
+               "path_distribution": np.asarray(res["ratios"]).tolist(),
+               "png_max_abs_err": err, "launches": got}
+        section["predict"].append(row)
+        print(f"  predict --encoder resnet50: {res['n']} maps, "
+              f"{res['fps']:.2f} frames/s, path distribution "
+              f"{np.round(np.float64(res['ratios']), 3).tolist()} (paths "
+              f"{sum(r50_paths, [])}), PNGs vs serve() max abs err {err} "
+              f"[{card}]", flush=True)
+        if err != 0 or res["n"] != CLI_SAMPLES:
+            raise RuntimeError("predict R50: written maps differ from "
+                               "serve()'s")
+        del r50
     finally:
         SegTrainer.validate = validate
         shutil.rmtree(root, ignore_errors=True)
@@ -1612,25 +2138,36 @@ def main() -> int:
     model, launches = check_serve(report)
     print(f"[4] serve the {HEIGHT}x{WIDTH} flagship through the routed "
           "strategies", flush=True)
-    routed = check_routed(model, report)
+    runs = [launches, check_routed(model, report)]
     del model
-    print(f"[5] recipe gate: the {HEIGHT}x{WIDTH} flagship with "
-          "bench_assets/gate_recipe.msgpack", flush=True)
-    recipe = check_recipe_gate(report)
-    print(f"[6] train the {HEIGHT}x{WIDTH} flagship: SegTrainer.fit, 2 epochs "
-          f"of 2 steps of B={BATCH}", flush=True)
-    trained = check_train(report)
-    print(f"[7] modality-level DynMM: MM-IMDB at B={IMDB_B}, CMU-MOSEI at "
-          f"B={MOSEI_B} T={MOSEI_T}; the imdb_dyn and affect_dyn CLIs",
-          flush=True)
-    check_modality(report)
-    print(f"[8] the eval and predict CLIs on a prepared NYUv2 layout of "
-          f"{CLI_SAMPLES} samples at {HEIGHT}x{WIDTH}, B={BATCH}", flush=True)
-    clis = check_clis(report)
-    print("[9] kernels", flush=True)
+    phases = [
+        (5, f"recipe gate: the {HEIGHT}x{WIDTH} flagship with "
+            "bench_assets/gate_recipe.msgpack", check_recipe_gate),
+        (6, f"train the {HEIGHT}x{WIDTH} flagship: SegTrainer.fit, 2 epochs "
+            f"of 2 steps of B={BATCH}", check_train),
+        (7, f"modality-level DynMM: MM-IMDB at B={IMDB_B}, CMU-MOSEI at "
+            f"B={MOSEI_B} T={MOSEI_T}; the imdb_dyn and affect_dyn CLIs",
+         check_modality),
+        (8, f"the eval and predict CLIs on a prepared NYUv2 layout of "
+            f"{CLI_SAMPLES} samples at {HEIGHT}x{WIDTH}, B={BATCH}",
+         check_clis),
+        (9, f"the R50 SkipGateESANet at {HEIGHT}x{WIDTH} with "
+            "bench_assets/gate_recipe_resnet50.msgpack, every serving mode",
+         check_r50),
+        (10, f"train the R50 net through cli.train: 2 steps of B={BATCH}",
+         check_r50_train),
+        (11, f"cli.train then cli.eval: the static ESANet, the local-gate "
+             f"SkipESANet and the one-modality net with SE, R34-NBt1D at "
+             f"{HEIGHT}x{WIDTH}", check_variants),
+    ]
+    for n, title, check in phases:
+        print(f"[{n}] {title}", flush=True)
+        t0 = time.perf_counter()
+        runs.append(check(report) or {})
+        print(f"  phase {n}: {time.perf_counter() - t0:.1f} s", flush=True)
+    print("[12] kernels", flush=True)
     for k in kernels:
-        k["launches"] = sum(run.get(k["name"], 0) for run in
-                            (launches, routed, recipe, trained, clis))
+        k["launches"] = sum(run.get(k["name"], 0) for run in runs)
         if k["launches"] == 0:
             raise RuntimeError(f"{k['name']} never launched on the main path")
     report["kernels"] = kernels

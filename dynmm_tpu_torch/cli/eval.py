@@ -19,9 +19,11 @@ strict capacity-factor compact forward on branch ratios estimated with
 ``gate_only`` over ``--calib_batches`` batches. Prints the mIoU of each run
 (per camera on multi-camera datasets), the branch ratios with the depth
 encoder's and the whole net's GFLOPs, then the mean and std over runs.
-Flags of features the port does not have yet raise
+Every model of the JAX CLI is scored (the local-gate net samples its hard
+gates under ``test``); ``--capacity_factor`` takes the global-gate net
+only. Flags of features the port does not have yet raise
 (``cli/seg_build.py::check_supported``: ``--quant int8`` ROADMAP A6,
-``--dtype bfloat16`` A3).
+``--dtype bfloat16`` A3, ``--activation swish|hswish`` A7).
 """
 
 from __future__ import annotations

@@ -2,9 +2,13 @@
 torch subset of ``dynmm_tpu/cli/seg_build.py``; the reference's
 ``src/build_model.py`` and ``src/prepare_data.py``).
 
-The port builds the flagship's family, the global-gate SkipGateESANet
-(``--dynamic --global-gate``: NonBottleneck1D resnet18/resnet34 encoders,
-SE-add fusion, PPM, any ``--upsampling``), with the 2×2 packed stem under
+The port builds every model of the JAX factory: the global-gate
+SkipGateESANet (``--dynamic --global-gate``), the local-gate SkipESANet
+(``--dynamic``, ``--block_rule``), the static ESANet (rgbd) and
+ESANetOneModality (``--modality rgb|depth``, SE under
+``--fuse_depth_in_rgb_encoder SE-add``), on BasicBlock or NonBottleneck1D
+resnet18/resnet34 or Bottleneck resnet50 encoders, SE-add or add fusion,
+PPM, APPM or no context module, with the 2×2 packed stem under
 ``--packed_stem``, and reads every ``--dataset``: the prepared on-disk
 layouts (``data/nyuv2.py``, ``data/other_datasets.py``) and ``synthetic``.
 ``check_supported`` raises ``NotImplementedError`` on every flag of a
@@ -21,19 +25,19 @@ from dynmm_tpu_torch.data.nyuv2 import NYUv2Dataset, SyntheticSegDataset
 from dynmm_tpu_torch.data.other_datasets import DATASETS
 from dynmm_tpu_torch.data.seg_preprocessing import (SegLoader, SegPreprocessor,
                                                     pack_stem_batch)
-from dynmm_tpu_torch.models.esanet import ESANetConfig
+from dynmm_tpu_torch.models.esanet import ESANet, ESANetConfig
+from dynmm_tpu_torch.models.one_modality import ESANetOneModality
 from dynmm_tpu_torch.models.skip_gate import SkipGateESANet
+from dynmm_tpu_torch.models.skip_local import SkipESANet
 
 
 def check_supported(args) -> None:
     """Raise on flags of features not ported yet."""
     missing = []
-    if not (args.dynamic and args.global_gate):
-        missing.append("a model other than --dynamic --global-gate (the "
-                       "static ESANet and the local-gate SkipESANet, "
-                       "ROADMAP A7)")
-    if args.modality != "rgbd":
-        missing.append(f"--modality {args.modality} (ROADMAP A7)")
+    activation = getattr(args, "activation", "relu")
+    if activation.lower() != "relu":
+        missing.append(f"--activation {activation} (the kernels fuse relu; "
+                       "swish/hswish variants, ROADMAP A7)")
     if args.mesh_data > 1 or args.mesh_model > 1:
         missing.append("--mesh-data/--mesh-model above 1 (mesh training, "
                        "ROADMAP A9)")
@@ -66,13 +70,24 @@ def build_config(args, n_classes: int) -> ESANetConfig:
     )
 
 
-def build_model(args, n_classes: int) -> SkipGateESANet:
-    """The global-gate SkipGateESANet of the flags, with torch's default
-    initialisation (as the reference's torch model)."""
+def build_model(args, n_classes: int):
+    """The model of the flags, with torch's default initialisation (as the
+    reference's torch model): ``--dynamic --global-gate`` →
+    SkipGateESANet; ``--dynamic`` → SkipESANet(block_rule); else ESANet
+    (rgbd) or ESANetOneModality (rgb | depth)."""
     check_supported(args)
-    block_rule = tuple(int(s) for s in args.block_rule)
-    assert len(block_rule) == 4
-    return SkipGateESANet(build_config(args, n_classes))
+    cfg = build_config(args, n_classes)
+    if args.dynamic:
+        block_rule = tuple(int(s) for s in args.block_rule)
+        assert len(block_rule) == 4
+        if args.global_gate:
+            return SkipGateESANet(cfg)
+        return SkipESANet(cfg, block_rule=block_rule)
+    if args.modality == "rgbd":
+        return ESANet(cfg)
+    return ESANetOneModality(
+        cfg, input_channels=3 if args.modality == "rgb" else 1,
+        weighting_in_encoder=args.fuse_depth_in_rgb_encoder)
 
 
 def make_dataset(args, split: str):

@@ -16,8 +16,12 @@ from a checkpoint of either package (a JAX one restarts the optimizer);
 SceneNet ``.pth`` without its heads; ``--he_init`` re-draws the conv
 kernels. ``--dataset`` reads the prepared on-disk layouts
 (``cli/seg_build.py::make_dataset``); ``--packed_stem`` trains on batches
-packed 2×2 in the loader's prefetch thread. Flags of features the port does
-not have yet raise (``cli/seg_build.py::check_supported``).
+packed 2×2 in the loader's prefetch thread. Every model of the JAX CLI
+trains: ``--dynamic --global-gate`` (SkipGateESANet), ``--dynamic``
+(local-gate SkipESANet, ``--block-rule``), the static ESANet and
+``--modality rgb|depth`` (ESANetOneModality); ``--freeze`` applies to the
+dynamic models only. Flags of features the port does not have yet raise
+(``cli/seg_build.py::check_supported``).
 """
 
 from __future__ import annotations

@@ -46,10 +46,10 @@ def gumbel_softmax(logits: torch.Tensor, generator: torch.Generator,
                    tau: float = 1.0, hard: bool = False, dim: int = -1
                    ) -> torch.Tensor:
     """Gumbel-softmax sample with optional straight-through hard one-hot,
-    drawing its noise from ``generator``."""
+    drawing its noise from ``generator`` on the generator's device."""
     g = sample_gumbel(logits.shape, generator,
                       dtype=torch.promote_types(logits.dtype, torch.float32),
-                      device=logits.device)
+                      device=generator.device).to(logits.device)
     y_soft = F.softmax((logits + g.to(logits.dtype)) / tau, dim=dim)
     if not hard:
         return y_soft

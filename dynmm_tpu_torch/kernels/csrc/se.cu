@@ -29,10 +29,15 @@
 //      s_r' = w + (1-w)*s_r and s_d' = (1-w)*s_d, then resets its counter to
 //      0 for the next launch.
 //   2. se_mix_kernel, the same grid: out = x_r*s_r' + x_d*s_d', float4, each
-//      thread's scales loaded once, its channel group fixed by the layout.
+//      thread's scales loaded once, its channel groups fixed by the layout.
 //      Blocks run in the reverse of the squeeze's order, so the first to run
 //      read the pixels the squeeze read last, still in L2.
 // S comes from the card's SM count (the wrapper's rule), the same S for both.
+// Both kernels take G, the float4 channel groups a thread owns, as a template
+// parameter that the host picks from C: up to C = 1024, G = 1, one group a
+// thread beside other pixel lanes; above, up to C = 2048 (ResNet50's
+// stage-4 cell), G = 2, two groups at one pixel lane. At C = 2048 the finalize's serial tail reads
+// both MLPs' weights, 4 MiB a sample, in the sample's last block.
 
 #include <cuda_runtime.h>
 #include <cstdint>
@@ -99,6 +104,8 @@ __device__ __forceinline__ float sigmoidf_(float v) {
 }
 
 constexpr int SE_THREADS = 256;
+// float4 channel groups a thread owns at most: C <= 4*SE_THREADS*SE_MAX_G
+constexpr int SE_MAX_G = 2;
 
 __device__ __forceinline__ void add4(float4& a, const float4 b) {
   a.x += b.x;
@@ -115,22 +122,46 @@ __device__ __forceinline__ void split_range(int HW, int S, int s, int& q0,
   q1 = q0 + chunk < HW ? q0 + chunk : HW;
 }
 
+// The squeeze's and the mix's thread mapping over C4 = C/4 float4 channel
+// groups, for G groups a thread (the host picks G from C): thread t =
+// p*CT + gc owns the groups gc, gc+CT, ... below C4 at pixel lane p of
+// P = SE_THREADS/CT, CT = ceil(C4/G). G = 1 (C <= 4*SE_THREADS): CT = C4,
+// one group a thread beside other pixel lanes. G = 2 (C <= 8*SE_THREADS):
+// two groups at one pixel lane.
+template <int G>
+__device__ __forceinline__ int se_ct(int C4) {
+  return G == 1 ? C4 : (C4 + G - 1) / G;
+}
+
+// Thread's group k is a channel group: always for G = 1, where CT = C4.
+template <int G>
+__device__ __forceinline__ bool se_own(int g, int C4) {
+  return G == 1 || g < C4;
+}
+
 // SE MLP weights of one map, in the JAX layout: w1 (C, Cr), w2 (Cr, C).
 struct SeWeights {
   const float *w1, *b1, *w2, *b2;
 };
 
-// Shared memory (floats): the pixel lanes' sums [2][4*SE_THREADS], the
-// ticket, then the finalize's means [2][C], layer-1 sums [2][SE_THREADS] and
-// hidden units [2][Cr].
-constexpr int se_smem_floats(int C, int Cr) {
-  return 8 * SE_THREADS + 4 + 2 * C + 2 * SE_THREADS + 2 * Cr;
+// Floats of one map's lane sums: lane p's sum of channel c sits at p*C + c,
+// and P*C <= max(4*SE_THREADS, C).
+constexpr int se_red_floats(int C) {
+  return C > 4 * SE_THREADS ? C : 4 * SE_THREADS;
 }
 
-// grid (S, B), SE_THREADS threads. Thread t = p*C4 + g sums float4 g (the
-// channels 4g..4g+3) over the pixels p, p+P, ... of its block's chunk. x_d ==
+// Shared memory (floats): the pixel lanes' sums [2][se_red_floats(C)], the
+// ticket, then the finalize's means [2][C], layer-1 sums [2][SE_THREADS] and
+// hidden units [2][Cr]. At C = 2048, Cr = 128: 35,856 bytes.
+constexpr int se_smem_floats(int C, int Cr) {
+  return 2 * se_red_floats(C) + 4 + 2 * C + 2 * SE_THREADS + 2 * Cr;
+}
+
+// grid (S, B), SE_THREADS threads, the se_ct<G> mapping: each thread sums
+// its float4 groups over the pixels p, p+P, ... of its block's chunk. x_d ==
 // nullptr: one map (fused_se). partial holds B*S*2*C floats, scales B*2*C,
 // counter B zeros (left at zero).
+template <int G>
 __global__ void __launch_bounds__(SE_THREADS)
     se_squeeze_kernel(const float4* __restrict__ x_r,
                       const float4* __restrict__ x_d,
@@ -141,11 +172,18 @@ __global__ void __launch_bounds__(SE_THREADS)
   extern __shared__ float sm[];
   const int S = gridDim.x, s = blockIdx.x, n = blockIdx.y;
   const int t = threadIdx.x, C4 = C / 4;
-  const int P = SE_THREADS / C4;  // pixel lanes
-  const int p = t / C4, g = t - p * C4;
+  const int CT = se_ct<G>(C4);
+  const int P = SE_THREADS / CT;  // pixel lanes
+  const int p = t / CT, gc = t - p * CT;
   const bool two = x_d != nullptr;
+  const int RS = C > 4 * SE_THREADS ? C : 4 * SE_THREADS;  // se_red_floats
 
-  float4 ar = make_float4(0.f, 0.f, 0.f, 0.f), ad = ar;
+  float4 ar[G], ad[G];
+#pragma unroll
+  for (int k = 0; k < G; ++k) {
+    ar[k] = make_float4(0.f, 0.f, 0.f, 0.f);
+    ad[k] = ar[k];
+  }
   if (p < P) {
     int q0, q1;
     split_range(HW, S, s, q0, q1);
@@ -154,29 +192,41 @@ __global__ void __launch_bounds__(SE_THREADS)
     const float4* xd = two ? x_d + base : nullptr;
 #pragma unroll 4
     for (int q = q0 + p; q < q1; q += P) {
-      const int e = q * C4 + g;
-      add4(ar, xr[e]);
-      if (two) add4(ad, xd[e]);
+#pragma unroll
+      for (int k = 0; k < G; ++k) {
+        const int g = gc + k * CT;
+        if (se_own<G>(g, C4)) {
+          const int e = q * C4 + g;
+          add4(ar[k], xr[e]);
+          if (two) add4(ad[k], xd[e]);
+        }
+      }
     }
   }
-  // lane p's sum of channel c sits at red[m][p*C + c]
+  // lane p's sum of channel c sits at sm[m*RS + p*C + c]
   float4* red4 = reinterpret_cast<float4*>(sm);
-  red4[t] = ar;
-  red4[SE_THREADS + t] = ad;
+#pragma unroll
+  for (int k = 0; k < G; ++k) {
+    const int g = gc + k * CT;
+    if (p < P && se_own<G>(g, C4)) {
+      red4[p * C4 + g] = ar[k];
+      red4[RS / 4 + p * C4 + g] = ad[k];
+    }
+  }
   __syncthreads();
   float* part = partial + ((size_t)n * S + s) * 2 * C;
   for (int c = t; c < C; c += SE_THREADS) {
     float r = 0.f, d = 0.f;
     for (int k = 0; k < P; ++k) {
       r += sm[k * C + c];
-      d += sm[4 * SE_THREADS + k * C + c];
+      d += sm[RS + k * C + c];
     }
     part[c] = r;
     part[C + c] = d;
   }
 
   // the last block of sample n to get here runs the finalize
-  unsigned* ticket = reinterpret_cast<unsigned*>(sm + 8 * SE_THREADS);
+  unsigned* ticket = reinterpret_cast<unsigned*>(sm + 2 * RS);
   __threadfence();
   __syncthreads();
   if (t == 0) *ticket = atomicAdd(counter + n, 1u);
@@ -185,9 +235,9 @@ __global__ void __launch_bounds__(SE_THREADS)
   __threadfence();
   if (t == 0) counter[n] = 0;
 
-  float* mean = sm + 8 * SE_THREADS + 4;  // [2][C]
-  float* l1 = mean + 2 * C;               // [2][SE_THREADS]
-  float* hid = l1 + 2 * SE_THREADS;       // [2][Cr]
+  float* mean = sm + 2 * RS + 4;    // [2][C]
+  float* l1 = mean + 2 * C;         // [2][SE_THREADS]
+  float* hid = l1 + 2 * SE_THREADS; // [2][Cr]
   const int maps = two ? 2 : 1;
   const float* pn = partial + (size_t)n * S * 2 * C;
   for (int c = t; c < maps * C; c += SE_THREADS) {
@@ -234,7 +284,9 @@ __global__ void __launch_bounds__(SE_THREADS)
 }
 
 // grid (S, B), SE_THREADS threads, block (x, y) mixes chunk S-1-x of sample
-// B-1-y: the reverse of the squeeze's order.
+// B-1-y: the reverse of the squeeze's order. The squeeze's thread mapping;
+// each thread loads the scales of its groups once.
+template <int G>
 __global__ void __launch_bounds__(SE_THREADS)
     se_mix_kernel(const float4* __restrict__ x_r,
                   const float4* __restrict__ x_d,
@@ -244,13 +296,21 @@ __global__ void __launch_bounds__(SE_THREADS)
   const int s = S - 1 - (int)blockIdx.x;
   const int n = (int)gridDim.y - 1 - (int)blockIdx.y;
   const int t = threadIdx.x, C4 = C / 4;
-  const int P = SE_THREADS / C4;
-  const int p = t / C4, g = t - p * C4;
+  const int CT = se_ct<G>(C4);
+  const int P = SE_THREADS / CT;
+  const int p = t / CT, gc = t - p * CT;
   if (p >= P) return;
   const bool two = x_d != nullptr;
-  const float4 sr = scales[(size_t)n * 2 * C4 + g];
-  const float4 sd = two ? scales[(size_t)n * 2 * C4 + C4 + g]
-                        : make_float4(0.f, 0.f, 0.f, 0.f);
+  float4 sr[G], sd[G];
+#pragma unroll
+  for (int k = 0; k < G; ++k) {
+    const int g = gc + k * CT;
+    const bool own = se_own<G>(g, C4);
+    sr[k] = own ? scales[(size_t)n * 2 * C4 + g]
+                : make_float4(0.f, 0.f, 0.f, 0.f);
+    sd[k] = own && two ? scales[(size_t)n * 2 * C4 + C4 + g]
+                       : make_float4(0.f, 0.f, 0.f, 0.f);
+  }
   int q0, q1;
   split_range(HW, S, s, q0, q1);
   const size_t base = (size_t)n * HW * C4;
@@ -259,21 +319,45 @@ __global__ void __launch_bounds__(SE_THREADS)
   float4* o = out + base;
 #pragma unroll 4
   for (int q = q0 + p; q < q1; q += P) {
-    const int e = q * C4 + g;
-    const float4 r = xr[e];
-    float4 v = make_float4(r.x * sr.x, r.y * sr.y, r.z * sr.z, r.w * sr.w);
-    if (two) {
-      const float4 d = xd[e];
-      v.x += d.x * sd.x;
-      v.y += d.y * sd.y;
-      v.z += d.z * sd.z;
-      v.w += d.w * sd.w;
+#pragma unroll
+    for (int k = 0; k < G; ++k) {
+      const int g = gc + k * CT;
+      if (se_own<G>(g, C4)) {
+        const int e = q * C4 + g;
+        const float4 r = xr[e];
+        const float4 a = sr[k];
+        float4 v = make_float4(r.x * a.x, r.y * a.y, r.z * a.z, r.w * a.w);
+        if (two) {
+          const float4 d = xd[e];
+          const float4 b = sd[k];
+          v.x += d.x * b.x;
+          v.y += d.y * b.y;
+          v.z += d.z * b.z;
+          v.w += d.w * b.w;
+        }
+        o[e] = v;
+      }
     }
-    o[e] = v;
   }
 }
 
-// The SE cell in two launches. C % 4 == 0, C <= 4*SE_THREADS, Cr <=
+template <int G>
+static int se_launch(const float4* x_r, const float4* x_d, float* partial,
+                     float* scales, unsigned* counter, SeWeights wr,
+                     SeWeights wd, const float* w_rgb, float4* out, int B,
+                     int HW, int C, int Cr, int S, cudaStream_t st) {
+  dim3 grid(S, B);
+  const size_t smem = (size_t)se_smem_floats(C, Cr) * sizeof(float);
+  se_squeeze_kernel<G><<<grid, SE_THREADS, smem, st>>>(
+      x_r, x_d, partial, scales, counter, wr, wd, w_rgb, HW, C, Cr);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  se_mix_kernel<G><<<grid, SE_THREADS, 0, st>>>(
+      x_r, x_d, (const float4*)scales, out, HW, C);
+  return (int)cudaGetLastError();
+}
+
+// The SE cell in two launches. C % 4 == 0, C <= 4*SE_THREADS*SE_MAX_G, Cr <=
 // SE_THREADS and 16-byte aligned maps (the wrapper checks); S splits per
 // sample. x_d == nullptr: single-map SE (w = 0, the w*d weights unused).
 // w_rgb == nullptr means w = 0. partial: B*S*2*C floats; scales: B*2*C;
@@ -288,16 +372,12 @@ extern "C" int dynmm_se_fuse(const float* x_r, const float* x_d,
                              int B, int HW, int C, int Cr, int S,
                              void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  dim3 grid(S, B);
-  const size_t smem = (size_t)se_smem_floats(C, Cr) * sizeof(float);
-  se_squeeze_kernel<<<grid, SE_THREADS, smem, st>>>(
-      (const float4*)x_r, (const float4*)x_d, partial, scales, counter,
-      SeWeights{w1r, b1r, w2r, b2r}, SeWeights{w1d, b1d, w2d, b2d}, w_rgb, HW,
-      C, Cr);
-  const cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  se_mix_kernel<<<grid, SE_THREADS, 0, st>>>(
-      (const float4*)x_r, (const float4*)x_d, (const float4*)scales,
-      (float4*)out, HW, C);
-  return (int)cudaGetLastError();
+  const SeWeights wr{w1r, b1r, w2r, b2r}, wd{w1d, b1d, w2d, b2d};
+  if (C <= 4 * SE_THREADS)
+    return se_launch<1>((const float4*)x_r, (const float4*)x_d, partial,
+                        scales, counter, wr, wd, w_rgb, (float4*)out, B, HW,
+                        C, Cr, S, st);
+  return se_launch<SE_MAX_G>((const float4*)x_r, (const float4*)x_d, partial,
+                             scales, counter, wr, wd, w_rgb, (float4*)out, B,
+                             HW, C, Cr, S, st);
 }

@@ -9,7 +9,8 @@ path's SE-add fusion cells take (``SqueezeAndExciteFusionAdd.fuse_mixed``):
     s   = sigmoid(relu(mean_HW(x) @ w1 + b1) @ w2 + b2)
 
 Maps are NHWC (B, H, W, C) fp32; SE weights take the JAX layout
-``w1 (C, C/16)``, ``w2 (C/16, C)``. Each wrapper takes its plain version
+``w1 (C, C/16)``, ``w2 (C/16, C)``; the SE cell takes C ≤ ``SE_MAX_C``
+(2048, ResNet50's widest fusion cell). Each wrapper takes its plain version
 for CPU tensors and launches its kernel for CUDA tensors. Grids are sized
 from the card's SM count.
 """
@@ -75,6 +76,7 @@ def se_fuse_mixed_plain(rgb, depth, w_rgb, wr1, br1, wr2, br2,
 BLOCKS_PER_SM = 2
 MIN_ITEMS = 2 * 256
 _SE_THREADS = 256  # csrc/se.cu's SE_THREADS
+SE_MAX_C = 4 * _SE_THREADS * 2  # 4·SE_THREADS·SE_MAX_G: two float4s a thread
 
 # Per-sample tickets of the squeeze's last-block finalize, one buffer per
 # device: zeroed once, grown with the batch; the kernel leaves every counter
@@ -93,12 +95,14 @@ def _counters(device: torch.device, bsz: int) -> torch.Tensor:
 
 def _se_splits(bsz: int, hw: int, c: int, sms: int) -> int:
     """Blocks per sample of both SE launches: BLOCKS_PER_SM per SM over the
-    batch, each reading at least MIN_ITEMS float4s of a map, at most one per
-    pixel. Depends on the shape and the card only, so the summation order
-    never depends on the data."""
+    batch, each reading at least MIN_ITEMS float4s of a map for every float4
+    group a thread owns (one up to C = 1024, two above), at most one block
+    per pixel. Depends on the shape and the card only, so the summation
+    order never depends on the data."""
     items = hw * (c // 4)
-    return max(1, min(math.ceil(BLOCKS_PER_SM * sms / bsz), items // MIN_ITEMS,
-                      hw))
+    groups = -(-c // (4 * _SE_THREADS))
+    return max(1, min(math.ceil(BLOCKS_PER_SM * sms / bsz),
+                      items // (MIN_ITEMS * groups), hw))
 
 
 def _launch_se(x_r, x_d, w_rgb, wr, wd):
@@ -107,9 +111,9 @@ def _launch_se(x_r, x_d, w_rgb, wr, wd):
     bsz, c = x_r.shape[0], x_r.shape[-1]
     hw = x_r.numel() // (bsz * c)
     _build.require(x_r, "x")
-    if c % 4 or c > 4 * _SE_THREADS:
-        raise ValueError(f"the SE cell takes C % 4 == 0 and C <= "
-                         f"{4 * _SE_THREADS}, got {c}")
+    if c % 4 or c > SE_MAX_C:
+        raise ValueError(f"the SE cell takes C % 4 == 0 and C <= {SE_MAX_C}, "
+                         f"got {c}")
     cr = wr[0].shape[-1]
     if not 1 <= cr <= _SE_THREADS:
         raise ValueError(f"the SE cell takes 1 <= C/r <= {_SE_THREADS}, "

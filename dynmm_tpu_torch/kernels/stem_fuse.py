@@ -10,7 +10,9 @@ Port of ``dynmm_tpu/kernels/stem_fuse.py``. The stem cell of the main path
    (3×3, stride 2, pad 1, −inf padding) both the fused map and raw depth,
    writing only the two pooled maps.
 
-Maps are NHWC fp32; C % 4 == 0 on the card.
+Plain ``add`` fusion takes the same pooling launch with unit scales
+(``stem_add_pool``: x·1.0 is exact in fp32). Maps are NHWC fp32; C % 4 == 0
+on the card.
 """
 
 from __future__ import annotations
@@ -72,3 +74,11 @@ def stem_se_fusion_pool(rgb, depth, wr1, br1, wr2, br2, wd1, bd1, wd2, bd2,
     s_r = se_gate_from_sums(sums_r, h * w, wr1, br1, wr2, br2)
     s_d = se_gate_from_sums(sums_d, h * w, wd1, bd1, wd2, bd2)
     return pool(rgb, depth, s_r.contiguous(), s_d.contiguous())
+
+
+def stem_add_pool(rgb, depth, use_kernels: bool = True):
+    """The stem cell of plain ``add`` fusion: (maxpool(rgb + depth),
+    maxpool(depth)), through ``stem_fuse_pool`` with unit scales."""
+    pool = stem_fuse_pool if use_kernels else stem_fuse_pool_plain
+    ones = rgb.new_ones((rgb.shape[0], rgb.shape[-1]))
+    return pool(rgb, depth, ones, ones)

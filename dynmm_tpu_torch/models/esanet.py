@@ -6,8 +6,12 @@ In eval the decoder returns the logits (``low_res``: the H/4 logits). In
 training (``module.training``) it also returns the class maps of its three
 ``side_output`` 1×1 convs, each taken on its module's map before the
 upsample: ``(out, down_8, down_16, down_32)``, from decoder modules 3, 2
-and 1. The port builds the flagship's family: SE-add fusion, additive skips
-and a PPM context module; the static ``ESANet`` is not ported yet.
+and 1. Fusion is ``SE-add`` (the SE cells: ``channel_sums`` +
+``stem_fuse_pool`` at the stem, ``se_fuse_mixed`` after each stage) or
+plain ``add`` (``stem_fuse_pool`` with unit scales at the stem, PyTorch
+adds after); ``encoder_decoder_fusion`` other than ``add`` builds no skip
+projections and the decoder ignores the skips; the context module is PPM,
+APPM or none. ``ESANet`` is the static baseline: depth always fused.
 """
 
 from __future__ import annotations
@@ -17,9 +21,11 @@ from typing import Sequence
 
 import torch.nn as nn
 
+from dynmm_tpu_torch.kernels.stem_fuse import stem_add_pool
 from dynmm_tpu_torch.models.context import get_context_module
 from dynmm_tpu_torch.models.resnet import NonBottleneck1D, ResNet, make_resnet
-from dynmm_tpu_torch.nn.layers import ConvBNAct, SqueezeAndExciteFusionAdd, Upsample
+from dynmm_tpu_torch.nn.layers import (ConvBNAct, SqueezeAndExciteFusionAdd,
+                                       Upsample, nchw, nhwc)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -42,12 +48,14 @@ class ESANetConfig:
 
 
 class DecoderModule(nn.Module):
-    """3×3 ConvBNAct → N NonBottleneck1D blocks → ×2 upsample → + skip."""
+    """3×3 ConvBNAct → N NonBottleneck1D blocks → ×2 upsample → + skip
+    (the skip only under ``encoder_decoder_fusion == "add"``)."""
 
     def __init__(self, channels_in: int, channels_dec: int, nr_blocks: int,
                  num_classes: int, upsampling_mode: str,
-                 activation: str = "relu"):
+                 activation: str = "relu", encoder_decoder_fusion: str = "add"):
         super().__init__()
+        self.add_skip = encoder_decoder_fusion == "add"
         self.conv3x3 = ConvBNAct(channels_in, channels_dec, 3,
                                  activation=activation)
         self.decoder_blocks = nn.ModuleList(
@@ -62,7 +70,9 @@ class DecoderModule(nn.Module):
         out = self.conv3x3(x)
         for block in self.decoder_blocks:
             out = block(out, use_kernels=use_kernels)
-        up = self.upsample(out, use_kernels=use_kernels) + skip
+        up = self.upsample(out, use_kernels=use_kernels)
+        if self.add_skip:
+            up = up + skip
         return (up, self.side_output(out)) if self.training else up
 
 
@@ -71,13 +81,15 @@ class Decoder(nn.Module):
 
     def __init__(self, channels_in: int, channels_decoder: Sequence[int],
                  nr_decoder_blocks: Sequence[int], num_classes: int,
-                 upsampling_mode: str, activation: str = "relu"):
+                 upsampling_mode: str, activation: str = "relu",
+                 encoder_decoder_fusion: str = "add"):
         super().__init__()
         ins = (channels_in, channels_decoder[0], channels_decoder[1])
         for i in range(3):
             setattr(self, f"decoder_module_{i + 1}", DecoderModule(
                 ins[i], channels_decoder[i], nr_decoder_blocks[i],
-                num_classes, upsampling_mode, activation))
+                num_classes, upsampling_mode, activation,
+                encoder_decoder_fusion))
         self.conv_out = nn.Conv2d(channels_decoder[2], num_classes, 3,
                                   padding=1)
         self.upsample1 = Upsample(upsampling_mode, num_classes)
@@ -105,52 +117,43 @@ class Decoder(nn.Module):
         return (out, down_8, down_16, down_32) if self.training else out
 
 
-def build_encoder(cfg: ESANetConfig, which: str) -> ResNet:
+def build_encoder(cfg: ESANetConfig, which: str,
+                  input_channels: int | None = None) -> ResNet:
     """RGB (3-ch) or depth (1-ch) encoder per the config."""
+    if input_channels is None:
+        input_channels = 3 if which == "rgb" else 1
     return make_resnet(getattr(cfg, f"encoder_{which}"),
-                       block=cfg.encoder_block,
-                       input_channels=3 if which == "rgb" else 1,
+                       block=cfg.encoder_block, input_channels=input_channels,
                        activation=cfg.activation)
 
 
-class _DualEncoderParts(nn.Module):
-    """Encoders, SE fusion cells, skip projections, context module and
-    decoder of the dual-encoder ESANet family, under the reference's torch
-    names."""
+class _Head(nn.Module):
+    """Skip projections, context module and decoder over one encoder's
+    channels (``down_channels``), shared by every model of the family."""
 
-    def __init__(self, cfg: ESANetConfig):
-        super().__init__()
-        if (cfg.fuse_depth_in_rgb_encoder, cfg.encoder_decoder_fusion) != (
-                "SE-add", "add"):
-            raise NotImplementedError(
-                "the port builds SE-add fusion with additive skips; "
-                f"got {cfg.fuse_depth_in_rgb_encoder!r}, "
-                f"{cfg.encoder_decoder_fusion!r}")
-        self.cfg = cfg
-        self.encoder_rgb = build_encoder(cfg, "rgb")
-        self.encoder_depth = build_encoder(cfg, "depth")
-        ch = self.encoder_rgb.down_channels
-        for i, c in enumerate([64, ch[4], ch[8], ch[16], ch[32]]):
-            setattr(self, f"se_layer{i}",
-                    SqueezeAndExciteFusionAdd(c, activation=cfg.activation))
+    def _build_head(self, cfg: ESANetConfig, ch: dict[int, int],
+                    skip_layers: bool | None = None) -> None:
+        """``skip_layers``: build the projections where the widths differ
+        (default: under additive encoder-decoder fusion only)."""
         cd = cfg.channels_decoder
+        if skip_layers is None:
+            skip_layers = cfg.encoder_decoder_fusion == "add"
         for i, (c_enc, c_dec) in enumerate(
                 ((ch[4], cd[2]), (ch[8], cd[1]), (ch[16], cd[0])), start=1):
-            setattr(self, f"skip_layer{i}", None if c_enc == c_dec else
-                    nn.Sequential(ConvBNAct(c_enc, c_dec, 1,
-                                            activation=cfg.activation)))
+            setattr(self, f"skip_layer{i}", None if (
+                c_enc == c_dec or not skip_layers) else
+                nn.Sequential(ConvBNAct(c_enc, c_dec, 1,
+                                        activation=cfg.activation)))
         # learned-3x3 upsampling cannot upscale the non-×2 context maps
         context_upsampling = ("nearest" if "learned-3x3" in cfg.upsampling
                               else cfg.upsampling)
-        self.context_module = get_context_module(
-            cfg.context_module, ch[32], cd[0], activation=cfg.activation,
+        self.context_module, channels_after = get_context_module(
+            cfg.context_module, ch[32], cd[0],
+            (cfg.height // 32, cfg.width // 32), activation=cfg.activation,
             upsampling_mode=context_upsampling)
-        self.decoder = Decoder(cd[0], cd, cfg.nr_decoder_blocks,
-                               cfg.num_classes, cfg.upsampling, cfg.activation)
-
-    def fuse(self, idx: int, rgb, depth, use_kernels: bool = True):
-        """Unmixed SE-add fusion ``se(rgb) + se(depth)`` of stage ``idx``."""
-        return getattr(self, f"se_layer{idx}")(rgb, depth, use_kernels)
+        self.decoder = Decoder(channels_after, cd, cfg.nr_decoder_blocks,
+                               cfg.num_classes, cfg.upsampling, cfg.activation,
+                               cfg.encoder_decoder_fusion)
 
     def skip(self, idx: int, fused):
         layer = getattr(self, f"skip_layer{idx}")
@@ -158,6 +161,86 @@ class _DualEncoderParts(nn.Module):
 
     def head(self, fused, skips, use_kernels: bool = True,
              low_res: bool = False):
-        """Context module + decoder over the stage-4 fusion and skips 3..1."""
-        return self.decoder([self.context_module(fused), skips[2], skips[1],
-                             skips[0]], use_kernels, low_res)
+        """Context module (if any) + decoder over the stage-4 map and skips
+        3..1."""
+        if self.context_module is not None:
+            fused = self.context_module(fused)
+        return self.decoder([fused, skips[2], skips[1], skips[0]],
+                            use_kernels, low_res)
+
+    def _nhwc(self, out):
+        """The decoder's output in the public NHWC layout (a tuple of the
+        four scales in training)."""
+        if self.training:
+            return tuple(p.permute(0, 2, 3, 1) for p in out)
+        return out.permute(0, 2, 3, 1)
+
+
+class _DualEncoderParts(_Head):
+    """Encoders, fusion cells, skip projections, context module and decoder
+    of the dual-encoder ESANet family, under the reference's torch names.
+    ``SE-add`` fusion builds ``se_layer0..4``; plain ``add`` builds none."""
+
+    def __init__(self, cfg: ESANetConfig):
+        super().__init__()
+        if cfg.fuse_depth_in_rgb_encoder not in ("SE-add", "add"):
+            raise ValueError("fuse_depth_in_rgb_encoder must be 'SE-add' or "
+                             f"'add', got {cfg.fuse_depth_in_rgb_encoder!r}")
+        self.cfg = cfg
+        self.plain_add = cfg.fuse_depth_in_rgb_encoder == "add"
+        self.encoder_rgb = build_encoder(cfg, "rgb")
+        self.encoder_depth = build_encoder(cfg, "depth")
+        ch = self.encoder_rgb.down_channels
+        if not self.plain_add:
+            for i, c in enumerate([64, ch[4], ch[8], ch[16], ch[32]]):
+                setattr(self, f"se_layer{i}",
+                        SqueezeAndExciteFusionAdd(c, activation=cfg.activation))
+        self._build_head(cfg, ch)
+
+    def stem_pool(self, rgb, depth, use_kernels: bool = True):
+        """Stem tail: (pool(fuse(rgb, depth)), pool(depth)), NCHW; the
+        ``channel_sums`` + ``stem_fuse_pool`` cell for SE-add,
+        ``stem_fuse_pool`` with unit scales for add."""
+        if not self.plain_add:
+            return self.se_layer0.fuse_and_pool(rgb, depth, use_kernels)
+        fused, dpool = stem_add_pool(nhwc(rgb), nhwc(depth), use_kernels)
+        return nchw(fused), nchw(dpool)
+
+    def fuse(self, idx: int, rgb, depth, use_kernels: bool = True):
+        """Unmixed fusion of stage ``idx``: ``se(rgb) + se(depth)`` or
+        ``rgb + depth``."""
+        if self.plain_add:
+            return rgb + depth
+        return getattr(self, f"se_layer{idx}")(rgb, depth, use_kernels)
+
+    def fuse_mixed(self, idx: int, rgb, depth, w_rgb,
+                   use_kernels: bool = True):
+        """``w·rgb + (1−w)·fuse(rgb, depth)``, ``w_rgb`` (B,): the
+        ``se_fuse_mixed`` cell for SE-add; ``rgb + (1−w)·depth`` for add."""
+        if self.plain_add:
+            return rgb + (1.0 - w_rgb.to(rgb.dtype))[:, None, None, None] * depth
+        return getattr(self, f"se_layer{idx}").fuse_mixed(rgb, depth, w_rgb,
+                                                           use_kernels)
+
+
+class ESANet(_DualEncoderParts):
+    """The static ESANet: depth fused after the stem and every stage. Public
+    layout is NHWC: ``forward(rgb (B,H,W,3), depth (B,H,W,1))`` → logits
+    (B,H,W,classes) (H/4 with ``low_res``); in training the four scales
+    ``(out, down_8, down_16, down_32)``, every cell on its plain version."""
+
+    def forward(self, rgb, depth, low_res: bool = False,
+                use_kernels: bool = True):
+        use_kernels = use_kernels and not self.training
+        rgb = self.encoder_rgb.stem(nchw(rgb))
+        depth = self.encoder_depth.stem(nchw(depth))
+        rgb, depth = self.stem_pool(rgb, depth, use_kernels)
+        skips = []
+        for i in (1, 2, 3, 4):
+            rgb = getattr(self.encoder_rgb, f"layer{i}")(rgb, use_kernels)
+            depth = getattr(self.encoder_depth, f"layer{i}")(depth,
+                                                             use_kernels)
+            rgb = self.fuse(i, rgb, depth, use_kernels)
+            if i < 4:
+                skips.append(self.skip(i, rgb))
+        return self._nhwc(self.head(rgb, skips, use_kernels, low_res))

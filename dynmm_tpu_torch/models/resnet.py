@@ -1,21 +1,21 @@
-"""Staged ResNet encoders with NonBottleneck1D blocks (port of
-``dynmm_tpu/models/resnet.py``).
+"""Staged ResNet encoders (port of ``dynmm_tpu/models/resnet.py``):
+``BasicBlock`` and ``NonBottleneck1D`` resnet18/resnet34, and resnet50 with
+``Bottleneck`` blocks (expansion 4).
 
 ``ResNet.stem`` is the raw 7×7/2 conv + BN + act (the caller max-pools);
 ``layer1..layer4`` run the four stages. In eval every stride-1
 NonBottleneck1D block without a downsample runs on packed weights (BN folded
 from the running statistics) through ``nbt1d_block``: one ``nbt1d_fused``
 launch up to ``NBT1D_FUSED_MAX_C`` (64) channels, two ``nbt1d_pair``
-launches above; the stride-2 block0s stay plain torch convs. In training
-every block runs its unfused convs with BN on batch statistics, as the JAX
-model does (the kernels are inference-only). Modules take NCHW
-(channels_last) tensors.
+launches above; the stride-2 block0s stay plain torch convs. ``BasicBlock``
+and ``Bottleneck`` are plain cuDNN convs and BN (eps 1e-5) in every mode:
+no TPU kernel covers them. In training every block runs its unfused convs
+with BN on batch statistics, as the JAX model does (the kernels are
+inference-only). Modules take NCHW (channels_last) tensors.
 
 The stem also takes its input 2×2 space-to-depth packed (``stem``,
 ``space_to_depth_host``, ``s2d_weight``): a 4×4 stride-1 conv over 4C
-channels computes the 7×7/2 conv, with the same state_dict.
-
-``BasicBlock`` and ``Bottleneck`` (resnet50) are not ported yet.
+channels computes the 7×7/2 conv, with the same state_dict (every encoder: the stem is shared).
 """
 
 from __future__ import annotations
@@ -29,7 +29,8 @@ from dynmm_tpu_torch.kernels.nbt1d import fold_bn, nbt1d_block
 from dynmm_tpu_torch.nn.layers import (BatchNorm2d, Packed, get_activation,
                                        max_pool_3x3_s2, nchw, nhwc)
 
-RESNET_LAYERS = {"resnet18": (2, 2, 2, 2), "resnet34": (3, 4, 6, 3)}
+RESNET_LAYERS = {"resnet18": (2, 2, 2, 2), "resnet34": (3, 4, 6, 3),
+                 "resnet50": (3, 4, 6, 3)}
 
 NBT1D_BN_EPS = 1e-3
 
@@ -37,6 +38,8 @@ NBT1D_BN_EPS = 1e-3
 class NonBottleneck1D(Packed):
     """ERFNet factorized residual block: 3×1 → act → 1×3 → BN → act →
     3×1 → act → 1×3 → BN → +identity → act, BN eps 1e-3, convs with bias."""
+
+    expansion = 1
 
     def __init__(self, in_planes: int, planes: int, stride: int = 1,
                  has_downsample: bool = False, dilation: int = 1,
@@ -98,17 +101,81 @@ class NonBottleneck1D(Packed):
         return self.act(out + identity)
 
 
+def _downsample(in_planes: int, out_planes: int, stride: int):
+    return nn.Sequential(nn.Conv2d(in_planes, out_planes, 1, stride=stride,
+                                   bias=False), BatchNorm2d(out_planes))
+
+
+class BasicBlock(nn.Module):
+    """conv3x3(s) → BN → act → conv3x3 → BN → +identity → act."""
+
+    expansion = 1
+
+    def __init__(self, in_planes: int, planes: int, stride: int = 1,
+                 has_downsample: bool = False, activation: str = "relu"):
+        super().__init__()
+        self.conv1 = nn.Conv2d(in_planes, planes, 3, stride=stride, padding=1,
+                               bias=False)
+        self.bn1 = BatchNorm2d(planes)
+        self.conv2 = nn.Conv2d(planes, planes, 3, padding=1, bias=False)
+        self.bn2 = BatchNorm2d(planes)
+        self.downsample = (_downsample(in_planes, planes, stride)
+                           if has_downsample else None)
+        self.act = get_activation(activation)
+
+    def forward(self, x, use_kernels: bool = True):
+        out = self.act(self.bn1(self.conv1(x)))
+        out = self.bn2(self.conv2(out))
+        identity = x if self.downsample is None else self.downsample(x)
+        return self.act(out + identity)
+
+
+class Bottleneck(nn.Module):
+    """1×1 reduce → BN → act → 3×3(s) → BN → act → 1×1 expand (×4) → BN →
+    +identity → act."""
+
+    expansion = 4
+
+    def __init__(self, in_planes: int, planes: int, stride: int = 1,
+                 has_downsample: bool = False, activation: str = "relu"):
+        super().__init__()
+        out_planes = planes * self.expansion
+        self.conv1 = nn.Conv2d(in_planes, planes, 1, bias=False)
+        self.bn1 = BatchNorm2d(planes)
+        self.conv2 = nn.Conv2d(planes, planes, 3, stride=stride, padding=1,
+                               bias=False)
+        self.bn2 = BatchNorm2d(planes)
+        self.conv3 = nn.Conv2d(planes, out_planes, 1, bias=False)
+        self.bn3 = BatchNorm2d(out_planes)
+        self.downsample = (_downsample(in_planes, out_planes, stride)
+                           if has_downsample else None)
+        self.act = get_activation(activation)
+
+    def forward(self, x, use_kernels: bool = True):
+        out = self.act(self.bn1(self.conv1(x)))
+        out = self.act(self.bn2(self.conv2(out)))
+        out = self.bn3(self.conv3(out))
+        identity = x if self.downsample is None else self.downsample(x)
+        return self.act(out + identity)
+
+
+BLOCKS = {"BasicBlock": BasicBlock, "NonBottleneck1D": NonBottleneck1D,
+          "Bottleneck": Bottleneck}
+
+
 class ResNetStage(nn.ModuleList):
     """One residual stage: ``n_blocks`` blocks, the first with the stride
     and a downsample where the shape changes (torch names ``layerI.J``)."""
 
     def __init__(self, planes: int, n_blocks: int, stride: int = 1,
-                 in_planes: int = 64, activation: str = "relu"):
-        needs_ds = stride != 1 or in_planes != planes
-        blocks = [NonBottleneck1D(in_planes, planes, stride=stride,
-                                  has_downsample=needs_ds,
-                                  activation=activation)]
-        blocks += [NonBottleneck1D(planes, planes, activation=activation)
+                 in_planes: int = 64, activation: str = "relu",
+                 block: str = "NonBottleneck1D"):
+        cls = BLOCKS[block]
+        out_planes = planes * cls.expansion
+        needs_ds = stride != 1 or in_planes != out_planes
+        blocks = [cls(in_planes, planes, stride=stride,
+                      has_downsample=needs_ds, activation=activation)]
+        blocks += [cls(out_planes, planes, activation=activation)
                    for _ in range(1, n_blocks)]
         super().__init__(blocks)
 
@@ -148,25 +215,34 @@ def space_to_depth_host(x: np.ndarray) -> np.ndarray:
 
 
 class ResNet(nn.Module):
-    """Staged NonBottleneck1D ResNet encoder."""
+    """Staged ResNet encoder of ``block``s; stage i takes
+    (64, 64e, 128e, 256e)[i] channels, e the block's expansion."""
 
     def __init__(self, layers, input_channels: int = 3,
-                 activation: str = "relu"):
+                 activation: str = "relu", block: str = "NonBottleneck1D"):
         super().__init__()
         self.input_channels = input_channels
+        self.block = block
         self.conv1 = nn.Conv2d(input_channels, 64, 7, stride=2, padding=3,
                                bias=False)
         self.bn1 = BatchNorm2d(64)
         self.act = get_activation(activation)
-        plan = [(64, 1, 64), (128, 2, 64), (256, 2, 128), (512, 2, 256)]
+        e = self.expansion
+        plan = [(64, 1, 64), (128, 2, 64 * e), (256, 2, 128 * e),
+                (512, 2, 256 * e)]
         for i, ((planes, stride, in_planes), n) in enumerate(zip(plan, layers)):
             setattr(self, f"layer{i + 1}",
                     ResNetStage(planes, n, stride=stride, in_planes=in_planes,
-                                activation=activation))
+                                activation=activation, block=block))
+
+    @property
+    def expansion(self) -> int:
+        return BLOCKS[self.block].expansion
 
     @property
     def down_channels(self) -> dict[int, int]:
-        return {2: 64, 4: 64, 8: 128, 16: 256, 32: 512}
+        e = self.expansion
+        return {2: 64, 4: 64 * e, 8: 128 * e, 16: 256 * e, 32: 512 * e}
 
     def stem(self, x):
         """7×7/2 conv (pad 3) + BN + act; the max-pool is the caller's.
@@ -197,10 +273,11 @@ class ResNet(nn.Module):
 
 def make_resnet(name: str, block: str = "NonBottleneck1D",
                 input_channels: int = 3, activation: str = "relu") -> ResNet:
-    """resnet18 / resnet34 with NonBottleneck1D blocks."""
-    if block != "NonBottleneck1D" or name not in RESNET_LAYERS:
-        raise NotImplementedError(
-            f"{name} with {block} blocks is not ported yet (NonBottleneck1D "
-            "resnet18/resnet34 are)")
+    """The reference's constructors: resnet18 / resnet34 take ``block``
+    (BasicBlock or NonBottleneck1D), resnet50 always Bottleneck."""
+    if name == "resnet50":
+        block = "Bottleneck"
+    elif block not in ("BasicBlock", "NonBottleneck1D"):
+        raise NotImplementedError(f"Block {block} is not implemented")
     return ResNet(RESNET_LAYERS[name], input_channels=input_channels,
-                  activation=activation)
+                  activation=activation, block=block)

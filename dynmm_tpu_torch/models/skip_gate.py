@@ -25,10 +25,13 @@ read to the host once per request: one ``.tolist()``/``int()`` of the gate's
 choices right after the gate, which waits for the stems and the gate to
 finish on the card. A skipped depth stage launches nothing.
 
-Kernel sites: the stem cell (``channel_sums`` + ``stem_fuse_pool``), every
+Kernel sites: the stem cell (``channel_sums`` + ``stem_fuse_pool``; with
+plain ``add`` fusion ``stem_fuse_pool`` alone, unit scales), every
 stride-1 NonBottleneck1D block (one ``nbt1d_fused`` up to 64 channels, two
-``nbt1d_pair`` above), each fusion cell that runs (``se_fuse_mixed``, in
-the unmixed form with w = 0) and the learned upsamples
+``nbt1d_pair`` above; BasicBlock and Bottleneck encoders are cuDNN), each
+SE-add fusion cell that runs (``se_fuse_mixed``, in the unmixed form with
+w = 0; C ≤ 2048, so ResNet50's too; plain ``add`` fusion mixes as
+``rgb + (1−w)·depth`` in PyTorch ops) and the learned upsamples
 (``learned_upsample``; three with ``low_res``). ``use_kernels=False`` runs
 the plain PyTorch version of each instead, on the same weights.
 
@@ -172,12 +175,7 @@ class SkipGateESANet(_DualEncoderParts):
         """NHWC images → the two pooled stem maps (NCHW)."""
         rgb = self.encoder_rgb.stem(nchw(rgb))
         depth = self.encoder_depth.stem(nchw(depth))
-        return self.se_layer0.fuse_and_pool(rgb, depth, use_kernels)
-
-    def _fuse_mixed(self, i: int, rgb, depth, w_rgb, use_kernels: bool = True):
-        """``w·rgb + (1−w)·se_fuse(rgb, depth)``, ``w_rgb`` (B,)."""
-        return getattr(self, f"se_layer{i}").fuse_mixed(rgb, depth, w_rgb,
-                                                         use_kernels)
+        return self.stem_pool(rgb, depth, use_kernels)
 
     @staticmethod
     def _rgb_weight(weight, i: int):
@@ -188,7 +186,7 @@ class SkipGateESANet(_DualEncoderParts):
 
     def _fuse_mixed_scatter(self, i: int, rgb, d_p, w_rgb, order,
                             use_kernels: bool = True):
-        """``_fuse_mixed`` for the compacted depth layout: ``rgb`` is the
+        """``fuse_mixed`` for the compacted depth layout: ``rgb`` is the
         whole batch in caller order, ``d_p`` the depth stage's output on the
         sorted prefix (original samples ``order[:cap]``), ``w_rgb`` the
         caller-order weights. ``d_p`` is scattered into a zero batch and the
@@ -198,7 +196,7 @@ class SkipGateESANet(_DualEncoderParts):
         ``rgb·s_r' + scatter(d_p·s_d')`` exactly. An overflowed participant
         (strict caps) keeps ``rgb·s_r`` and loses only its depth term."""
         depth = nchw(scatter_rows(nhwc(d_p), order, rgb.shape[0]))
-        return self._fuse_mixed(i, rgb, depth, w_rgb, use_kernels)
+        return self.fuse_mixed(i, rgb, depth, w_rgb, use_kernels)
 
     def _zero_depth(self, i: int, like: torch.Tensor) -> torch.Tensor:
         """Zero depth map of stage ``i``'s output shape (batch and size of
@@ -258,20 +256,18 @@ class SkipGateESANet(_DualEncoderParts):
         for i in (1, 2, 3, 4):
             rgb = getattr(self.encoder_rgb, f"layer{i}")(fused, use_kernels)
             depth = getattr(self.encoder_depth, f"layer{i}")(depth, use_kernels)
-            fused = self._fuse_mixed(i, rgb, depth,
-                                     self._rgb_weight(weight, i), use_kernels)
+            fused = self.fuse_mixed(i, rgb, depth,
+                                    self._rgb_weight(weight, i), use_kernels)
             if i < 4:
                 skips.append(self.skip(i, fused))
         return self._out(fused, skips, weight, return_weight, low_res,
                          use_kernels)
 
     def _out(self, fused, skips, weight, return_weight, low_res, use_kernels):
+        out = self._nhwc(self.head(fused, skips, use_kernels, low_res))
         if self.training:
-            preds = self.head(fused, skips, use_kernels)
             table = flop_table(self.cfg.encoder_rgb)
-            return (tuple(p.permute(0, 2, 3, 1) for p in preds),
-                    expected_cost_loss(weight, table))
-        out = self.head(fused, skips, use_kernels, low_res).permute(0, 2, 3, 1)
+            return out, expected_cost_loss(weight, table)
         return (out, weight) if return_weight else out
 
     # ------------------------------------------------ batched adaptive skips
@@ -302,9 +298,9 @@ class SkipGateESANet(_DualEncoderParts):
             if k_max >= i:
                 depth = getattr(self.encoder_depth, f"layer{i}")(depth,
                                                                  use_kernels)
-                fused = self._fuse_mixed(i, r, depth,
-                                         self._rgb_weight(weight, i),
-                                         use_kernels)
+                fused = self.fuse_mixed(i, r, depth,
+                                        self._rgb_weight(weight, i),
+                                        use_kernels)
             else:  # no later stage reads depth again (K is monotone)
                 fused = r
             if i < 4:

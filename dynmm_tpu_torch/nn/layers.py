@@ -23,7 +23,10 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from dynmm_tpu_torch.kernels.se import se_fuse_mixed, se_fuse_mixed_plain
+from dynmm_tpu_torch.core.gates import gumbel_softmax
+from dynmm_tpu_torch.kernels.se import (channel_sums, channel_sums_plain,
+                                        fused_se, se_fuse_mixed,
+                                        se_fuse_mixed_plain, se_reference)
 from dynmm_tpu_torch.kernels.stem_fuse import stem_se_fusion_pool
 from dynmm_tpu_torch.kernels.upsample import learned_upsample, learned_upsample_plain
 
@@ -167,6 +170,7 @@ class SqueezeAndExcitation(Packed):
             nn.Conv2d(channels, cr, 1), activation_module(activation),
             nn.Conv2d(cr, channels, 1), nn.Sigmoid())
         self.act = get_activation(activation)
+        self.relu = activation.lower() == "relu"
         self.repack()
 
     def _mlp(self):
@@ -192,6 +196,78 @@ class SqueezeAndExcitation(Packed):
 
     def forward(self, x):
         return x * self.fc(x.mean(dim=(2, 3), keepdim=True))
+
+    def recalibrate(self, x, use_kernels: bool = True):
+        """``x · se(x)`` (NCHW) as the single-map ``fused_se`` cell (its
+        plain version ``se_reference`` without ``use_kernels``)."""
+        if not self.relu:
+            raise NotImplementedError(
+                "the fused SE cells take relu SE MLPs; swish/hswish wait")
+        b, c, h, w = x.shape
+        fn = fused_se if use_kernels else se_reference
+        y = fn(nhwc(x).reshape(b, h * w, c), *self.weights())
+        return nchw(y.reshape(b, h, w, c))
+
+
+class SqueezeAndExcitationWeight(nn.Module):
+    """SE recalibration collapsed to a per-sample scalar:
+    ``(x · se(x)).mean over (H, W, C)``, computed from the channel means
+    ``m`` as ``mean_c(m · sigmoid(fc(m)))`` (the same value without the
+    recalibrated map)."""
+
+    def __init__(self, channels: int, reduction: int = 16,
+                 activation: str = "relu"):
+        super().__init__()
+        cr = channels // reduction
+        self.fc = nn.Sequential(
+            nn.Conv2d(channels, cr, 1), activation_module(activation),
+            nn.Conv2d(cr, channels, 1), nn.Sigmoid())
+
+    def from_means(self, means: torch.Tensor) -> torch.Tensor:
+        """The scalar (B,) of a map whose channel means are ``means`` (B, C)."""
+        w = self.fc(means[:, :, None, None])[:, :, 0, 0]
+        return (means * w).mean(dim=1)
+
+
+class SqueezeAndExciteReweigh(nn.Module):
+    """The local gate of one stage: the SE weight of concat(rgb, depth) →
+    sigmoid w → logits [w, 1−w] → Gumbel softmax over ``logits / temp``
+    (hard under ``hard`` or ``test``), noise drawn from ``generator``;
+    ``random_policy`` draws uniform choices instead. ``prev_weight`` (B,)
+    chains the gates: the fuse column becomes ``w_1 · prev_weight``.
+    Returns (B, 2) weights ``[rgb only, fuse]``.
+
+    The concatenation is never built: its channel means are those of rgb
+    and depth side by side, on the card one ``channel_sums`` launch of both
+    maps (C ≤ 1024)."""
+
+    def __init__(self, channels_in: int, activation: str = "relu"):
+        super().__init__()
+        self.se = SqueezeAndExcitationWeight(2 * channels_in,
+                                             activation=activation)
+
+    def forward(self, rgb, depth, generator: torch.Generator,
+                temp: float = 1.0, hard: bool = False, prev_weight=None,
+                random_policy: bool = False, test: bool = False,
+                use_kernels: bool = True):
+        bs = rgb.shape[0]
+        if random_policy:
+            b0 = torch.randint(0, 2, (bs,), generator=generator,
+                               device=generator.device).to(rgb)
+            w_norm = torch.stack([b0, 1.0 - b0], dim=1)
+        else:
+            sums = channel_sums if use_kernels else channel_sums_plain
+            hw = rgb.shape[2] * rgb.shape[3]
+            s_r, s_d = sums(nhwc(rgb), nhwc(depth))
+            w = torch.sigmoid(self.se.from_means(torch.cat([s_r, s_d], 1)
+                                                 / hw))
+            logits = torch.stack([w, 1.0 - w], dim=1)
+            w_norm = gumbel_softmax(logits / temp, generator, tau=1.0,
+                                    hard=hard or test)
+        if prev_weight is not None:
+            b1 = w_norm[:, 1] * prev_weight
+            w_norm = torch.stack([1.0 - b1, b1], dim=1)
+        return w_norm
 
 
 class SqueezeAndExciteFusionAdd(nn.Module):

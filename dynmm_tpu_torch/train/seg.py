@@ -30,9 +30,14 @@ The train step runs the model in ``train()`` mode: every cell takes its
 plain PyTorch version under autograd (the port's kernels, like the JAX
 package's, are inference-only). Validation runs ``eval()`` after
 ``pack_weights``, so on the card the eval forward launches the kernels on
-the trained weights. The global-gate SkipGateESANet is the model this
-engine trains, on raw or 2×2 packed stem inputs (``packed_stem``); the
-mesh and int8 calibration are not ported.
+the trained weights. The engine trains every model of the family, on raw
+or 2×2 packed stem inputs (``packed_stem``): the global-gate
+SkipGateESANet (``dynamic``, ``global_gate``; FLOP loss), the local-gate
+SkipESANet (``dynamic``: its Gumbel gates draw from the epoch's
+generator; validation samples hard under ``test`` from a generator seeded
+0 each batch, the JAX trainer's fixed key), the static ESANet and
+ESANetOneModality (``modality`` rgb | depth, one input); the last three
+have a zero FLOP loss. The mesh and int8 calibration are not ported.
 """
 
 from __future__ import annotations
@@ -301,17 +306,14 @@ class TrainState:
 
 
 class SegTrainer:
-    """Engine for the global-gate SkipGateESANet on one device (``None``:
-    the card; pass ``device="cpu"`` for the CPU). The model moves there in
+    """Engine for the segmentation models on one device (``None``: the
+    card; pass ``device="cpu"`` for the CPU). The model moves there in
     channels_last memory."""
 
     def __init__(self, model: nn.Module, cfg: SegTrainConfig, class_weights,
                  device=None):
-        if not (cfg.dynamic and cfg.global_gate and cfg.modality == "rgbd"):
-            raise NotImplementedError(
-                "the port trains the global-gate SkipGateESANet (dynamic, "
-                "global_gate, rgbd); the static, local-gate and one-modality "
-                "models wait (ROADMAP A7)")
+        if cfg.dynamic and cfg.modality != "rgbd":
+            raise ValueError("the dynamic models take --modality rgbd")
         self.cfg = cfg
         self.device = resolve_device(device)
         self.model = model.to(self.device, memory_format=torch.channels_last)
@@ -337,6 +339,17 @@ class SegTrainer:
         batch = pack_stem_batch({"image": image, "depth": depth})
         return batch["image"], batch["depth"]
 
+    def _inputs(self, image, depth) -> tuple:
+        """The model's positional inputs for ``modality`` (rgbd | rgb |
+        depth)."""
+        if self.cfg.modality == "rgbd":
+            return image, depth
+        return (image,) if self.cfg.modality == "rgb" else (depth,)
+
+    @property
+    def _global(self) -> bool:
+        return self.cfg.dynamic and self.cfg.global_gate
+
     def _sync(self) -> None:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
@@ -349,9 +362,18 @@ class SegTrainer:
         cfg = self.cfg
         model = state.model
         model.train()
-        preds, loss_flop = model(image, depth, temp=temp, hard=hard,
-                                 baseline=cfg.baseline, ini_stage=ini,
-                                 generator=generator)
+        inputs = self._inputs(image, depth)
+        if self._global:
+            preds, loss_flop = model(*inputs, temp=temp, hard=hard,
+                                     baseline=cfg.baseline, ini_stage=ini,
+                                     generator=generator)
+        else:
+            if cfg.dynamic:  # local gates: sampled, no resource loss
+                preds = model(*inputs, generator, temp=temp, hard=hard,
+                              ini_stage=ini)
+            else:
+                preds = model(*inputs)
+            loss_flop = preds[0].new_zeros(())
         loss_seg, per_scale = multiscale_ce(preds, targets, self.class_weights)
         total = loss_seg
         if cfg.loss_ratio > 0:
@@ -449,6 +471,19 @@ class SegTrainer:
         batch's size (a ragged tail batch gets its own schedule)."""
         cfg = self.cfg
         hard = not cfg.soft_eval
+        inputs = self._inputs(image, depth)
+        if not self._global:
+            if cfg.dynamic:
+                if cfg.low_res_eval:
+                    raise ValueError("low_res_eval supports global-gate / "
+                                     "static models only")
+                # the JAX trainer's fixed key: the same draws every batch
+                logits, weights = model(
+                    *inputs, torch.Generator().manual_seed(0), hard=hard,
+                    test=True, return_weights=True)
+                return logits, weights[-1]
+            logits = model(*inputs, low_res=cfg.low_res_eval)
+            return logits, logits.new_zeros((logits.shape[0], 0))
         if cfg.serve_capacity_factor > 0:
             if not hard or cfg.baseline or ini_stage:
                 raise ValueError(

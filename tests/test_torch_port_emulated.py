@@ -209,7 +209,12 @@ def test_channel_sums(libs, b, h, w, c):
                   _randn(g, b, h, w, c)))
 
 
-@pytest.mark.parametrize("b,h,w,c,cr", [(2, 5, 6, 32, 2), (3, 4, 4, 64, 4)])
+@pytest.mark.parametrize("b,h,w,c,cr", [
+    (2, 5, 6, 32, 2), (3, 4, 4, 64, 4),
+    # above C = 1024 each thread owns two float4 groups: ResNet50's stage-4
+    # cell (C = 2048, C/16 = 128) and C = 1536 (the second group of the
+    # last 64 threads past C/4), at ragged pixel counts
+    (2, 3, 5, 2048, 128), (1, 7, 3, 1536, 96)])
 def test_se_fuse_mixed_and_fused_se(libs, b, h, w, c, cr):
     g = _gen(c)
     ws = [_randn(g, c, cr, scale=0.3), _randn(g, cr), _randn(g, cr, c, scale=0.3),
@@ -240,6 +245,8 @@ def several_squeeze_blocks(monkeypatch):
     (2, 3, 5, 40, 2, [0.0, 1.0]),       # C = 40; w exactly 0 and exactly 1
     (1, 2, 3, 512, 32, [0.3]),          # the C = 512 level's C/16 = 32
     (3, 4, 4, 64, 4, [1.0, 0.25, 0.0]),
+    (2, 3, 5, 2048, 128, [0.0, 0.6]),   # two float4 groups a thread
+    (1, 5, 3, 1536, 96, [0.4]),
 ])
 def test_se_cell_several_squeeze_blocks(libs, several_squeeze_blocks,
                                         b, h, w, c, cr, w_rgb):
@@ -421,3 +428,65 @@ def test_small_model_routed_through_emulated_kernels(libs, mode, paths, ran):
     torch.testing.assert_close(logits, ref, rtol=1e-5,
                                atol=1e-5 * float(ref.abs().max()))
     assert (class_map == ref.argmax(-1)).float().mean() >= 0.999
+
+
+def _variant_launches(kind):
+    """Launches of one eval forward of a small variant: both encoders'
+    stride-1 blocks (one for the one-modality net), the decoder's, the
+    upsamples; the static SE-add net's stem and fusion cells, the plain-add
+    nets' stem through ``stem_fuse_pool`` (unit scales), one
+    ``channel_sums`` a local gate, five single-map SE cells."""
+    if kind == "static-se":
+        return _small_launches([True] * 4)
+    counts = _small_launches([True] * 4)
+    for k in ("channel_sums", "se_fuse_mixed"):
+        counts.pop(k)
+    if kind == "local":
+        counts["channel_sums"] = 4
+    if kind == "rgb-se":
+        one = _small_launches([False] * 4)
+        counts = {k: one[k] for k in ("nbt1d_fused", "nbt1d_pair",
+                                      "learned_upsample")}
+        counts["fused_se"] = 5
+    return counts
+
+
+@pytest.mark.parametrize("kind", ["static-se", "static-add", "local",
+                                  "rgb-se"])
+def test_variants_serve_through_emulated_kernels(libs, kind):
+    """The static ESANet (SE-add and add), the local-gate SkipESANet and
+    the one-modality net with SE through the emulated kernels: the launches
+    of their kernel sites, logits equal to the plain path's within 1e-5."""
+    from dynmm_tpu_torch.models.esanet import ESANet
+    from dynmm_tpu_torch.models.one_modality import ESANetOneModality
+    from dynmm_tpu_torch.models.skip_local import SkipESANet
+
+    import dataclasses
+
+    cfg = dataclasses.replace(SMALL_CFG, fuse_depth_in_rgb_encoder=(
+        "SE-add" if kind in ("static-se", "rgb-se") else "add"))
+    model = {"static-se": ESANet, "static-add": ESANet,
+             "local": lambda c: SkipESANet(c, block_rule=(1, 1, 2, 2)),
+             "rgb-se": lambda c: ESANetOneModality(c, 3, "SE-add")}[kind](cfg)
+    init_weights(model, _gen(3))
+    model = model.to(memory_format=torch.channels_last).eval()
+    g = _gen(4)
+    rgb, depth = _randn(g, 1, 64, 64, 3), _randn(g, 1, 64, 64, 1)
+    kw = {"test": True, "return_weights": True} if kind == "local" else {}
+
+    def run(use_kernels):
+        args = ((rgb,) if kind == "rgb-se" else (rgb, depth)) + (
+            (torch.Generator().manual_seed(0),) if kind == "local" else ())
+        with torch.inference_mode():
+            return model(*args, use_kernels=use_kernels, **kw)
+
+    reset_launches()
+    with emulate.emulated(libs):
+        out = run(True)
+    assert dict(LAUNCHES) == _variant_launches(kind)
+    ref = run(False)
+    if kind == "local":
+        (out, ws), (ref, ws_ref) = out, ref
+        for w, w_ref in zip(ws, ws_ref):
+            torch.testing.assert_close(w, w_ref, rtol=0, atol=0)
+    _close(out, ref)

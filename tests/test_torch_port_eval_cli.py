@@ -301,7 +301,7 @@ def test_missing_checkpoint_exits(layout, capsys):
 
 @pytest.mark.parametrize("flags, item", [
     (["--quant", "int8"], "A6"), (["--dtype", "bfloat16"], "A3"),
-    (["--modality", "rgb"], "A7")], ids=["int8", "bf16", "one-modality"])
+    (["--activation", "swish"], "A7")], ids=["int8", "bf16", "swish"])
 def test_unported_eval_flags_raise(layout, flags, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
         port_eval.main([*layout["args"], "--ckpt_path", layout["ckpt"],

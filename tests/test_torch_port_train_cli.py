@@ -5,7 +5,7 @@ pickles, the rolling and best checkpoints, ``finished.txt``); the best
 checkpoint loads into the JAX model and gives the port's eval logits
 (within 1e-4 of their largest magnitude, identical gate choices);
 ``--last_ckpt`` resumes at the next epoch; flags of features not ported
-raise (those ported since parse); ``--finetune`` reads a reference-style
+raise (those ported since parse and build their models); ``--finetune`` reads a reference-style
 ``.pth``; ``--he_init`` re-draws the same kernels as the JAX package's."""
 
 import csv
@@ -136,7 +136,7 @@ def test_last_ckpt_resumes_at_the_next_epoch(run_dir, tmp_path):
 
 
 @pytest.mark.parametrize("flags", [
-    ["--modality", "rgb"], ["--mesh-data", "2"], ["--dtype", "bfloat16"],
+    ["--activation", "swish"], ["--mesh-data", "2"], ["--dtype", "bfloat16"],
     ["--quant", "int8"]],
     ids=lambda f: f[0].lstrip("-"))
 def test_unported_flags_raise(flags):
@@ -168,9 +168,20 @@ def test_flags_ported_with_the_eval_slice_parse(flags):
 
 
 def test_local_gate_and_static_models_raise():
-    for drop in (["--global-gate"], ["--dynamic", "--global-gate"]):
-        with pytest.raises(NotImplementedError, match="A7"):
-            parse_args([a for a in TINY if a not in drop])
+    """They raised until the variants were ported; now the flags parse and
+    build the local-gate SkipESANet and the static ESANet (and
+    ``--modality rgb`` the one-modality model)."""
+    from dynmm_tpu_torch.models.esanet import ESANet
+    from dynmm_tpu_torch.models.one_modality import ESANetOneModality
+    from dynmm_tpu_torch.models.skip_local import SkipESANet
+
+    for drop, extra, cls in (
+            (["--global-gate"], [], SkipESANet),
+            (["--dynamic", "--global-gate"], [], ESANet),
+            (["--dynamic", "--global-gate"], ["--modality", "rgb"],
+             ESANetOneModality)):
+        args = parse_args([a for a in TINY if a not in drop] + extra)
+        assert type(build_model(args, 40)) is cls
 
 
 def _tiny_model():
