@@ -26,7 +26,14 @@ Run from the root of a checkout on a machine with one NVIDIA GPU:
    The SE cell also runs at the R50 net's four stage shapes (C = 256 to
    2048), the single-map ``fused_se`` at the R34 one-modality net's five
    shapes and at C = 2048. The time of each kernel per dense forward is
-   printed for B=8 and B=1, of the flagship and of the R50 net.
+   printed for B=8 and B=1, of the flagship and of the R50 net. The bf16
+   forms (``channel_sums``, ``stem_fuse_pool``, ``se_fuse_mixed``,
+   ``learned_upsample``, named "<name>.bf16") run at the same shapes on
+   bf16 maps against their bf16 plain versions (``BF16_TOL``: the stem
+   bit-identical, the sums ≤ 1e-5, the SE cell and the upsample ≤ 8e-3 of
+   max |plain| with 20-call bit-identical repeats), their bounds from bf16
+   bytes, beside two bf16→fp32 ``torch.sum`` and a bf16
+   ``conv_transpose2d``.
 3. Serve, dense: builds the 480×640 flagship with seeded random weights,
    serves 3 batches of 8 and 3 of 1 through ``dynmm_tpu_torch.serve.serve``
    (``mode="dense"``) with every launch count at 0 before, checks the
@@ -131,11 +138,27 @@ Run from the root of a checkout on a machine with one NVIDIA GPU:
    rolling checkpoint; each run's launches those of the net's kernel sites
    (the local gates' ``channel_sums``, the single-map ``fused_se``), and
    the trained weights' kernel eval path against the plain one.
-12. Prints the kernels' JSON line (launches summed over phases 3-6 and
-   8-11), the card line, and last ``{"ok": true, "device": {...}}``.
+12. The bf16 flagship: the 480×640 flagship at ``dtype=torch.bfloat16``
+   (fp32 parameters, bf16 maps, the gate in fp32) with the recipe gate
+   serves ``make_recipe_eval_batch(8, 480, 640)`` through ``dense``,
+   ``batchmax``, ``compact`` (the default ladder and
+   ``capacity_schedule``'s) and each sample through ``switch``. Counts at
+   0 before; each request's launches those of its paths (no NBt1D launch,
+   the bf16 forms otherwise). Each request against the dense bf16 forward
+   on the same paths (≤ 8e-3 of max |dense|; 0 expected), against the same
+   requests on the bf16 plain versions (gate choices identical, logits
+   within 2e-2 of max |plain|, class maps equal wherever the plain top-two
+   margin exceeds twice the max logit error) and against the fp32 flagship
+   on the same inputs (gate choices identical, drift < 5e-2 of max |fp32|,
+   class-map agreement printed). Request ms of fp32 and bf16 in turns per
+   mode at B=8 and B=1; then ``cli.eval`` and ``cli.predict --dtype
+   bfloat16`` on phase 8's layout (their launches those of the samples'
+   paths), eval's mIoU beside fp32's.
+13. Prints the kernels' JSON line (launches summed over phases 3-6 and
+   8-12), the card line, and last ``{"ok": true, "device": {...}}``.
 
 TF32 is switched off for cuDNN convolutions and matmuls here, so the kernels
-and their plain versions compare in fp32. Any failure exits non-zero before
+and their plain versions compare in fp32 (bf16 convolutions are unaffected). Any failure exits non-zero before
 the last line; without a card, or outside a checkout, it fails at once.
 Details go to ``chiprun_out/chip_smoke.json`` beside this script.
 """
@@ -163,12 +186,23 @@ PEAK_TF32_FLOPS = 495e12
 # TF32 products per fp32 product
 PEAK_TF32X3_FLOPS = PEAK_TF32_FLOPS / 3
 KERNEL_TOL = 1e-4
+# the bf16 forms against their bf16 plain versions, max abs err over
+# max |plain|: the sums (fp32 out) differ by summation order; the stem's
+# per-op bf16 arithmetic is the plain version's; the SE cell's and the
+# upsample's fp32 sums in another order move a rounding to bf16 by one step
+# (2^-7 of the top binade)
+BF16_TOL = {"channel_sums": 1e-5, "stem_fuse_pool": 0.0,
+            "se_fuse_mixed": 8e-3, "learned_upsample": 8e-3}
 REPEATS = 20  # back-to-back calls that must give bit-identical outputs
 # launches of one dense hard-gate forward of the flagship: its stride-1
 # NBt1D blocks up to NBT1D_FUSED_MAX_C channels (6 at C = 64) take one
 # launch each, the wider ones (29) two; channel_sums runs in the stem cell
 EXPECTED = {"nbt1d_fused": 6, "nbt1d_pair": 58, "channel_sums": 1,
             "stem_fuse_pool": 1, "se_fuse_mixed": 4, "learned_upsample": 5}
+# the same in bf16: the NBt1D blocks run cuDNN convs (no bf16 form), the
+# other kernels their bf16 forms, counted under "<name>.bf16"
+EXPECTED_BF16 = {"channel_sums.bf16": 1, "stem_fuse_pool.bf16": 1,
+                 "se_fuse_mixed.bf16": 4, "learned_upsample.bf16": 5}
 # the flagship's stride-1 NBt1D blocks by channel count: in each encoder
 # stage (stage i at 64·2^(i-1) channels) and in the decoder
 ENCODER_BLOCKS = ((64, 3), (128, 3), (256, 5), (512, 2))
@@ -216,6 +250,7 @@ class Case(NamedTuple):
     repeat: bool = False
     net: str = "R34"
     r50_calls: int = 0  # calls per dense forward of the R50 net
+    tol: float = KERNEL_TOL  # max abs err over max |plain|
 
 
 class Inputs:
@@ -400,6 +435,80 @@ def kernel_cases(inp: Inputs) -> list[Case]:
             lambda x=x, ws=wts: se.se_reference(x, *ws),
             None, 2 * n * 4 + se_weight_bytes(c, 1), 3.0 * n, None,
             repeat=True, net=net))
+    return cases + bf16_cases(inp)
+
+
+def bf16_cases(inp: Inputs) -> list[Case]:
+    """The bf16 forms at the bf16 flagship's shapes (the SE cell at R50's
+    too), against their bf16 plain versions with ``BF16_TOL``; bounds count
+    bf16 map bytes (2 a value) and fp32 sums, scales and SE weights."""
+    from dynmm_tpu_torch.kernels import se, stem_fuse, upsample
+
+    bf = torch.bfloat16
+    b = BATCH
+    cases = []
+    c, h, w = 64, 240, 320
+    n = b * h * w * c
+    r, d = inp.randn(b, h, w, c).to(bf), inp.randn(b, h, w, c).to(bf)
+    cases.append(Case(
+        "channel_sums.bf16", f"{b}x{h}x{w}x{c}", 1,
+        lambda r=r, d=d: se.channel_sums(r, d),
+        lambda r=r, d=d: se.channel_sums_plain(r, d),
+        lambda r=r, d=d: (torch.sum(r, dim=(1, 2), dtype=torch.float32),
+                          torch.sum(d, dim=(1, 2), dtype=torch.float32)),
+        2 * n * 2 + 2 * b * c * 4, 2.0 * n, tol=BF16_TOL["channel_sums"]))
+    s_r, s_d = inp.rand(b, c).to(bf), inp.rand(b, c).to(bf)
+    args = (r, d, s_r, s_d)
+    cases.append(Case(
+        "stem_fuse_pool.bf16", f"{b}x{h}x{w}x{c}", 1,
+        lambda a=args: stem_fuse.stem_fuse_pool(*a),
+        lambda a=args: stem_fuse.stem_fuse_pool_plain(*a), None,
+        (2 * n + 2 * n // 4) * 2 + 2 * b * c * 2, 3.0 * n + 18.0 * n / 4,
+        tol=BF16_TOL["stem_fuse_pool"]))
+    for c, h, w in ((512, 15, 20), (256, 30, 40), (128, 60, 80),
+                    (40, 120, 160), (40, 240, 320)):
+        x = inp.randn(b, h, w, c).to(bf)
+        taps = inp.randn(3, 3, c, scale=0.3).to(bf)
+        bias = inp.randn(c, scale=0.1).to(bf)
+        wt = upsample_library_weight(taps.float()).to(bf)
+        for bb in (b, 1):
+            xb = x[:bb].contiguous()
+            n = bb * h * w * c
+            cases.append(Case(
+                "learned_upsample.bf16", f"{bb}x{h}x{w}x{c}", 1,
+                lambda x=xb, k=taps, bb=bias: upsample.learned_upsample(x, k, bb),
+                lambda x=xb, k=taps, bb=bias: upsample.learned_upsample_plain(
+                    x, k, bb),
+                lambda x=xb, wt=wt, bb=bias, c=c: (
+                    torch.nn.functional.conv_transpose2d(
+                        x.permute(0, 3, 1, 2), wt, bb, stride=2, padding=1,
+                        groups=c).permute(0, 2, 3, 1)),
+                (n + 4 * n) * 2 + 10 * c * 2, 8.0 * 4 * n, batch=bb,
+                repeat=True, tol=BF16_TOL["learned_upsample"]))
+    for c, h, w, calls in ((64, 120, 160, 1), (128, 60, 80, 1),
+                           (256, 30, 40, 1), (512, 15, 20, 1),
+                           (256, 120, 160, 0), (512, 60, 80, 0),
+                           (1024, 30, 40, 0), (2048, 15, 20, 0)):
+        r, d = inp.randn(b, h, w, c).to(bf), inp.randn(b, h, w, c).to(bf)
+        cr = c // 16
+        wts = []
+        for _ in range(2):
+            wts += [inp.randn(c, cr, scale=1 / math.sqrt(c)),
+                    inp.randn(cr, scale=0.1),
+                    inp.randn(cr, c, scale=1 / math.sqrt(cr)),
+                    inp.randn(c, scale=0.1)]
+        w_rgb = inp.rand(b)
+        for bb in (b, 1):
+            rb, db, wb = r[:bb].contiguous(), d[:bb].contiguous(), w_rgb[:bb]
+            n = bb * h * w * c
+            cases.append(Case(
+                "se_fuse_mixed.bf16", f"{bb}x{h}x{w}x{c}", calls,
+                lambda r=rb, d=db, wr=wb, ws=wts: se.se_fuse_mixed(r, d, wr, *ws),
+                lambda r=rb, d=db, wr=wb, ws=wts: se.se_fuse_mixed_plain(
+                    r, d, wr, *ws),
+                None, 3 * n * 2 + se_weight_bytes(c, 2), 5.0 * n, batch=bb,
+                repeat=True, r50_calls=1 - calls,
+                tol=BF16_TOL["se_fuse_mixed"]))
     return cases
 
 
@@ -452,10 +561,10 @@ def check_kernels(report: dict) -> list[dict]:
             rel = err / scale
             if not all(torch.isfinite(a).all() for a in outs_k):
                 raise RuntimeError(f"{name} {label}: non-finite output")
-            if rel > KERNEL_TOL:
+            if rel > case.tol:
                 second_opinion(case, outs_k, outs_p)
                 raise RuntimeError(f"{name} {label}: max abs err {err:.3g} is "
-                                   f"{rel:.3g} of max |plain| > {KERNEL_TOL}")
+                                   f"{rel:.3g} of max |plain| > {case.tol}")
             if case.repeat:
                 for _ in range(REPEATS):
                     again = case.kern()
@@ -469,7 +578,8 @@ def check_kernels(report: dict) -> list[dict]:
                 outs_l = out_l if isinstance(out_l, tuple) else (out_l,)
                 lib_err = max((a - p).abs().max().item()
                               for a, p in zip(outs_l, outs_p)) / scale
-                if lib_err > KERNEL_TOL:
+                # (a bf16 library call rounds at its own points)
+                if lib_err > max(2 * case.tol, KERNEL_TOL):
                     raise RuntimeError(f"{name} {label}: library call differs "
                                        f"({lib_err:.3g})")
                 lib_ms = device_ms(case.lib)
@@ -491,7 +601,7 @@ def check_kernels(report: dict) -> list[dict]:
         bounds = (f"bound {b_ms:.4f} ms ({b_by})" if case.peak == PEAK_FP32_FLOPS
                   else f"bound 3xTF32 {b_ms:.4f} ms ({b_by}), fp32 "
                        f"{fp32_ms:.4f} ms")
-        print(f"  {name:16s} {label:22s} x{calls:<2d} R50 x{case.r50_calls} "
+        print(f"  {name:21s} {label:22s} x{calls:<2d} R50 x{case.r50_calls} "
               f"err {err:.3g} "
               f"(rel {rel:.3g})  kernel {ms:.4f} ms ({tflops:.1f} TFLOP/s)  "
               f"plain {plain_ms:.4f} ms  "
@@ -509,8 +619,10 @@ def check_kernels(report: dict) -> list[dict]:
             tot[3] += plain_ms * n_calls
         agg = per_kernel.setdefault(name, {
             "name": name, "route": "cuda",
-            "source": f"dynmm_tpu_torch/kernels/csrc/{SOURCES[name][0]}",
-            "replaces": SOURCES[name][1], "launches": 0, "max_abs_err": 0.0,
+            "source": "dynmm_tpu_torch/kernels/csrc/"
+                      + SOURCES[name.split(".")[0]][0],
+            "replaces": SOURCES[name.split(".")[0]][1], "launches": 0,
+            "max_abs_err": 0.0,
             "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "bound_by": b_by,
             "library_ms": 0.0 if lib_ms is not None else None})
         agg["max_abs_err"] = max(agg["max_abs_err"], err)
@@ -631,7 +743,7 @@ class PathGate:
 
 
 def path_launches(ran: list[bool], low_res: bool,
-                  encoder_blocks=ENCODER_BLOCKS) -> dict:
+                  encoder_blocks=ENCODER_BLOCKS, bf16: bool = False) -> dict:
     """Launches of one flagship forward whose depth stages 1-4 ran as
     ``ran`` says. Always: the rgb encoder's and the decoder's stride-1
     blocks (one ``nbt1d_fused`` each up to ``NBT1D_FUSED_MAX_C`` channels,
@@ -639,8 +751,15 @@ def path_launches(ran: list[bool], low_res: bool,
     ``channel_sums``), 5 upsamples (3 at ``low_res``). A depth stage that
     ran adds its blocks and one fusion cell (``se_fuse_mixed``).
     ``encoder_blocks``: the encoders' stride-1 NBt1D blocks per stage
-    (none for ResNet50's Bottleneck encoders, whose stages still fuse)."""
+    (none for ResNet50's Bottleneck encoders, whose stages still fuse).
+    ``bf16``: the bf16 net, whose NBt1D blocks launch nothing (cuDNN
+    convs) and whose other kernels count as "<name>.bf16"."""
     from dynmm_tpu_torch.kernels.nbt1d import NBT1D_FUSED_MAX_C
+
+    if bf16:
+        counts = path_launches(ran, low_res, ())
+        return {f"{k}.bf16": v for k, v in counts.items()
+                if not k.startswith("nbt1d")}
 
     counts = {"nbt1d_fused": 0, "nbt1d_pair": 0, "channel_sums": 1,
               "stem_fuse_pool": 1, "se_fuse_mixed": 0,
@@ -2104,6 +2223,228 @@ def check_clis(report: dict) -> dict:
     return launches
 
 
+BF16_ROUTED_TOL = 8e-3  # a routed bf16 request vs the dense bf16 forward
+BF16_PLAIN_TOL = 2e-2  # bf16 kernels vs bf16 plain versions, same weights
+# bf16 vs fp32 logits, of max |fp32 logits|: the JAX package's own bound
+# (tests/test_routed_compact.py:251)
+BF16_DRIFT_TOL = 5e-2
+TIMED_REPS = 5  # requests timed per dtype, in turns
+
+
+def _sure_pixels(logits: torch.Tensor, err: float) -> torch.Tensor:
+    """Pixels whose top-two logit margin exceeds 2·err: no error of at most
+    ``err`` on each logit can change their class."""
+    top2 = logits.float().topk(2, dim=-1).values
+    return (top2[..., 0] - top2[..., 1]) > 2 * err
+
+
+def check_bf16(report: dict) -> dict:
+    """Phase 12: the bf16 flagship (480×640, recipe gate) served in every
+    mode and through ``cli.eval`` / ``cli.predict --dtype bfloat16``, held
+    against its dense forward, its plain versions and the fp32 flagship."""
+    import shutil
+
+    from dynmm_tpu_torch.cli import eval as eval_cli
+    from dynmm_tpu_torch.cli import predict as predict_cli
+    from dynmm_tpu_torch.data.nyuv2 import NYUv2Dataset, make_recipe_eval_batch
+    from dynmm_tpu_torch.data.seg_preprocessing import SegLoader, SegPreprocessor
+    from dynmm_tpu_torch.kernels import LAUNCHES, reset_launches
+    from dynmm_tpu_torch.nn.layers import first_argmax
+    from dynmm_tpu_torch.serve import build_flagship, capacity_schedule, serve
+    from dynmm_tpu_torch.utils.checkpoint import save_checkpoint
+    from dynmm_tpu_torch.utils.device import card_line
+    from dynmm_tpu_torch.utils.weights import (flax_from_state_dict,
+                                               load_recipe_gate)
+
+    card = card_line()
+    if path_launches([True] * 4, False, bf16=True) != EXPECTED_BF16:
+        raise RuntimeError("EXPECTED_BF16 disagrees with path_launches")
+    models = {}
+    for name, dtype in (("fp32", None), ("bf16", torch.bfloat16)):
+        models[name] = build_flagship(HEIGHT, WIDTH, CLASSES, seed=0,
+                                      dtype=dtype)
+        load_recipe_gate(models[name])
+    m16, m32 = models["bf16"], models["fp32"]
+    rgb, depth = (torch.from_numpy(a).cuda()
+                  for a in make_recipe_eval_batch(BATCH, HEIGHT, WIDTH))
+    singles = [(rgb[i:i + 1].contiguous(), depth[i:i + 1].contiguous())
+               for i in range(BATCH)]
+    per_stage = capacity_schedule(m16, [(rgb, depth)], BATCH)
+    requests = [("dense", "dense", (rgb, depth), {}),
+                ("batchmax", "batchmax", (rgb, depth), {}),
+                ("compact", "compact", (rgb, depth), {}),
+                ("compact per-stage", "compact", (rgb, depth),
+                 {"caps": per_stage}),
+                *((f"switch #{i}", "switch", one, {})
+                  for i, one in enumerate(singles))]
+    for _, mode, images, kw in requests:  # warm-up, not counted
+        for m in (m16, m32):
+            serve(m, *images, mode=mode, **kw)
+        serve(m16, *images, mode="dense", use_kernels=False)
+    torch.cuda.synchronize()
+
+    # the bf16 path's run: counts at 0 just before, read just after
+    reset_launches()
+    served = []
+    for label, mode, images, kw in requests:
+        before = dict(LAUNCHES)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        class_map, weight = serve(m16, *images, mode=mode, **kw)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        delta = {k: v - before.get(k, 0) for k, v in LAUNCHES.items()
+                 if v - before.get(k, 0)}
+        paths = weight.argmax(1).tolist()
+        ran = [True] * 4 if mode == "dense" else stages_run(mode, paths, kw)
+        expected = path_launches(ran, False, bf16=True)
+        if delta != expected:
+            raise RuntimeError(f"bf16 {label}: launches {delta} != {expected}")
+        served.append((class_map, weight, ms, ran))
+    launches = dict(LAUNCHES)
+    print(f"  capacity_schedule (bf16 gate) {per_stage}; every request's "
+          "launches those of its paths", flush=True)
+
+    methods = {"dense": "forward", "batchmax": "forward_switch_batched",
+               "compact": "forward_routed_compact", "switch": "forward_switch"}
+    rows = []
+    for (label, mode, (r, d), kw), (class_map, weight, ms, ran) in zip(
+            requests, served):
+        with torch.inference_mode():
+            logits = getattr(m16, methods[mode])(
+                r, d, **({"hard": True} if mode == "dense" else kw))
+            dense, w_d = m16(r, d, hard=True, return_weight=True)
+            plain, w_p = m16(r, d, hard=True, return_weight=True,
+                             use_kernels=False)
+            ref, w32 = m32(r, d, hard=True, return_weight=True)
+        routed_err = (logits.float() - dense.float()).abs().max().item()
+        routed_rel = routed_err / dense.float().abs().max().item()
+        plain_err = (dense.float() - plain.float()).abs().max().item()
+        plain_rel = plain_err / plain.float().abs().max().item()
+        sure = _sure_pixels(plain, plain_err)
+        sure_same = bool((class_map == first_argmax(plain))[sure].all())
+        drift = ((dense.float() - ref).abs().max() / ref.abs().max()).item()
+        agree32 = (class_map == first_argmax(ref)).float().mean().item()
+        same_gate = (torch.equal(weight, w_d) and torch.equal(w_d, w_p)
+                     and torch.equal(w_d, w32))
+        ok_out = (logits.dtype == torch.bfloat16 and logits.shape == (
+            r.shape[0], HEIGHT, WIDTH, CLASSES) and bool(
+                torch.isfinite(logits).all()))
+        row = {"request": label, "mode": mode, "batch": r.shape[0],
+               "paths": weight.argmax(1).tolist(), "depth_stages_run": ran,
+               "ms": ms, "routed_vs_dense_max_abs_err": routed_err,
+               "routed_vs_dense_rel_err": routed_rel,
+               "kernels_vs_plain_max_abs_err": plain_err,
+               "kernels_vs_plain_rel_err": plain_rel,
+               "sure_pixel_share": sure.float().mean().item(),
+               "sure_pixels_equal": sure_same, "fp32_drift": drift,
+               "fp32_class_map_agreement": agree32, "same_gate": same_gate,
+               "launches": path_launches(ran, False, bf16=True)}
+        rows.append(row)
+        print(f"  {label:17s} B={r.shape[0]} paths {row['paths']}: {ms:.2f} "
+              f"ms; routed vs dense max abs err {routed_err:.3g}; kernels vs "
+              f"plain {plain_rel:.3g} of max |plain|, class maps equal on the "
+              f"{row['sure_pixel_share'] * 100:.4f} % of pixels with margin > "
+              f"2x{plain_err:.3g}: {sure_same}; vs fp32: drift {drift:.3g} of "
+              f"max |fp32|, class maps agree on {agree32 * 100:.4f} %, gate "
+              f"choices identical (bf16, plain, fp32): {same_gate}",
+              flush=True)
+        if (not ok_out or not same_gate or routed_rel > BF16_ROUTED_TOL
+                or plain_rel > BF16_PLAIN_TOL or not sure_same
+                or drift >= BF16_DRIFT_TOL):
+            raise RuntimeError(f"bf16 {label}: disagreement")
+
+    # request ms, fp32 and bf16 in turns, B=8 and B=1
+    timed = [("dense", "dense", (rgb, depth)),
+             ("batchmax", "batchmax", (rgb, depth)),
+             ("compact", "compact", (rgb, depth)),
+             ("dense", "dense", singles[0]),
+             ("batchmax", "batchmax", singles[0]),
+             ("switch", "switch", singles[0])]
+    times = []
+    for label, mode, images in timed:
+        got = {"fp32": [], "bf16": []}
+        for rep in range(TIMED_REPS):
+            for name in ("fp32", "bf16") if rep % 2 == 0 else ("bf16", "fp32"):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                serve(models[name], *images, mode=mode)
+                torch.cuda.synchronize()
+                got[name].append((time.perf_counter() - t0) * 1e3)
+        med = {k: sorted(v)[len(v) // 2] for k, v in got.items()}
+        times.append({"mode": mode, "batch": images[0].shape[0],
+                      "fp32_ms": med["fp32"], "bf16_ms": med["bf16"],
+                      "fp32_all": got["fp32"], "bf16_all": got["bf16"]})
+        print(f"  {label:8s} B={images[0].shape[0]}: fp32 {med['fp32']:.2f} "
+              f"ms, bf16 {med['bf16']:.2f} ms (median of {TIMED_REPS}, in "
+              f"turns) [{card}]", flush=True)
+    del m32
+
+    # cli.eval and cli.predict --dtype bfloat16 on phase 8's layout
+    root = ROOT / "build" / "chip_smoke_bf16"
+    shutil.rmtree(root, ignore_errors=True)
+    clis = {}
+    try:
+        _write_layout(root)
+        v = flax_from_state_dict(m16.state_dict())
+        ckpt = str(root / "flagship.msgpack")
+        save_checkpoint(ckpt, {"params": v["params"], "model_state": {
+            "batch_stats": v["batch_stats"]}}, epoch=0)
+        ds = NYUv2Dataset(str(root), "test")
+        pre = SegPreprocessor(ds.depth_mean, ds.depth_std, HEIGHT, WIDTH,
+                              phase="test")
+        with torch.inference_mode():
+            paths = [m16.gate_only(torch.from_numpy(b["image"]).cuda(),
+                                   torch.from_numpy(b["depth"]).cuda())
+                     .argmax(1).tolist()
+                     for b in SegLoader(ds, pre, batch_size=BATCH,
+                                        prefetch=0)]
+        base = ["--dataset", "nyuv2", "--dataset_dir", str(root), "--height",
+                str(HEIGHT), "--width", str(WIDTH), "--batch_size",
+                str(BATCH), "--ckpt_path", ckpt]
+        hard = [*base, "--dynamic", "--global-gate", "--hard"]
+        runs = [("eval", eval_cli.main, [*hard, "--dtype", "bfloat16"],
+                 _add({}, path_launches([True] * 4, False, bf16=True),
+                      len(paths))),
+                ("predict", predict_cli.main,
+                 [*base, "--dtype", "bfloat16", "--out_dir",
+                  str(root / "pred")], {})]
+        for p in paths:
+            _add(runs[1][3], path_launches(stages_run("batchmax", p, {}),
+                                           False, bf16=True))
+        for label, fn, argv, expected in runs:
+            reset_launches()
+            t0 = time.perf_counter()
+            res, lines = _cli_run(fn, argv)
+            wall = time.perf_counter() - t0
+            got = {k: v for k, v in LAUNCHES.items() if v}
+            if got != expected:
+                raise RuntimeError(f"{label} --dtype bfloat16: launches {got} "
+                                   f"!= {expected}")
+            _add(launches, got)
+            clis[label] = {"wall_s": wall, "launches": got, "lines": [
+                ln for ln in lines if ln.startswith(("Run", "  branch",
+                                                     "path", "model"))]}
+            if label == "eval":
+                clis[label]["miou"] = res.tolist()
+            else:
+                clis[label].update(n=res["n"], fps=res["fps"])
+                if res["n"] != CLI_SAMPLES:
+                    raise RuntimeError("predict --dtype bfloat16 wrote "
+                                       f"{res['n']} maps")
+        res32, _ = _cli_run(eval_cli.main, hard)
+        clis["eval"]["miou_fp32"] = res32.tolist()
+        print(f"  cli.eval --dtype bfloat16: mIoU {clis['eval']['miou']} "
+              f"(fp32 {clis['eval']['miou_fp32']}), {clis['eval']['wall_s']:.2f}"
+              f" s; cli.predict --dtype bfloat16: {clis['predict']['n']} maps, "
+              f"{clis['predict']['fps']:.2f} frames/s; launches those of the "
+              f"samples' paths (paths {sum(paths, [])}) [{card}]", flush=True)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    report["bf16"] = {"requests": rows, "request_ms": times, "clis": clis}
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this check runs on the card",
@@ -2159,13 +2500,16 @@ def main() -> int:
         (11, f"cli.train then cli.eval: the static ESANet, the local-gate "
              f"SkipESANet and the one-modality net with SE, R34-NBt1D at "
              f"{HEIGHT}x{WIDTH}", check_variants),
+        (12, f"the bf16 flagship at {HEIGHT}x{WIDTH} with the recipe gate: "
+             "every serving mode, cli.eval and cli.predict --dtype bfloat16",
+         check_bf16),
     ]
     for n, title, check in phases:
         print(f"[{n}] {title}", flush=True)
         t0 = time.perf_counter()
         runs.append(check(report) or {})
         print(f"  phase {n}: {time.perf_counter() - t0:.1f} s", flush=True)
-    print("[12] kernels", flush=True)
+    print("[13] kernels", flush=True)
     for k in kernels:
         k["launches"] = sum(run.get(k["name"], 0) for run in runs)
         if k["launches"] == 0:

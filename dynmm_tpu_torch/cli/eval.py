@@ -21,9 +21,11 @@ strict capacity-factor compact forward on branch ratios estimated with
 encoder's and the whole net's GFLOPs, then the mean and std over runs.
 Every model of the JAX CLI is scored (the local-gate net samples its hard
 gates under ``test``); ``--capacity_factor`` takes the global-gate net
-only. Flags of features the port does not have yet raise
+only. ``--dtype bfloat16`` scores the global-gate net in bf16, every chain
+above included. Flags of features the port does not have yet raise
 (``cli/seg_build.py::check_supported``: ``--quant int8`` ROADMAP A6,
-``--dtype bfloat16`` A3, ``--activation swish|hswish`` A7).
+``--dtype bfloat16`` for any other model A3, ``--activation swish|hswish``
+A7).
 """
 
 from __future__ import annotations

@@ -19,9 +19,10 @@ it ×4 on the host; ``--packed_stem`` packs the inputs 2×2 in the loader's
 prefetch thread. Writes ``pred_00000.png`` … (colour
 ``class_colors(n + 1)[pred + 1]``, through ``data/png.py``) and prints the
 path distribution, the expected GFLOPs a sample and frames/s (host clock,
-forward to class map on the host). ``--export_path`` / ``--export_platforms``
-(``torch.export``) and ``--quant int8`` raise, naming ROADMAP A6;
-``--dtype bfloat16`` names A3.
+forward to class map on the host). ``--dtype bfloat16`` serves the net in
+bf16 (fp32 parameters, bf16 maps, the gate in fp32; the inputs stay fp32
+and the stems cast them). ``--export_path`` / ``--export_platforms``
+(``torch.export``) and ``--quant int8`` raise, naming ROADMAP A6.
 """
 
 from __future__ import annotations

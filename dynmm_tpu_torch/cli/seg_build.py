@@ -13,12 +13,15 @@ PPM, APPM or no context module, with the 2×2 packed stem under
 layouts (``data/nyuv2.py``, ``data/other_datasets.py``) and ``synthetic``.
 ``check_supported`` raises ``NotImplementedError`` on every flag of a
 feature the port does not have yet, naming its ROADMAP item; none is
-silently ignored.
+silently ignored. ``--dtype bfloat16`` serves and scores the global-gate
+SkipGateESANet (``--dynamic --global-gate``) in bf16; the other models and
+training take fp32 only.
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from dynmm_tpu_torch.cli.seg_args import decoder_channels, nr_decoder_blocks
 from dynmm_tpu_torch.data.nyuv2 import NYUv2Dataset, SyntheticSegDataset
@@ -31,8 +34,9 @@ from dynmm_tpu_torch.models.skip_gate import SkipGateESANet
 from dynmm_tpu_torch.models.skip_local import SkipESANet
 
 
-def check_supported(args) -> None:
-    """Raise on flags of features not ported yet."""
+def check_supported(args, training: bool = False) -> None:
+    """Raise on flags of features not ported yet (``training``: for
+    ``cli.train``)."""
     missing = []
     activation = getattr(args, "activation", "relu")
     if activation.lower() != "relu":
@@ -41,8 +45,13 @@ def check_supported(args) -> None:
     if args.mesh_data > 1 or args.mesh_model > 1:
         missing.append("--mesh-data/--mesh-model above 1 (mesh training, "
                        "ROADMAP A9)")
-    if args.dtype != "float32":
-        missing.append(f"--dtype {args.dtype} (bf16, ROADMAP A3)")
+    if args.dtype != "float32" and training:
+        missing.append(f"--dtype {args.dtype} in training (bf16 training, "
+                       "ROADMAP A3-train)")
+    elif args.dtype != "float32" and not (args.dynamic and args.global_gate):
+        missing.append(f"--dtype {args.dtype} for a model other than the "
+                       "global-gate SkipGateESANet (bf16 for the others, "
+                       "ROADMAP A3)")
     if args.quant != "none":
         missing.append(f"--quant {args.quant} (int8, ROADMAP A6)")
     if missing:
@@ -67,6 +76,7 @@ def build_config(args, n_classes: int) -> ESANetConfig:
         context_module=args.context_module,
         fuse_depth_in_rgb_encoder=args.fuse_depth_in_rgb_encoder,
         upsampling=args.upsampling,
+        dtype=torch.bfloat16 if args.dtype == "bfloat16" else None,
     )
 
 

@@ -54,7 +54,7 @@ def parse_args(argv=None):
     parser.add_argument("--device", default=None,
                         help="torch device; the default is the card (cuda)")
     args = parser.parse_args(argv)
-    check_supported(args)
+    check_supported(args, training=True)
     return args
 
 

@@ -14,6 +14,12 @@ runs at import: the tests import every module on machines without ``nvcc``.
 
 ``LAUNCHES`` counts kernel launches by wrapper name. A wrapper adds one where
 it launches its kernel and nowhere else (its CPU path does not count).
+
+Maps are fp32 or, for the kernels that have a bf16 form, bf16 (``MAPS``);
+parameters stay fp32 unless a kernel says otherwise. Each form has its own
+C entry (``symbol``: ``<entry>_bf16``) and its own count (``count``: the
+fp32 form under the wrapper's name, the bf16 form under ``<name>.bf16``),
+so that launch counts stay exact per form.
 """
 
 from __future__ import annotations
@@ -38,6 +44,10 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
 LAUNCHES: collections.Counter = collections.Counter()
+
+FP32 = (torch.float32,)
+MAPS = (torch.float32, torch.bfloat16)  # the map dtypes of the bf16 forms
+_SUFFIX = {torch.float32: "", torch.bfloat16: "bf16"}
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
@@ -149,10 +159,23 @@ def check(err: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA error {err} at launch")
 
 
-def require(t: torch.Tensor, name: str, shape: tuple | None = None) -> None:
-    """fp32, contiguous and (when given) of ``shape``; raises otherwise."""
-    if t.dtype != torch.float32:
-        raise TypeError(f"{name}: expected float32, got {t.dtype}")
+def symbol(entry: str, t: torch.Tensor) -> str:
+    """The C entry of ``entry``'s form for maps of ``t``'s dtype."""
+    return f"{entry}_{_SUFFIX[t.dtype]}" if _SUFFIX[t.dtype] else entry
+
+
+def count(name: str, t: torch.Tensor) -> None:
+    """One launch of wrapper ``name``'s form for maps of ``t``'s dtype."""
+    LAUNCHES[f"{name}.{_SUFFIX[t.dtype]}" if _SUFFIX[t.dtype] else name] += 1
+
+
+def require(t: torch.Tensor, name: str, shape: tuple | None = None,
+            dtypes: tuple = FP32) -> None:
+    """Of one of ``dtypes`` (fp32 alone by default), contiguous and (when
+    given) of ``shape``; raises otherwise."""
+    if t.dtype not in dtypes:
+        names = " or ".join(str(d).replace("torch.", "") for d in dtypes)
+        raise TypeError(f"{name}: expected {names}, got {t.dtype}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: expected a contiguous tensor")
     if shape is not None and tuple(t.shape) != tuple(shape):

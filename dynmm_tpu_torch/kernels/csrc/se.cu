@@ -1,4 +1,4 @@
-// Squeeze-and-excite kernels for Hopper (sm_90a), fp32.
+// Squeeze-and-excite kernels for Hopper (sm_90a), fp32 and bf16.
 //
 // Replaces two TPU kernels of the JAX package:
 //   * dynmm_tpu/kernels/stem_fuse.py::channel_sums (_sums_kernel): per-sample
@@ -38,28 +38,40 @@
 // thread beside other pixel lanes; above, up to C = 2048 (ResNet50's
 // stage-4 cell), G = 2, two groups at one pixel lane. At C = 2048 the finalize's serial tail reads
 // both MLPs' weights, 4 MiB a sample, in the sample's last block.
+//
+// bf16 forms (the map type T, elem.cuh; four channels load as 8 bytes, the
+// indexing is the fp32 form's): channel_sums reads bf16 maps and writes
+// fp32 sums. The SE cell rounds where the Pallas fused_se does at bf16:
+// the per-channel means (fp32 sums / HW) to bf16, the MLP in fp32 with the
+// fp32 weights, the scale to bf16; the gate mix w + (1-w)*s and (1-w)*s
+// op by op in bf16 (w rounded first), as the JAX model's fuse_mixed; in
+// the mix each product and the sum are rounded. Partial sums and scales
+// stay fp32 buffers (the scales hold bf16 values).
 
 #include <cuda_runtime.h>
 #include <cstdint>
 
+#include "elem.cuh"
+
 // grid (S, B, 2); blockDim = P*C. Thread (p, c) sums channel c over the
 // pixels p, p+P, ... of split s; the P lanes of a channel then reduce in
 // shared memory. Neighbouring threads read neighbouring channels.
-__global__ void sums_partial_kernel(const float* __restrict__ a,
-                                    const float* __restrict__ b,
+template <class T>
+__global__ void sums_partial_kernel(const T* __restrict__ a,
+                                    const T* __restrict__ b,
                                     float* __restrict__ partial,
                                     int HW, int C, int S, int P) {
   extern __shared__ float red[];
-  const float* x = blockIdx.z == 0 ? a : b;
+  const T* x = blockIdx.z == 0 ? a : b;
   const int s = blockIdx.x, n = blockIdx.y;
   const int p = threadIdx.x / C, c = threadIdx.x % C;
   const long chunk = ((long)HW + S - 1) / S;
   const long q0 = (long)s * chunk;
   const long q1 = q0 + chunk < HW ? q0 + chunk : (long)HW;
-  const float* xs = x + (size_t)n * HW * C;
+  const T* xs = x + (size_t)n * HW * C;
   float acc = 0.f;
 #pragma unroll 4
-  for (long q = q0 + p; q < q1; q += P) acc += xs[(size_t)q * C + c];
+  for (long q = q0 + p; q < q1; q += P) acc += to_f(xs[(size_t)q * C + c]);
   red[threadIdx.x] = acc;
   __syncthreads();
   if (p == 0) {
@@ -83,20 +95,34 @@ __global__ void sums_finalize_kernel(const float* __restrict__ partial,
   }
 }
 
-// partial holds 2*B*S*C floats.
-extern "C" int dynmm_channel_sums(const float* a, const float* b,
-                                  float* partial, float* out_a, float* out_b,
-                                  int B, int HW, int C, int S, void* stream) {
+template <class T>
+static int channel_sums(const T* a, const T* b, float* partial, float* out_a,
+                        float* out_b, int B, int HW, int C, int S,
+                        void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   int P = 256 / C;
   if (P < 1) P = 1;
   dim3 grid(S, B, 2);
-  sums_partial_kernel<<<grid, P * C, P * C * sizeof(float), st>>>(
+  sums_partial_kernel<T><<<grid, P * C, P * C * sizeof(float), st>>>(
       a, b, partial, HW, C, S, P);
   dim3 grid2(B, 2);
   int threads = C < 1024 ? C : 1024;
   sums_finalize_kernel<<<grid2, threads, 0, st>>>(partial, out_a, out_b, S, C);
   return (int)cudaGetLastError();
+}
+
+// partial holds 2*B*S*C floats; the sums are fp32 in both forms.
+extern "C" int dynmm_channel_sums(const float* a, const float* b,
+                                  float* partial, float* out_a, float* out_b,
+                                  int B, int HW, int C, int S, void* stream) {
+  return channel_sums(a, b, partial, out_a, out_b, B, HW, C, S, stream);
+}
+
+extern "C" int dynmm_channel_sums_bf16(const bf16* a, const bf16* b,
+                                       float* partial, float* out_a,
+                                       float* out_b, int B, int HW, int C,
+                                       int S, void* stream) {
+  return channel_sums(a, b, partial, out_a, out_b, B, HW, C, S, stream);
 }
 
 __device__ __forceinline__ float sigmoidf_(float v) {
@@ -160,11 +186,11 @@ constexpr int se_smem_floats(int C, int Cr) {
 // grid (S, B), SE_THREADS threads, the se_ct<G> mapping: each thread sums
 // its float4 groups over the pixels p, p+P, ... of its block's chunk. x_d ==
 // nullptr: one map (fused_se). partial holds B*S*2*C floats, scales B*2*C,
-// counter B zeros (left at zero).
-template <int G>
+// counter B zeros (left at zero). T: the maps' element type.
+template <int G, class T>
 __global__ void __launch_bounds__(SE_THREADS)
-    se_squeeze_kernel(const float4* __restrict__ x_r,
-                      const float4* __restrict__ x_d,
+    se_squeeze_kernel(const T* __restrict__ x_r,
+                      const T* __restrict__ x_d,
                       float* __restrict__ partial, float* __restrict__ scales,
                       unsigned* __restrict__ counter, SeWeights wr,
                       SeWeights wd, const float* __restrict__ w_rgb, int HW,
@@ -187,18 +213,18 @@ __global__ void __launch_bounds__(SE_THREADS)
   if (p < P) {
     int q0, q1;
     split_range(HW, S, s, q0, q1);
-    const size_t base = (size_t)n * HW * C4;
-    const float4* xr = x_r + base;
-    const float4* xd = two ? x_d + base : nullptr;
+    const size_t base = (size_t)n * HW * C;
+    const T* xr = x_r + base;
+    const T* xd = two ? x_d + base : nullptr;
 #pragma unroll 4
     for (int q = q0 + p; q < q1; q += P) {
 #pragma unroll
       for (int k = 0; k < G; ++k) {
         const int g = gc + k * CT;
         if (se_own<G>(g, C4)) {
-          const int e = q * C4 + g;
-          add4(ar[k], xr[e]);
-          if (two) add4(ad[k], xd[e]);
+          const int e = 4 * (q * C4 + g);
+          add4(ar[k], load4(xr + e));
+          if (two) add4(ad[k], load4(xd + e));
         }
       }
     }
@@ -243,7 +269,7 @@ __global__ void __launch_bounds__(SE_THREADS)
   for (int c = t; c < maps * C; c += SE_THREADS) {
     float tot = 0.f;
     for (int k = 0; k < S; ++k) tot += __ldcg(pn + (size_t)k * 2 * C + c);
-    mean[c] = tot / (float)HW;
+    mean[c] = rnd<T>(tot / (float)HW);
   }
   __syncthreads();
   // layer 1, spread over the block: thread (slice, j) sums mean[c]*w1[c][j]
@@ -270,7 +296,8 @@ __global__ void __launch_bounds__(SE_THREADS)
   }
   __syncthreads();
   // layer 2, one thread per channel, and the mix weight folded in
-  const float w = w_rgb != nullptr ? w_rgb[n] : 0.f;
+  const float w = rnd<T>(w_rgb != nullptr ? w_rgb[n] : 0.f);
+  const float w1m = rnd<T>(1.f - w);
   float* sc = scales + (size_t)n * 2 * C;
   for (int c = t; c < C; c += SE_THREADS) {
     float a = 0.f, d = 0.f;
@@ -278,19 +305,18 @@ __global__ void __launch_bounds__(SE_THREADS)
       a += hid[jj] * wr.w2[jj * C + c];
       if (two) d += hid[Cr + jj] * wd.w2[jj * C + c];
     }
-    sc[c] = w + (1.f - w) * sigmoidf_(a + wr.b2[c]);
-    sc[C + c] = two ? (1.f - w) * sigmoidf_(d + wd.b2[c]) : 0.f;
+    sc[c] = rnd<T>(w + rnd<T>(w1m * rnd<T>(sigmoidf_(a + wr.b2[c]))));
+    sc[C + c] = two ? rnd<T>(w1m * rnd<T>(sigmoidf_(d + wd.b2[c]))) : 0.f;
   }
 }
 
 // grid (S, B), SE_THREADS threads, block (x, y) mixes chunk S-1-x of sample
 // B-1-y: the reverse of the squeeze's order. The squeeze's thread mapping;
 // each thread loads the scales of its groups once.
-template <int G>
+template <int G, class T>
 __global__ void __launch_bounds__(SE_THREADS)
-    se_mix_kernel(const float4* __restrict__ x_r,
-                  const float4* __restrict__ x_d,
-                  const float4* __restrict__ scales, float4* __restrict__ out,
+    se_mix_kernel(const T* __restrict__ x_r, const T* __restrict__ x_d,
+                  const float4* __restrict__ scales, T* __restrict__ out,
                   int HW, int C) {
   const int S = gridDim.x;
   const int s = S - 1 - (int)blockIdx.x;
@@ -313,55 +339,74 @@ __global__ void __launch_bounds__(SE_THREADS)
   }
   int q0, q1;
   split_range(HW, S, s, q0, q1);
-  const size_t base = (size_t)n * HW * C4;
-  const float4* xr = x_r + base;
-  const float4* xd = two ? x_d + base : nullptr;
-  float4* o = out + base;
+  const size_t base = (size_t)n * HW * C;
+  const T* xr = x_r + base;
+  const T* xd = two ? x_d + base : nullptr;
+  T* o = out + base;
 #pragma unroll 4
   for (int q = q0 + p; q < q1; q += P) {
 #pragma unroll
     for (int k = 0; k < G; ++k) {
       const int g = gc + k * CT;
       if (se_own<G>(g, C4)) {
-        const int e = q * C4 + g;
-        const float4 r = xr[e];
+        const int e = 4 * (q * C4 + g);
+        const float4 r = load4(xr + e);
         const float4 a = sr[k];
-        float4 v = make_float4(r.x * a.x, r.y * a.y, r.z * a.z, r.w * a.w);
+        float4 v = make_float4(rnd<T>(r.x * a.x), rnd<T>(r.y * a.y),
+                               rnd<T>(r.z * a.z), rnd<T>(r.w * a.w));
         if (two) {
-          const float4 d = xd[e];
+          const float4 d = load4(xd + e);
           const float4 b = sd[k];
-          v.x += d.x * b.x;
-          v.y += d.y * b.y;
-          v.z += d.z * b.z;
-          v.w += d.w * b.w;
+          v.x = rnd<T>(v.x + rnd<T>(d.x * b.x));
+          v.y = rnd<T>(v.y + rnd<T>(d.y * b.y));
+          v.z = rnd<T>(v.z + rnd<T>(d.z * b.z));
+          v.w = rnd<T>(v.w + rnd<T>(d.w * b.w));
         }
-        o[e] = v;
+        store4(o + e, v);
       }
     }
   }
 }
 
-template <int G>
-static int se_launch(const float4* x_r, const float4* x_d, float* partial,
+template <int G, class T>
+static int se_launch(const T* x_r, const T* x_d, float* partial,
                      float* scales, unsigned* counter, SeWeights wr,
-                     SeWeights wd, const float* w_rgb, float4* out, int B,
+                     SeWeights wd, const float* w_rgb, T* out, int B,
                      int HW, int C, int Cr, int S, cudaStream_t st) {
   dim3 grid(S, B);
   const size_t smem = (size_t)se_smem_floats(C, Cr) * sizeof(float);
-  se_squeeze_kernel<G><<<grid, SE_THREADS, smem, st>>>(
+  se_squeeze_kernel<G, T><<<grid, SE_THREADS, smem, st>>>(
       x_r, x_d, partial, scales, counter, wr, wd, w_rgb, HW, C, Cr);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  se_mix_kernel<G><<<grid, SE_THREADS, 0, st>>>(
+  se_mix_kernel<G, T><<<grid, SE_THREADS, 0, st>>>(
       x_r, x_d, (const float4*)scales, out, HW, C);
   return (int)cudaGetLastError();
 }
 
+template <class T>
+static int se_fuse(const T* x_r, const T* x_d, const float* w1r,
+                   const float* b1r, const float* w2r, const float* b2r,
+                   const float* w1d, const float* b1d, const float* w2d,
+                   const float* b2d, const float* w_rgb, float* partial,
+                   float* scales, unsigned* counter, T* out, int B, int HW,
+                   int C, int Cr, int S, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  const SeWeights wr{w1r, b1r, w2r, b2r}, wd{w1d, b1d, w2d, b2d};
+  if (C <= 4 * SE_THREADS)
+    return se_launch<1, T>(x_r, x_d, partial, scales, counter, wr, wd, w_rgb,
+                           out, B, HW, C, Cr, S, st);
+  return se_launch<SE_MAX_G, T>(x_r, x_d, partial, scales, counter, wr, wd,
+                                w_rgb, out, B, HW, C, Cr, S, st);
+}
+
 // The SE cell in two launches. C % 4 == 0, C <= 4*SE_THREADS*SE_MAX_G, Cr <=
-// SE_THREADS and 16-byte aligned maps (the wrapper checks); S splits per
+// SE_THREADS and 16-byte aligned maps (8-byte for bf16; the wrapper
+// checks); S splits per
 // sample. x_d == nullptr: single-map SE (w = 0, the w*d weights unused).
 // w_rgb == nullptr means w = 0. partial: B*S*2*C floats; scales: B*2*C;
-// counter: B unsigned zeros, left at zero.
+// counter: B unsigned zeros, left at zero. The MLP weights and w_rgb are
+// fp32 in both forms.
 extern "C" int dynmm_se_fuse(const float* x_r, const float* x_d,
                              const float* w1r, const float* b1r,
                              const float* w2r, const float* b2r,
@@ -371,13 +416,20 @@ extern "C" int dynmm_se_fuse(const float* x_r, const float* x_d,
                              float* scales, unsigned* counter, float* out,
                              int B, int HW, int C, int Cr, int S,
                              void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
-  const SeWeights wr{w1r, b1r, w2r, b2r}, wd{w1d, b1d, w2d, b2d};
-  if (C <= 4 * SE_THREADS)
-    return se_launch<1>((const float4*)x_r, (const float4*)x_d, partial,
-                        scales, counter, wr, wd, w_rgb, (float4*)out, B, HW,
-                        C, Cr, S, st);
-  return se_launch<SE_MAX_G>((const float4*)x_r, (const float4*)x_d, partial,
-                             scales, counter, wr, wd, w_rgb, (float4*)out, B,
-                             HW, C, Cr, S, st);
+  return se_fuse(x_r, x_d, w1r, b1r, w2r, b2r, w1d, b1d, w2d, b2d, w_rgb,
+                 partial, scales, counter, out, B, HW, C, Cr, S, stream);
+}
+
+// The bf16 form: bf16 maps in and out (8-byte aligned).
+extern "C" int dynmm_se_fuse_bf16(const bf16* x_r, const bf16* x_d,
+                                  const float* w1r, const float* b1r,
+                                  const float* w2r, const float* b2r,
+                                  const float* w1d, const float* b1d,
+                                  const float* w2d, const float* b2d,
+                                  const float* w_rgb, float* partial,
+                                  float* scales, unsigned* counter, bf16* out,
+                                  int B, int HW, int C, int Cr, int S,
+                                  void* stream) {
+  return se_fuse(x_r, x_d, w1r, b1r, w2r, b2r, w1d, b1d, w2d, b2d, w_rgb,
+                 partial, scales, counter, out, B, HW, C, Cr, S, stream);
 }

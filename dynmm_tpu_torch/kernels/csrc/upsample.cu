@@ -1,4 +1,4 @@
-// Learned x2 upsample kernel for Hopper (sm_90a), fp32.
+// Learned x2 upsample kernel for Hopper (sm_90a), fp32 and bf16.
 //
 // Replaces dynmm_tpu/kernels/upsample.py::fused_learned_upsample (_kernel):
 // nearest x2 followed by a zero-padded depthwise 3x3 conv plus bias
@@ -39,40 +39,48 @@
 // step (D = 1), 0.57: one row's loads are too few to cover the latency.
 // This design with plain stores: 0.31 at D = 4 or 8; streaming stores at
 // D = 2: 0.30.
+//
+// bf16 form (the element type E, elem.cuh): bf16 map, taps and bias (the
+// bf16-cast parameters that the JAX model and the Pallas function see);
+// the tap sums and the stencil run in fp32 and each output rounds once, at
+// the store. V = 4 moves four channels as 8 bytes; the vector path needs
+// 8-byte aligned pointers.
 
 #include <cuda_runtime.h>
 #include <cstdint>
+
+#include "elem.cuh"
 
 constexpr int UP_THREADS = 256;
 constexpr int UP_STRIP_MAX = 16;
 constexpr int UP_ROWS = 4;  // source rows a step loads together (D)
 
-template <int V>
-__device__ __forceinline__ void load_vec(float (&d)[V], const float* p) {
+template <int V, class E>
+__device__ __forceinline__ void load_vec(float (&d)[V], const E* p) {
   if constexpr (V == 4) {
-    const float4 t = *reinterpret_cast<const float4*>(p);
+    const float4 t = load4(p);
     d[0] = t.x;
     d[1] = t.y;
     d[2] = t.z;
     d[3] = t.w;
   } else {
-    d[0] = *p;
+    d[0] = to_f(*p);
   }
 }
 
-template <int V>
-__device__ __forceinline__ void store_vec(float* p, const float (&s)[V]) {
+template <int V, class E>
+__device__ __forceinline__ void store_vec(E* p, const float (&s)[V]) {
   if constexpr (V == 4) {
-    __stcs(reinterpret_cast<float4*>(p), make_float4(s[0], s[1], s[2], s[3]));
+    store4(p, make_float4(s[0], s[1], s[2], s[3]), true);
   } else {
-    *p = s[0];
+    *p = from_f<E>(s[0]);
   }
 }
 
 // v[f] = x[row][col0+f] (channels c..c+V-1), zero outside the map
-template <int V>
+template <int V, class E>
 __device__ __forceinline__ void load_cells(float (&v)[2][V],
-                                           const float* __restrict__ xs,
+                                           const E* __restrict__ xs,
                                            int row, int col0, int c, int H,
                                            int W, int C) {
   const bool in = row >= 0 && row < H;
@@ -80,7 +88,7 @@ __device__ __forceinline__ void load_cells(float (&v)[2][V],
   for (int f = 0; f < 2; ++f) {
     const int col = col0 + f;
     if (in && col >= 0 && col < W) {
-      load_vec<V>(v[f], xs + (row * W + col) * C + c);
+      load_vec<V, E>(v[f], xs + (row * W + col) * C + c);
     } else {
 #pragma unroll
       for (int i = 0; i < V; ++i) v[f][i] = 0.f;
@@ -89,13 +97,11 @@ __device__ __forceinline__ void load_cells(float (&v)[2][V],
 }
 
 // grid (ceil(2W*C/V / UP_THREADS), ceil(H/S), N)
-template <int V, int D>
+template <int V, int D, class E>
 __global__ void __launch_bounds__(UP_THREADS)
-    learned_upsample_kernel(const float* __restrict__ x,
-                            const float* __restrict__ k,
-                            const float* __restrict__ bias,
-                            float* __restrict__ out, int H, int W, int C,
-                            int S) {
+    learned_upsample_kernel(const E* __restrict__ x, const E* __restrict__ k,
+                            const E* __restrict__ bias, E* __restrict__ out,
+                            int H, int W, int C, int S) {
   const int CG = C / V;
   const int t = blockIdx.x * UP_THREADS + threadIdx.x;
   if (t >= 2 * W * CG) return;
@@ -114,7 +120,8 @@ __global__ void __launch_bounds__(UP_THREADS)
 #pragma unroll
     for (int du = 0; du < 3; ++du)
 #pragma unroll
-      for (int dv = 0; dv < 3; ++dv) kk[du][dv] = k[(du * 3 + dv) * C + c + i];
+      for (int dv = 0; dv < 3; ++dv)
+        kk[du][dv] = to_f(k[(du * 3 + dv) * C + c + i]);
 #pragma unroll
     for (int rp = 0; rp < 2; ++rp)
 #pragma unroll
@@ -128,19 +135,19 @@ __global__ void __launch_bounds__(UP_THREADS)
         T[rp][e][0][i] = cp == 0 ? R[0] : R[0] + R[1];
         T[rp][e][1][i] = cp == 0 ? R[1] + R[2] : R[2];
       }
-    bc[i] = bias[c + i];
+    bc[i] = to_f(bias[c + i]);
   }
 
-  const float* xs = x + (size_t)n * H * W * C;
-  float* os = out + (size_t)n * 4 * H * W * C + ox * C + c;
+  const E* xs = x + (size_t)n * H * W * C;
+  E* os = out + (size_t)n * 4 * H * W * C + ox * C + c;
   const int OWC = 2 * W * C;  // floats in an output row
   float v[D + 2][2][V];       // v[i][f] = x[a-1+i][col0+f]
-  load_cells<V>(v[0], xs, a0 - 1, col0, c, H, W, C);
-  load_cells<V>(v[1], xs, a0, col0, c, H, W, C);
+  load_cells<V, E>(v[0], xs, a0 - 1, col0, c, H, W, C);
+  load_cells<V, E>(v[1], xs, a0, col0, c, H, W, C);
   for (int a = a0; a < a1; a += D) {
 #pragma unroll
     for (int d = 0; d < D; ++d)
-      load_cells<V>(v[2 + d], xs, a + 1 + d, col0, c, H, W, C);
+      load_cells<V, E>(v[2 + d], xs, a + 1 + d, col0, c, H, W, C);
 #pragma unroll
     for (int d = 0; d < D; ++d) {
       if (d > 0 && a + d >= a1) break;
@@ -156,7 +163,7 @@ __global__ void __launch_bounds__(UP_THREADS)
                    T[rp][e][1][i] * v[d + rp + e][1][i];
           o[i] = acc;
         }
-        store_vec<V>(os + (2 * (a + d) + rp) * OWC, o);
+        store_vec<V, E>(os + (2 * (a + d) + rp) * OWC, o);
       }
     }
 #pragma unroll
@@ -169,15 +176,15 @@ __global__ void __launch_bounds__(UP_THREADS)
   }
 }
 
-// sms: the card's SM count, which sets the strip.
-extern "C" int dynmm_learned_upsample(const float* x, const float* k,
-                                      const float* bias, float* out, int N,
-                                      int H, int W, int C, int sms,
-                                      void* stream) {
+template <class E>
+static int learned_upsample(const E* x, const E* k, const E* bias, E* out,
+                            int N, int H, int W, int C, int sms,
+                            void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
+  const uintptr_t align = 4 * sizeof(E) - 1;  // a V = 4 access
   const bool vec = C % 4 == 0 && ((reinterpret_cast<uintptr_t>(x) |
                                    reinterpret_cast<uintptr_t>(out)) &
-                                  15) == 0;
+                                  align) == 0;
   const int cols = 2 * W * (vec ? C / 4 : C);
   const int bx = (cols + UP_THREADS - 1) / UP_THREADS;
   // the longest strip up to UP_STRIP_MAX rows that leaves two blocks per SM
@@ -185,10 +192,26 @@ extern "C" int dynmm_learned_upsample(const float* x, const float* k,
   const int S = fill < 1 ? 1 : fill > UP_STRIP_MAX ? UP_STRIP_MAX : (int)fill;
   dim3 grid(bx, (H + S - 1) / S, N);
   if (vec)
-    learned_upsample_kernel<4, UP_ROWS>
+    learned_upsample_kernel<4, UP_ROWS, E>
         <<<grid, UP_THREADS, 0, st>>>(x, k, bias, out, H, W, C, S);
   else
-    learned_upsample_kernel<1, UP_ROWS>
+    learned_upsample_kernel<1, UP_ROWS, E>
         <<<grid, UP_THREADS, 0, st>>>(x, k, bias, out, H, W, C, S);
   return (int)cudaGetLastError();
+}
+
+// sms: the card's SM count, which sets the strip.
+extern "C" int dynmm_learned_upsample(const float* x, const float* k,
+                                      const float* bias, float* out, int N,
+                                      int H, int W, int C, int sms,
+                                      void* stream) {
+  return learned_upsample(x, k, bias, out, N, H, W, C, sms, stream);
+}
+
+// The bf16 form: map, taps, bias and output bf16.
+extern "C" int dynmm_learned_upsample_bf16(const bf16* x, const bf16* k,
+                                           const bf16* bias, bf16* out, int N,
+                                           int H, int W, int C, int sms,
+                                           void* stream) {
+  return learned_upsample(x, k, bias, out, N, H, W, C, sms, stream);
 }

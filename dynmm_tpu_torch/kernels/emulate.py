@@ -17,7 +17,10 @@ otherwise, warp collectives (``mma.sync``) through a per-warp barrier of 32
 and a per-warp exchange buffer (``emu_warp_sync``, ``emu_warp_mem``), and
 ``cp.async`` as a synchronous copy; ``__threadfence`` is a no-op and
 ``atomicAdd`` a plain read-modify-write, since blocks run in turn on one OS
-thread; ``__stcs`` and ``__ldcg`` are plain stores and loads. Wrappers
+thread; ``__stcs`` and ``__ldcg`` are plain stores and loads. ``__nv_bfloat16``
+is a 16-bit struct with ``cuda_bf16.h``'s round-to-nearest-even
+``__float2bfloat16_rn`` and ``__bfloat162float``, so the bf16 forms run here
+too. Wrappers
 size their grids for ``SMS`` streaming multiprocessors, few, so that a
 test's small shapes still get several blocks. Headers under ``csrc/``
 (``*.cuh``) are included as they are, through ``-I``: they hold no launch
@@ -55,6 +58,7 @@ SHIM = r"""
 #include <algorithm>
 #include <cmath>
 #include <cstddef>
+#include <cstring>
 #include <memory>
 #include <utility>
 #include <vector>
@@ -132,6 +136,32 @@ inline cudaError_t emu_error = 0;  // read and cleared as on the card
 inline cudaError_t cudaGetLastError() { return std::exchange(emu_error, 0); }
 struct alignas(16) float4 { float x, y, z, w; };
 inline float4 make_float4(float a, float b, float c, float d) { return {a, b, c, d}; }
+struct alignas(8) uint2 { unsigned x, y; };
+inline uint2 make_uint2(unsigned a, unsigned b) { return {a, b}; }
+inline float __uint_as_float(unsigned u) {
+  float f;
+  std::memcpy(&f, &u, sizeof f);
+  return f;
+}
+inline unsigned __float_as_uint(float f) {
+  unsigned u;
+  std::memcpy(&u, &f, sizeof u);
+  return u;
+}
+// bf16: the upper 16 bits of a float; narrowing rounds to nearest even
+// (NaN stays a quiet NaN), as cuda_bf16.h's intrinsics
+struct __nv_bfloat16 { unsigned short x; };
+inline __nv_bfloat16 __float2bfloat16_rn(float f) {
+  unsigned u = __float_as_uint(f);
+  if ((u & 0x7fffffffu) > 0x7f800000u)
+    return {(unsigned short)((u >> 16) | 0x40u)};
+  u += 0x7fffu + ((u >> 16) & 1u);
+  return {(unsigned short)(u >> 16)};
+}
+inline float __bfloat162float(__nv_bfloat16 b) {
+  return __uint_as_float((unsigned)b.x << 16);
+}
+inline unsigned short __bfloat16_as_ushort(__nv_bfloat16 b) { return b.x; }
 #define __global__
 #define __device__
 #define __forceinline__ inline

@@ -12,7 +12,10 @@ pair per launch. ``nbt1d_block`` picks between them by channel count. Taps
 are packed (3, C_in, C_out) — ``w[d]`` is the tap at row (3×1) or column
 (1×3) offset d−1 — and BN is folded into the affine (s, t) with eps 1e-3
 (``fold_bn``). Both conversions happen once, when the weights are loaded.
-Maps are NHWC fp32.
+Maps are NHWC fp32. There is no bf16 form: the TPU kernels have none (their
+fp32 stores into a bf16 output fail, ``dynmm_tpu/kernels/nbt1d.py:103``,
+``:210``), so a bf16 map on the card raises and a bf16 block runs its
+unfused convs (``models/resnet.py``), as the JAX model's bf16 block does.
 """
 
 from __future__ import annotations
@@ -53,6 +56,12 @@ def nbt1d_pair_plain(x, wr, br, wc, bc, s, t, identity=None):
     return torch.relu(h)
 
 
+def _require_fp32(x: torch.Tensor, name: str) -> None:
+    if x.dtype == torch.bfloat16:
+        raise TypeError(f"{name}: the TPU kernel has no bf16 form; a bf16 "
+                        "NonBottleneck1D block runs its unfused convs")
+
+
 def nbt1d_pair(x: torch.Tensor, wr: torch.Tensor, br: torch.Tensor,
                wc: torch.Tensor, bc: torch.Tensor, s: torch.Tensor,
                t: torch.Tensor, identity: torch.Tensor | None = None
@@ -66,6 +75,7 @@ def nbt1d_pair(x: torch.Tensor, wr: torch.Tensor, br: torch.Tensor,
     if not _build.on_card(x, wr, br, wc, bc, s, t, identity):
         return nbt1d_pair_plain(x, wr, br, wc, bc, s, t, identity)
     n, h, w, c = x.shape
+    _require_fp32(x, "nbt1d_pair")
     _build.require(x, "x")
     for name, a in (("wr", wr), ("wc", wc)):
         _build.require(a, name, (3, c, c))
@@ -101,6 +111,7 @@ def nbt1d_fused(x: torch.Tensor, w1, b1, w2, b2, s1, t1, w3, b3, w4, b4,
     if not _build.on_card(x, *params):
         return nbt1d_fused_plain(x, *params)
     n, h, w, c = x.shape
+    _require_fp32(x, "nbt1d_fused")
     _build.require(x, "x")
     for i, a in enumerate(params):
         _build.require(a, f"block parameter {i}",

@@ -8,11 +8,20 @@ path's SE-add fusion cells take (``SqueezeAndExciteFusionAdd.fuse_mixed``):
     out = rgb·(w + (1−w)·s_r) + depth·((1−w)·s_d),
     s   = sigmoid(relu(mean_HW(x) @ w1 + b1) @ w2 + b2)
 
-Maps are NHWC (B, H, W, C) fp32; SE weights take the JAX layout
-``w1 (C, C/16)``, ``w2 (C/16, C)``; the SE cell takes C ≤ ``SE_MAX_C``
-(2048, ResNet50's widest fusion cell). Each wrapper takes its plain version
-for CPU tensors and launches its kernel for CUDA tensors. Grids are sized
-from the card's SM count.
+Maps are NHWC (B, H, W, C), fp32 or bf16 (each kernel has a bf16 form);
+SE weights stay fp32 and take the JAX layout ``w1 (C, C/16)``,
+``w2 (C/16, C)``; the SE cell takes C ≤ ``SE_MAX_C`` (2048, ResNet50's
+widest fusion cell). Each wrapper takes its plain version for CPU tensors
+and launches its kernel for CUDA tensors. Grids are sized from the card's
+SM count.
+
+At bf16 the plain versions round where the kernels round, which is where
+the Pallas functions round: the sums are fp32; the SE cell rounds each
+map's channel means (an fp32 mean) to bf16, runs the MLP in fp32 on the
+fp32 weights, rounds the scale to bf16, and then computes the gate mix
+``w + (1−w)·s``, ``(1−w)·s`` and ``rgb·s_r' + depth·s_d'`` op by op in
+bf16, as the JAX model's ``fuse_mixed`` does. In fp32 (and float64) every
+rounding point is the identity.
 """
 
 from __future__ import annotations
@@ -24,20 +33,25 @@ import torch
 from dynmm_tpu_torch.kernels import _build
 
 
+def wide(x: torch.Tensor) -> torch.Tensor:
+    """``x`` in at least fp32 (float64 stays float64)."""
+    return x.to(torch.promote_types(x.dtype, torch.float32))
+
+
 # ---------------------------------------------------------------- sums
 def channel_sums_plain(rgb: torch.Tensor, depth: torch.Tensor):
-    return rgb.sum(dim=(1, 2)), depth.sum(dim=(1, 2))
+    return wide(rgb).sum(dim=(1, 2)), wide(depth).sum(dim=(1, 2))
 
 
 def channel_sums(rgb: torch.Tensor, depth: torch.Tensor):
-    """Per-sample per-channel fp32 sums of two (B, H, W, C) maps (the stem
-    cell's pass 1): ``(sums_rgb, sums_depth)``, each (B, C)."""
+    """Per-sample per-channel fp32 sums of two (B, H, W, C) fp32 or bf16
+    maps (the stem cell's pass 1): ``(sums_rgb, sums_depth)``, each (B, C)."""
     if not _build.on_card(rgb, depth):
         return channel_sums_plain(rgb, depth)
     bsz, c = rgb.shape[0], rgb.shape[-1]
     hw = rgb.numel() // (bsz * c)
-    _build.require(rgb, "rgb")
-    _build.require(depth, "depth", tuple(rgb.shape))
+    _build.require(rgb, "rgb", dtypes=_build.MAPS)
+    _build.require(depth, "depth", tuple(rgb.shape), dtypes=(rgb.dtype,))
     if c > 1024:
         raise ValueError(f"channel_sums takes C <= 1024, got {c}")
     # blocks per sample: ~4 per SM over the batch, each of at least 64 pixels
@@ -46,11 +60,11 @@ def channel_sums(rgb: torch.Tensor, depth: torch.Tensor):
                           dtype=torch.float32)
     out_r = torch.empty((bsz, c), device=rgb.device, dtype=torch.float32)
     out_d = torch.empty_like(out_r)
-    fn = _build.function("se", "dynmm_channel_sums", 5, 4)
+    fn = _build.function("se", _build.symbol("dynmm_channel_sums", rgb), 5, 4)
     _build.check(fn(_build.ptr(rgb), _build.ptr(depth), _build.ptr(partial),
                     _build.ptr(out_r), _build.ptr(out_d), bsz, hw, c, splits,
                     _build.stream()), "channel_sums")
-    _build.LAUNCHES["channel_sums"] += 1
+    _build.count("channel_sums", rgb)
     return out_r, out_d
 
 
@@ -60,10 +74,19 @@ def se_scale(mean: torch.Tensor, w1, b1, w2, b2) -> torch.Tensor:
     return torch.sigmoid(torch.relu(mean @ w1 + b1) @ w2 + b2)
 
 
+def map_scale(x: torch.Tensor, w1, b1, w2, b2, dims=(1, 2),
+              keepdim: bool = False) -> torch.Tensor:
+    """The SE scale of a map, in the map's dtype: the mean over ``dims``
+    in at least fp32, rounded to the map's dtype, then the MLP (``se_scale``)
+    on the weights' dtype, its output rounded to the map's dtype."""
+    mean = wide(wide(x).mean(dim=dims, keepdim=keepdim).to(x.dtype))
+    return se_scale(mean, w1, b1, w2, b2).to(x.dtype)
+
+
 def se_fuse_mixed_plain(rgb, depth, w_rgb, wr1, br1, wr2, br2,
                         wd1, bd1, wd2, bd2):
-    s_r = se_scale(rgb.mean(dim=(1, 2)), wr1, br1, wr2, br2)
-    s_d = se_scale(depth.mean(dim=(1, 2)), wd1, bd1, wd2, bd2)
+    s_r = map_scale(rgb, wr1, br1, wr2, br2)
+    s_d = map_scale(depth, wd1, bd1, wd2, bd2)
     w = w_rgb[:, None].to(s_r.dtype)
     s_r = w + (1.0 - w) * s_r
     s_d = (1.0 - w) * s_d
@@ -110,7 +133,7 @@ def _launch_se(x_r, x_d, w_rgb, wr, wd):
     last block of each sample) and the mix."""
     bsz, c = x_r.shape[0], x_r.shape[-1]
     hw = x_r.numel() // (bsz * c)
-    _build.require(x_r, "x")
+    _build.require(x_r, "x", dtypes=_build.MAPS)
     if c % 4 or c > SE_MAX_C:
         raise ValueError(f"the SE cell takes C % 4 == 0 and C <= {SE_MAX_C}, "
                          f"got {c}")
@@ -122,19 +145,20 @@ def _launch_se(x_r, x_d, w_rgb, wr, wd):
     for i, (a, shape) in enumerate(zip(wr, shapes)):
         _build.require(a, f"rgb SE weight {i}", shape)
     if x_d is not None:
-        _build.require(x_d, "depth", tuple(x_r.shape))
+        _build.require(x_d, "depth", tuple(x_r.shape), dtypes=(x_r.dtype,))
         for i, (a, shape) in enumerate(zip(wd, shapes)):
             _build.require(a, f"depth SE weight {i}", shape)
     if w_rgb is not None:
         _build.require(w_rgb, "w_rgb", (bsz,))
-    if any(t is not None and t.data_ptr() % 16 for t in (x_r, x_d)):
-        raise ValueError("the SE cell takes 16-byte aligned maps")
+    align = 4 * x_r.element_size()  # four channels in one access
+    if any(t is not None and t.data_ptr() % align for t in (x_r, x_d)):
+        raise ValueError(f"the SE cell takes {align}-byte aligned maps")
     splits = _se_splits(bsz, hw, c, _build.sm_count(x_r))
     partial = torch.empty((bsz, splits, 2, c), device=x_r.device,
                           dtype=torch.float32)
     scales = torch.empty((bsz, 2, c), device=x_r.device, dtype=torch.float32)
     out = torch.empty_like(x_r)
-    fn = _build.function("se", "dynmm_se_fuse", 15, 5)
+    fn = _build.function("se", _build.symbol("dynmm_se_fuse", x_r), 15, 5)
     _build.check(fn(_build.ptr(x_r), _build.ptr(x_d), *map(_build.ptr, wr),
                     *(map(_build.ptr, wd) if wd else [None] * 4),
                     _build.ptr(w_rgb), _build.ptr(partial), _build.ptr(scales),
@@ -144,24 +168,24 @@ def _launch_se(x_r, x_d, w_rgb, wr, wd):
 
 
 def se_fuse_mixed(rgb, depth, w_rgb, wr1, br1, wr2, br2, wd1, bd1, wd2, bd2):
-    """Gate-mixed SE-add fusion of two (B, H, W, C) maps; ``w_rgb`` (B,) is
-    the weight on the unfused rgb branch. Two launches on the card: the
-    squeeze, whose last block per sample computes both scale vectors once,
-    and the mix."""
+    """Gate-mixed SE-add fusion of two (B, H, W, C) fp32 or bf16 maps;
+    ``w_rgb`` (B,) is the weight on the unfused rgb branch. Two launches on
+    the card: the squeeze, whose last block per sample computes both scale
+    vectors once, and the mix."""
     args = (wr1, br1, wr2, br2, wd1, bd1, wd2, bd2)
     if not _build.on_card(rgb, depth, w_rgb, *args):
         return se_fuse_mixed_plain(rgb, depth, w_rgb, *args)
     out = _launch_se(rgb, depth, w_rgb.float().contiguous(), args[:4],
                      args[4:])
-    _build.LAUNCHES["se_fuse_mixed"] += 1
+    _build.count("se_fuse_mixed", rgb)
     return out
 
 
 # ------------------------------------------------------------ single map
 def se_reference(x, w1, b1, w2, b2):
-    """Plain SE over (..., HW, C): x · sigmoid(relu(mean @ w1 + b1) @ w2 + b2)."""
-    mean = x.mean(dim=-2, keepdim=True)
-    return x * torch.sigmoid(torch.relu(mean @ w1 + b1) @ w2 + b2)
+    """Plain SE over (..., HW, C): x · sigmoid(relu(mean @ w1 + b1) @ w2 + b2),
+    the scale rounded as ``map_scale`` rounds it."""
+    return x * map_scale(x, w1, b1, w2, b2, dims=(-2,), keepdim=True)
 
 
 def fused_se(x, w1, b1, w2, b2):
@@ -172,5 +196,5 @@ def fused_se(x, w1, b1, w2, b2):
     squeeze = x.dim() == 2
     xb = x[None] if squeeze else x
     out = _launch_se(xb, None, None, (w1, b1, w2, b2), None)
-    _build.LAUNCHES["fused_se"] += 1
+    _build.count("fused_se", x)
     return out[0] if squeeze else out

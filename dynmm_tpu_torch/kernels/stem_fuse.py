@@ -11,8 +11,11 @@ Port of ``dynmm_tpu/kernels/stem_fuse.py``. The stem cell of the main path
    writing only the two pooled maps.
 
 Plain ``add`` fusion takes the same pooling launch with unit scales
-(``stem_add_pool``: x·1.0 is exact in fp32). Maps are NHWC fp32; C % 4 == 0
-on the card.
+(``stem_add_pool``: x·1.0 is exact). Maps are NHWC fp32 or bf16; C % 4 == 0
+on the card. At bf16 the scales are rounded to bf16 (the JAX cell's
+``.astype(rgb.dtype)``) and ``rgb·s_r``, ``depth·s_d`` and their sum are
+each rounded to bf16, in the kernel and in the plain version alike (the
+Pallas function's per-op bf16 arithmetic); the max-pools are exact.
 """
 
 from __future__ import annotations
@@ -36,24 +39,27 @@ def stem_fuse_pool_plain(rgb, depth, s_r, s_d):
 def stem_fuse_pool(rgb: torch.Tensor, depth: torch.Tensor,
                    s_r: torch.Tensor, s_d: torch.Tensor):
     """(maxpool(rgb·s_r + depth·s_d), maxpool(depth)) for (B, H, W, C) maps
-    and (B, C) scale vectors; pooled maps are (B, ⌈H/2⌉, ⌈W/2⌉, C)."""
+    and (B, C) scale vectors, all of one dtype (fp32 or bf16); pooled maps
+    are (B, ⌈H/2⌉, ⌈W/2⌉, C)."""
     if not _build.on_card(rgb, depth, s_r, s_d):
         return stem_fuse_pool_plain(rgb, depth, s_r, s_d)
     b, h, w, c = rgb.shape
-    _build.require(rgb, "rgb")
-    _build.require(depth, "depth", (b, h, w, c))
-    _build.require(s_r, "s_r", (b, c))
-    _build.require(s_d, "s_d", (b, c))
+    same = (rgb.dtype,)
+    _build.require(rgb, "rgb", dtypes=_build.MAPS)
+    _build.require(depth, "depth", (b, h, w, c), dtypes=same)
+    _build.require(s_r, "s_r", (b, c), dtypes=same)
+    _build.require(s_d, "s_d", (b, c), dtypes=same)
     if c % 4:
         raise ValueError(f"stem_fuse_pool takes C % 4 == 0, got {c}")
     oh, ow = (h - 1) // 2 + 1, (w - 1) // 2 + 1
     out_f = torch.empty((b, oh, ow, c), device=rgb.device, dtype=rgb.dtype)
     out_d = torch.empty_like(out_f)
-    fn = _build.function("stem_fuse", "dynmm_stem_fuse_pool", 6, 4)
+    fn = _build.function("stem_fuse",
+                         _build.symbol("dynmm_stem_fuse_pool", rgb), 6, 4)
     _build.check(fn(_build.ptr(rgb), _build.ptr(depth), _build.ptr(s_r),
                     _build.ptr(s_d), _build.ptr(out_f), _build.ptr(out_d),
                     b, h, w, c, _build.stream()), "stem_fuse_pool")
-    _build.LAUNCHES["stem_fuse_pool"] += 1
+    _build.count("stem_fuse_pool", rgb)
     return out_f, out_d
 
 
@@ -65,14 +71,15 @@ def se_gate_from_sums(sums, hw: int, w1, b1, w2, b2):
 def stem_se_fusion_pool(rgb, depth, wr1, br1, wr2, br2, wd1, bd1, wd2, bd2,
                         use_kernels: bool = True):
     """The whole stem cell (JAX signature): SE-recalibrated add + both
-    max-pools. ``use_kernels=False`` runs the plain versions wherever the
-    tensors lie."""
+    max-pools. The SE scales are computed in fp32 from the fp32 sums and
+    rounded to the maps' dtype. ``use_kernels=False`` runs the plain
+    versions wherever the tensors lie."""
     b, h, w, _ = rgb.shape
     sums = channel_sums if use_kernels else channel_sums_plain
     pool = stem_fuse_pool if use_kernels else stem_fuse_pool_plain
     sums_r, sums_d = sums(rgb, depth)
-    s_r = se_gate_from_sums(sums_r, h * w, wr1, br1, wr2, br2)
-    s_d = se_gate_from_sums(sums_d, h * w, wd1, bd1, wd2, bd2)
+    s_r = se_gate_from_sums(sums_r, h * w, wr1, br1, wr2, br2).to(rgb.dtype)
+    s_d = se_gate_from_sums(sums_d, h * w, wd1, bd1, wd2, bd2).to(rgb.dtype)
     return pool(rgb, depth, s_r.contiguous(), s_d.contiguous())
 
 

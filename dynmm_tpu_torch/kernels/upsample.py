@@ -7,6 +7,13 @@ intermediate is never written. Covers all five upsample sites of the main
 path, the 40-channel logits maps included: a thread owns 4 channels of one
 output column and slides its window of source cells down a strip of source
 rows (see ``csrc/upsample.cu``).
+
+The bf16 form takes a bf16 map with bf16 taps and bias (the bf16-cast
+parameters that the JAX model and the Pallas function both see; the Pallas
+function takes taps of the map's dtype only). It sums taps and products in
+fp32 and rounds each output once, at the store: closer to the JAX model's
+XLA depthwise conv, which accumulates in fp32, than to the Pallas
+function's op-by-op bf16 arithmetic (up to ~1e-2 of max |out| apart).
 """
 
 from __future__ import annotations
@@ -15,40 +22,45 @@ import torch
 import torch.nn.functional as F
 
 from dynmm_tpu_torch.kernels import _build
+from dynmm_tpu_torch.kernels.se import wide
 
 
 def learned_upsample_plain(x: torch.Tensor, kernel: torch.Tensor,
                            bias: torch.Tensor) -> torch.Tensor:
     """Nearest ×2 then depthwise 3×3 with padding 1. x (N, H, W, C),
-    kernel (3, 3, C), bias (C,)."""
+    kernel (3, 3, C), bias (C,). Computes in at least fp32 and rounds the
+    output once to x's dtype, as the kernel does."""
     c = x.shape[-1]
-    up = x.permute(0, 3, 1, 2).repeat_interleave(2, dim=2)
+    up = wide(x).permute(0, 3, 1, 2).repeat_interleave(2, dim=2)
     up = up.repeat_interleave(2, dim=3)
-    w = kernel.permute(2, 0, 1).unsqueeze(1)  # (C, 1, 3, 3)
-    return F.conv2d(up, w, bias, padding=1, groups=c).permute(0, 2, 3, 1)
+    w = wide(kernel).permute(2, 0, 1).unsqueeze(1)  # (C, 1, 3, 3)
+    out = F.conv2d(up, w.to(up.dtype), wide(bias).to(up.dtype), padding=1,
+                   groups=c)
+    return out.permute(0, 2, 3, 1).to(x.dtype)
 
 
 def learned_upsample(x: torch.Tensor, kernel: torch.Tensor,
                      bias: torch.Tensor) -> torch.Tensor:
-    """x (H, W, C) or (N, H, W, C); kernel (3, 3, C); bias (C,) →
-    (..., 2H, 2W, C)."""
+    """x (H, W, C) or (N, H, W, C); kernel (3, 3, C); bias (C,), all fp32
+    or all bf16 → (..., 2H, 2W, C) of x's dtype."""
     squeeze = x.dim() == 3
     xb = x[None] if squeeze else x
     if not _build.on_card(xb, kernel, bias):
         out = learned_upsample_plain(xb, kernel, bias)
         return out[0] if squeeze else out
     n, h, w, c = xb.shape
-    _build.require(xb, "x")
-    _build.require(kernel, "kernel", (3, 3, c))
-    _build.require(bias, "bias", (c,))
+    _build.require(xb, "x", dtypes=_build.MAPS)
+    _build.require(kernel, "kernel", (3, 3, c), dtypes=(xb.dtype,))
+    _build.require(bias, "bias", (c,), dtypes=(xb.dtype,))
     if 4 * h * w * c >= 2 ** 31:
         raise ValueError("learned_upsample indexes a sample in 32 bits: "
-                         f"4·H·W·C = {4 * h * w * c} floats is too many")
+                         f"4·H·W·C = {4 * h * w * c} elements is too many")
     out = torch.empty((n, 2 * h, 2 * w, c), device=xb.device, dtype=xb.dtype)
-    fn = _build.function("upsample", "dynmm_learned_upsample", 4, 5)
+    fn = _build.function("upsample",
+                         _build.symbol("dynmm_learned_upsample", xb), 4, 5)
     _build.check(fn(_build.ptr(xb), _build.ptr(kernel), _build.ptr(bias),
                     _build.ptr(out), n, h, w, c, _build.sm_count(xb),
                     _build.stream()),
                  "learned_upsample")
-    _build.LAUNCHES["learned_upsample"] += 1
+    _build.count("learned_upsample", xb)
     return out[0] if squeeze else out

@@ -12,6 +12,11 @@ plain ``add`` (``stem_fuse_pool`` with unit scales at the stem, PyTorch
 adds after); ``encoder_decoder_fusion`` other than ``add`` builds no skip
 projections and the decoder ignores the skips; the context module is PPM,
 APPM or none. ``ESANet`` is the static baseline: depth always fused.
+
+``ESANetConfig.dtype`` is the compute dtype (parameters stay fp32): None or
+fp32, or bf16 for the global-gate SkipGateESANet in eval, whose modules the
+constructor puts in bf16 (``nn/layers.py::set_compute_dtype``); the other
+models of the family take fp32 only (ROADMAP A3).
 """
 
 from __future__ import annotations
@@ -19,13 +24,15 @@ from __future__ import annotations
 import dataclasses
 from typing import Sequence
 
+import torch
 import torch.nn as nn
 
 from dynmm_tpu_torch.kernels.stem_fuse import stem_add_pool
 from dynmm_tpu_torch.models.context import get_context_module
 from dynmm_tpu_torch.models.resnet import NonBottleneck1D, ResNet, make_resnet
-from dynmm_tpu_torch.nn.layers import (ConvBNAct, SqueezeAndExciteFusionAdd,
-                                       Upsample, nchw, nhwc)
+from dynmm_tpu_torch.nn.layers import (Conv2d, ConvBNAct,
+                                       SqueezeAndExciteFusionAdd, Upsample,
+                                       nchw, nhwc, set_compute_dtype)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -45,6 +52,15 @@ class ESANetConfig:
     context_module: str = "ppm"
     fuse_depth_in_rgb_encoder: str = "SE-add"
     upsampling: str = "learned-3x3-zeropad"
+    dtype: torch.dtype | None = None  # compute dtype; params stay fp32
+
+
+def require_fp32(cfg: ESANetConfig, model: str) -> None:
+    """Raise on a compute dtype other than fp32 for ``model``."""
+    if cfg.dtype not in (None, torch.float32):
+        raise NotImplementedError(
+            f"{model} in {cfg.dtype}: not ported yet (bf16 serves the "
+            "global-gate SkipGateESANet only; the others, ROADMAP A3)")
 
 
 class DecoderModule(nn.Module):
@@ -90,8 +106,8 @@ class Decoder(nn.Module):
                 ins[i], channels_decoder[i], nr_decoder_blocks[i],
                 num_classes, upsampling_mode, activation,
                 encoder_decoder_fusion))
-        self.conv_out = nn.Conv2d(channels_decoder[2], num_classes, 3,
-                                  padding=1)
+        self.conv_out = Conv2d(channels_decoder[2], num_classes, 3,
+                               padding=1)
         self.upsample1 = Upsample(upsampling_mode, num_classes)
         self.upsample2 = Upsample(upsampling_mode, num_classes)
 
@@ -196,6 +212,8 @@ class _DualEncoderParts(_Head):
                 setattr(self, f"se_layer{i}",
                         SqueezeAndExciteFusionAdd(c, activation=cfg.activation))
         self._build_head(cfg, ch)
+        if cfg.dtype not in (None, torch.float32):
+            set_compute_dtype(self, cfg.dtype)
 
     def stem_pool(self, rgb, depth, use_kernels: bool = True):
         """Stem tail: (pool(fuse(rgb, depth)), pool(depth)), NCHW; the
@@ -228,6 +246,10 @@ class ESANet(_DualEncoderParts):
     layout is NHWC: ``forward(rgb (B,H,W,3), depth (B,H,W,1))`` → logits
     (B,H,W,classes) (H/4 with ``low_res``); in training the four scales
     ``(out, down_8, down_16, down_32)``, every cell on its plain version."""
+
+    def __init__(self, cfg: ESANetConfig):
+        require_fp32(cfg, "the static ESANet")
+        super().__init__(cfg)
 
     def forward(self, rgb, depth, low_res: bool = False,
                 use_kernels: bool = True):

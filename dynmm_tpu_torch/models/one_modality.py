@@ -13,7 +13,8 @@ the reference.
 
 from __future__ import annotations
 
-from dynmm_tpu_torch.models.esanet import ESANetConfig, _Head, build_encoder
+from dynmm_tpu_torch.models.esanet import (ESANetConfig, _Head, build_encoder,
+                                           require_fp32)
 from dynmm_tpu_torch.nn.layers import (SqueezeAndExcitation, max_pool_3x3_s2,
                                        nchw)
 
@@ -25,6 +26,7 @@ class ESANetOneModality(_Head):
 
     def __init__(self, cfg: ESANetConfig, input_channels: int = 3,
                  weighting_in_encoder: str = "None"):
+        require_fp32(cfg, "ESANetOneModality")
         super().__init__()
         self.cfg = cfg
         self.encoder = build_encoder(cfg, "rgb", input_channels)

@@ -16,6 +16,12 @@ inference-only). Modules take NCHW (channels_last) tensors.
 The stem also takes its input 2×2 space-to-depth packed (``stem``,
 ``space_to_depth_host``, ``s2d_weight``): a 4×4 stride-1 conv over 4C
 channels computes the 7×7/2 conv, with the same state_dict (every encoder: the stem is shared).
+
+In a bf16 model (``nn/layers.py::set_compute_dtype``) the stem casts its
+fp32 input to bf16 (the JAX stem casts ``x`` and ``w``), every conv runs in
+cuDNN bf16 on the convs' bf16 weight copies, and a NonBottleneck1D block
+runs its unfused convs: the NBt1D kernels have no bf16 form, and the JAX
+model's bf16 block runs XLA convs too.
 """
 
 from __future__ import annotations
@@ -26,8 +32,9 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from dynmm_tpu_torch.kernels.nbt1d import fold_bn, nbt1d_block
-from dynmm_tpu_torch.nn.layers import (BatchNorm2d, Packed, get_activation,
-                                       max_pool_3x3_s2, nchw, nhwc)
+from dynmm_tpu_torch.nn.layers import (BatchNorm2d, Conv2d, Packed,
+                                       get_activation, max_pool_3x3_s2, nchw,
+                                       nhwc)
 
 RESNET_LAYERS = {"resnet18": (2, 2, 2, 2), "resnet34": (3, 4, 6, 3),
                  "resnet50": (3, 4, 6, 3)}
@@ -46,28 +53,35 @@ class NonBottleneck1D(Packed):
                  activation: str = "relu"):
         super().__init__()
         d = dilation
-        self.conv3x1_1 = nn.Conv2d(in_planes, planes, (3, 1),
-                                   stride=(stride, 1), padding=(1, 0))
-        self.conv1x3_1 = nn.Conv2d(planes, planes, (1, 3),
-                                   stride=(1, stride), padding=(0, 1))
+        self.conv3x1_1 = Conv2d(in_planes, planes, (3, 1), stride=(stride, 1),
+                                padding=(1, 0))
+        self.conv1x3_1 = Conv2d(planes, planes, (1, 3), stride=(1, stride),
+                                padding=(0, 1))
         self.bn1 = BatchNorm2d(planes, eps=NBT1D_BN_EPS)
-        self.conv3x1_2 = nn.Conv2d(planes, planes, (3, 1), padding=(d, 0),
-                                   dilation=(d, 1))
-        self.conv1x3_2 = nn.Conv2d(planes, planes, (1, 3), padding=(0, d),
-                                   dilation=(1, d))
+        self.conv3x1_2 = Conv2d(planes, planes, (3, 1), padding=(d, 0),
+                                dilation=(d, 1))
+        self.conv1x3_2 = Conv2d(planes, planes, (1, 3), padding=(0, d),
+                                dilation=(1, d))
         self.bn2 = BatchNorm2d(planes, eps=NBT1D_BN_EPS)
-        self.downsample = (
-            nn.Sequential(nn.Conv2d(in_planes, planes, 1, stride=stride,
-                                    bias=False), BatchNorm2d(planes))
-            if has_downsample else None)
+        self.downsample = (_downsample(in_planes, planes, stride)
+                           if has_downsample else None)
         self.act = get_activation(activation)
         # the kernel's block: stride 1, identity skip, no dilation, relu
-        self.fused = (stride == 1 and not has_downsample and d == 1
-                      and in_planes == planes and activation == "relu")
+        self.fusable = (stride == 1 and not has_downsample and d == 1
+                        and in_planes == planes and activation == "relu")
         self.repack()
 
+    @property
+    def fused(self) -> bool:
+        """Served by ``nbt1d_block``: a fusable block of an fp32 model (the
+        kernels have no bf16 form)."""
+        return self.fusable and self.compute_dtype in (None, torch.float32)
+
     def repack(self):
+        names = ("w1", "w2", "s1", "t1", "w3", "w4", "s2", "t2")
         if not self.fused:
+            for name in names:
+                self._buffers.pop(name, None)
             return
         row = lambda conv: conv.weight[:, :, :, 0].permute(2, 1, 0)
         col = lambda conv: conv.weight[:, :, 0, :].permute(2, 1, 0)
@@ -102,8 +116,8 @@ class NonBottleneck1D(Packed):
 
 
 def _downsample(in_planes: int, out_planes: int, stride: int):
-    return nn.Sequential(nn.Conv2d(in_planes, out_planes, 1, stride=stride,
-                                   bias=False), BatchNorm2d(out_planes))
+    return nn.Sequential(Conv2d(in_planes, out_planes, 1, stride=stride,
+                                bias=False), BatchNorm2d(out_planes))
 
 
 class BasicBlock(nn.Module):
@@ -114,10 +128,10 @@ class BasicBlock(nn.Module):
     def __init__(self, in_planes: int, planes: int, stride: int = 1,
                  has_downsample: bool = False, activation: str = "relu"):
         super().__init__()
-        self.conv1 = nn.Conv2d(in_planes, planes, 3, stride=stride, padding=1,
-                               bias=False)
+        self.conv1 = Conv2d(in_planes, planes, 3, stride=stride, padding=1,
+                            bias=False)
         self.bn1 = BatchNorm2d(planes)
-        self.conv2 = nn.Conv2d(planes, planes, 3, padding=1, bias=False)
+        self.conv2 = Conv2d(planes, planes, 3, padding=1, bias=False)
         self.bn2 = BatchNorm2d(planes)
         self.downsample = (_downsample(in_planes, planes, stride)
                            if has_downsample else None)
@@ -140,12 +154,12 @@ class Bottleneck(nn.Module):
                  has_downsample: bool = False, activation: str = "relu"):
         super().__init__()
         out_planes = planes * self.expansion
-        self.conv1 = nn.Conv2d(in_planes, planes, 1, bias=False)
+        self.conv1 = Conv2d(in_planes, planes, 1, bias=False)
         self.bn1 = BatchNorm2d(planes)
-        self.conv2 = nn.Conv2d(planes, planes, 3, stride=stride, padding=1,
-                               bias=False)
+        self.conv2 = Conv2d(planes, planes, 3, stride=stride, padding=1,
+                            bias=False)
         self.bn2 = BatchNorm2d(planes)
-        self.conv3 = nn.Conv2d(planes, out_planes, 1, bias=False)
+        self.conv3 = Conv2d(planes, out_planes, 1, bias=False)
         self.bn3 = BatchNorm2d(out_planes)
         self.downsample = (_downsample(in_planes, out_planes, stride)
                            if has_downsample else None)
@@ -223,8 +237,8 @@ class ResNet(nn.Module):
         super().__init__()
         self.input_channels = input_channels
         self.block = block
-        self.conv1 = nn.Conv2d(input_channels, 64, 7, stride=2, padding=3,
-                               bias=False)
+        self.conv1 = Conv2d(input_channels, 64, 7, stride=2, padding=3,
+                            bias=False)
         self.bn1 = BatchNorm2d(64)
         self.act = get_activation(activation)
         e = self.expansion
@@ -252,10 +266,12 @@ class ResNet(nn.Module):
         (r, s, c)): it is padded ((2, 1), (2, 1)) and convolved at stride 1
         with ``s2d_weight(conv1.weight)``, the same function as the 7×7/2
         conv on the raw input (cuDNN sums in another order: ~1e-6
-        relative)."""
+        relative). A model in bf16 casts ``x`` to bf16 first."""
+        x = x.to(self.conv1.compute_dtype or x.dtype)
         c = x.shape[1]
         if c == 4 * self.input_channels:
-            x = F.conv2d(F.pad(x, (2, 1, 2, 1)), s2d_weight(self.conv1.weight))
+            w = self.conv1.weights(x.dtype)[0]
+            x = F.conv2d(F.pad(x, (2, 1, 2, 1)), s2d_weight(w))
         elif c == self.input_channels:
             x = self.conv1(x)
         else:

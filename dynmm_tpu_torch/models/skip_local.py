@@ -26,7 +26,8 @@ from typing import Sequence
 
 import torch
 
-from dynmm_tpu_torch.models.esanet import ESANetConfig, _DualEncoderParts
+from dynmm_tpu_torch.models.esanet import (ESANetConfig, _DualEncoderParts,
+                                           require_fp32)
 from dynmm_tpu_torch.nn.layers import SqueezeAndExciteReweigh, nchw
 
 
@@ -38,6 +39,7 @@ class SkipESANet(_DualEncoderParts):
 
     def __init__(self, cfg: ESANetConfig,
                  block_rule: Sequence[int] = (1, 1, 1, 1)):
+        require_fp32(cfg, "the local-gate SkipESANet")
         super().__init__(dataclasses.replace(cfg,
                                              fuse_depth_in_rgb_encoder="add"))
         self.block_rule = tuple(int(r) for r in block_rule)

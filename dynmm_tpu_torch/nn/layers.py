@@ -13,6 +13,15 @@ in ``repack``, which runs after construction and after every
 (``module.training``) they read their parameters themselves, so gradients
 reach them; after optimizer steps, ``pack_weights`` rebuilds the copies
 before the next eval forward.
+
+Compute dtype (``set_compute_dtype``): parameters stay fp32, and a model in
+bf16 serves bf16 maps, as the JAX modules' ``dtype`` field ("compute
+dtype, params stay float32"). Its ``Conv2d``s convolve with bf16 copies of
+their weight and bias, its ``Upsample``s take bf16 taps, both made once in
+``repack``, never per call; BN takes the bf16 map with the fp32 statistics
+and writes bf16, as flax's BN at ``dtype=bf16``. Every module computes in
+the dtype of the map it is given: the stems cast the fp32 images to the
+model's dtype, and the global gate casts back to fp32.
 """
 
 from __future__ import annotations
@@ -25,7 +34,7 @@ import torch.nn.functional as F
 
 from dynmm_tpu_torch.core.gates import gumbel_softmax
 from dynmm_tpu_torch.kernels.se import (channel_sums, channel_sums_plain,
-                                        fused_se, se_fuse_mixed,
+                                        fused_se, map_scale, se_fuse_mixed,
                                         se_fuse_mixed_plain, se_reference)
 from dynmm_tpu_torch.kernels.stem_fuse import stem_se_fusion_pool
 from dynmm_tpu_torch.kernels.upsample import learned_upsample, learned_upsample_plain
@@ -74,34 +83,95 @@ def activation_module(name: str) -> nn.Module:
     return _ACTIVATIONS[name.lower()][1]()
 
 
+def _after_load(module: nn.Module, _keys) -> None:
+    # a named function, not a lambda: whole modules stay picklable
+    module.repack()
+
+
+def _set_buffer(module: nn.Module, name: str,
+                value: torch.Tensor | None) -> None:
+    module.register_buffer(
+        name, None if value is None else value.detach().contiguous(),
+        persistent=False)
+
+
 class Packed(nn.Module):
     """A module that keeps kernel-layout copies of its weights as
     non-persistent buffers, rebuilt by ``repack`` after every
-    ``load_state_dict`` (and by ``pack_weights`` after an in-place init)."""
+    ``load_state_dict`` (and by ``pack_weights`` after an in-place init).
+    ``compute_dtype`` (``set_compute_dtype``): the dtype of the maps it
+    serves; None is its parameters' dtype."""
+
+    compute_dtype: torch.dtype | None = None
 
     def __init__(self):
         super().__init__()
-        self.register_load_state_dict_post_hook(Packed._after_load)
-
-    @staticmethod
-    def _after_load(module: "Packed", _keys) -> None:
-        # a named function, not a lambda: whole modules stay picklable
-        module.repack()
+        self.register_load_state_dict_post_hook(_after_load)
 
     def repack(self) -> None:
         raise NotImplementedError
 
-    def _set(self, name: str, value: torch.Tensor) -> None:
-        self.register_buffer(name, value.detach().contiguous(),
-                             persistent=False)
+    def _set(self, name: str, value: torch.Tensor | None) -> None:
+        _set_buffer(self, name, value)
+
+
+class Conv2d(nn.Conv2d):
+    """``nn.Conv2d`` (same parameters and names) that computes in its
+    input's dtype. In eval, a map of the model's ``compute_dtype`` (bf16)
+    convolves with copies of the weight and bias in that dtype, made by
+    ``repack`` after construction, every ``load_state_dict`` and
+    ``pack_weights``, as flax's ``nn.Conv(dtype=bf16)`` casts its fp32
+    parameters. In training, and for a map of the parameters' dtype, it is
+    ``nn.Conv2d``."""
+
+    compute_dtype: torch.dtype | None = None
+
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.register_load_state_dict_post_hook(_after_load)
+        self.repack()
+
+    def repack(self) -> None:
+        dt = self.compute_dtype
+        cast = dt is not None and dt != self.weight.dtype
+        _set_buffer(self, "weight_c", self.weight.to(dt) if cast else None)
+        _set_buffer(self, "bias_c", self.bias.to(dt) if cast
+                    and self.bias is not None else None)
+
+    def weights(self, dtype: torch.dtype):
+        """(weight, bias) that convolve a map of ``dtype``: the parameters,
+        or in eval the copies in the model's compute dtype."""
+        if self.training or dtype == self.weight.dtype:
+            return self.weight, self.bias
+        if self.weight_c is None or self.weight_c.dtype != dtype:
+            raise TypeError(
+                f"a {dtype} map reached a conv of a model in "
+                f"{self.compute_dtype or self.weight.dtype}; set the model's "
+                "compute dtype (set_compute_dtype)")
+        return self.weight_c, self.bias_c
+
+    def forward(self, x):
+        return self._conv_forward(x, *self.weights(x.dtype))
 
 
 @torch.no_grad()
 def pack_weights(model: nn.Module) -> None:
-    """Rebuild every kernel-layout weight copy in ``model``."""
+    """Rebuild every kernel-layout and compute-dtype weight copy in
+    ``model``."""
     for m in model.modules():
-        if isinstance(m, Packed):
+        if isinstance(m, (Packed, Conv2d)):
             m.repack()
+
+
+@torch.no_grad()
+def set_compute_dtype(model: nn.Module, dtype: torch.dtype | None) -> None:
+    """Serve maps of ``dtype`` (None: the parameters' own) with every
+    ``Conv2d`` and ``Packed`` module of ``model``: sets their
+    ``compute_dtype`` and repacks. Parameters keep their dtype."""
+    for m in model.modules():
+        if isinstance(m, (Packed, Conv2d)):
+            m.compute_dtype = dtype
+    pack_weights(model)
 
 
 class BatchNorm2d(nn.Module):
@@ -130,9 +200,9 @@ class ConvBNAct(nn.Module):
     def __init__(self, c_in: int, c_out: int, kernel_size: int,
                  activation: str = "relu", dilation: int = 1, stride: int = 1):
         super().__init__()
-        self.conv = nn.Conv2d(c_in, c_out, kernel_size, stride=stride,
-                              padding=kernel_size // 2 + dilation - 1,
-                              dilation=dilation, bias=False)
+        self.conv = Conv2d(c_in, c_out, kernel_size, stride=stride,
+                           padding=kernel_size // 2 + dilation - 1,
+                           dilation=dilation, bias=False)
         self.bn = BatchNorm2d(c_out)
         self.act = get_activation(activation)
 
@@ -145,8 +215,8 @@ class ConvBN(nn.Module):
 
     def __init__(self, c_in: int, c_out: int, kernel_size: int):
         super().__init__()
-        self.conv = nn.Conv2d(c_in, c_out, kernel_size,
-                              padding=kernel_size // 2, bias=False)
+        self.conv = Conv2d(c_in, c_out, kernel_size,
+                           padding=kernel_size // 2, bias=False)
         self.bn = BatchNorm2d(c_out)
 
     def forward(self, x):
@@ -195,7 +265,13 @@ class SqueezeAndExcitation(Packed):
             self.act(x_nhwc.mean(dim=(1, 2)) @ w1 + b1) @ w2 + b2)
 
     def forward(self, x):
-        return x * self.fc(x.mean(dim=(2, 3), keepdim=True))
+        if x.dtype == self.fc[0].weight.dtype:
+            return x * self.fc(x.mean(dim=(2, 3), keepdim=True))
+        # a map of the model's compute dtype: the fused cells' rounding
+        if not self.relu:
+            raise NotImplementedError(
+                "the fused SE cells take relu SE MLPs; swish/hswish wait")
+        return x * map_scale(x, *self.weights(), dims=(2, 3))[:, :, None, None]
 
     def recalibrate(self, x, use_kernels: bool = True):
         """``x · se(x)`` (NCHW) as the single-map ``fused_se`` cell (its
@@ -383,7 +459,7 @@ class Upsample(Packed):
                         "learned-3x3-zeropad"):
             raise NotImplementedError(f"Unknown upsampling mode {mode}")
         if "learned-3x3" in mode:
-            self.conv = nn.Conv2d(channels, channels, 3, groups=channels)
+            self.conv = Conv2d(channels, channels, 3, groups=channels)
             with torch.no_grad():
                 self.conv.weight.copy_(_bilinear_3x3_kernel(channels))
                 self.conv.bias.zero_()
@@ -394,14 +470,16 @@ class Upsample(Packed):
 
     def repack(self):
         if "learned-3x3" in self.mode:
-            self._set("taps", self._taps())
+            self._set("taps", self._taps().to(self.compute_dtype
+                                              or self.conv.weight.dtype))
 
     def forward(self, x, use_kernels: bool = True):
         h, w = x.shape[2] * 2, x.shape[3] * 2
         if self.mode == "learned-3x3-zeropad":
             up = learned_upsample if use_kernels else learned_upsample_plain
             taps = self._taps() if self.training else self.taps
-            return nchw(up(nhwc(x), taps, self.conv.bias))
+            bias = self.conv.weights(x.dtype)[1]
+            return nchw(up(nhwc(x), taps, bias))
         if self.mode == "learned-3x3":
             x = nchw(resize_nearest(nhwc(x), (h, w)))
             return self.conv(F.pad(x, (1, 1, 1, 1), mode="replicate"))

@@ -1,8 +1,10 @@
 """Where a served flagship forward spends its card time.
 
     python3 -m dynmm_tpu_torch.profile_serve [--mode MODE] [--low_res]
+        [--dtype float32|bfloat16]
 
-Builds the 480×640 flagship with seeded random weights on the card, warms
+Builds the 480×640 flagship (in ``--dtype``, fp32 by default) with seeded
+random weights on the card, warms
 up, then traces 3 requests at B=8 and 3 at B=1 served through ``--mode``
 (``serve``'s modes; ``dense`` by default, the switch modes at B=1 only)
 with ``torch.profiler``. It prints the card's name and power limit and, for
@@ -10,7 +12,7 @@ each batch size, the host-clock latency (profiler on),
 the device's busy share of the traced window (union of kernel intervals
 over the window) and device time by kernel, grouped into the port's
 kernels, cuDNN/cuBLAS convolutions and other PyTorch ops. Writes the same to
-``chiprun_out/profile_serve_<mode>[_low_res].json`` at the root of the
+``chiprun_out/profile_serve_<mode>[_low_res][_bf16].json`` at the root of the
 checkout. TF32 is off for convolutions and matmuls, as in
 ``chip_smoke.py``.
 """
@@ -107,13 +109,17 @@ def main(argv=None) -> int:
     ap.add_argument("--mode", default="dense", choices=SERVE_MODES)
     ap.add_argument("--low_res", action="store_true",
                     help="serve from the H/4 logits")
+    ap.add_argument("--dtype", default="float32",
+                    choices=("float32", "bfloat16"),
+                    help="the model's compute dtype (parameters stay fp32)")
     args = ap.parse_args(argv)
+    bf16 = args.dtype == "bfloat16"
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     card = card_line()
     print(f"card: {card}; torch {torch.__version__}; mode {args.mode}"
-          f"{', low_res' if args.low_res else ''}", flush=True)
-    model = build_flagship(seed=0)
+          f"{', low_res' if args.low_res else ''}; {args.dtype}", flush=True)
+    model = build_flagship(seed=0, dtype=torch.bfloat16 if bf16 else None)
     batches = (1,) if args.mode.startswith("switch") else (8, 1)
     results = [profile_batch(model, b, mode=args.mode, low_res=args.low_res)
                for b in batches]
@@ -127,10 +133,11 @@ def main(argv=None) -> int:
             print(f"     {t['ms']:8.3f} ms  x{t['launches']:<4d} {t['name'][:90]}")
     out = Path(__file__).resolve().parents[1] / "chiprun_out"
     out.mkdir(exist_ok=True)
-    name = f"profile_serve_{args.mode}{'_low_res' if args.low_res else ''}"
+    name = (f"profile_serve_{args.mode}{'_low_res' if args.low_res else ''}"
+            f"{'_bf16' if bf16 else ''}")
     (out / f"{name}.json").write_text(json.dumps(
         {"card": card, "mode": args.mode, "low_res": args.low_res,
-         "results": results}, indent=1))
+         "dtype": args.dtype, "results": results}, indent=1))
     return 0
 
 

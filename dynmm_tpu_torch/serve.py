@@ -7,7 +7,9 @@ RGB (3-ch) and depth (1-ch), SE-add fusion, PPM context, decoder channels
 (512, 256, 128) with 3 NonBottleneck1D blocks each, learned-3x3-zeropad
 upsampling and 40 classes at 480×640, in fp32 eval with the hard global
 gate; ``build_flagship(encoder="resnet50")`` builds the same net on
-Bottleneck ResNet50 encoders. ``serve`` serves any SkipGateESANet.
+Bottleneck ResNet50 encoders, ``build_flagship(dtype=torch.bfloat16)`` the
+bf16 net (fp32 parameters, bf16 maps, the gate in fp32; the JAX bench's
+serving dtype). ``serve`` serves any SkipGateESANet.
 
     model = build_flagship()                                # on the card
     class_map, weight = serve(model, rgb, depth)            # batchmax
@@ -63,16 +65,18 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> None:
 
 
 def build_flagship(height: int = 480, width: int = 640, num_classes: int = 40,
-                   device=None, seed: int = 0,
-                   encoder: str = "resnet34") -> SkipGateESANet:
+                   device=None, seed: int = 0, encoder: str = "resnet34",
+                   dtype: torch.dtype | None = None) -> SkipGateESANet:
     """The flagship with seeded random weights, in eval, on ``device``
     (``None`` = the card; raises without one unless ``device="cpu"``).
     ``encoder="resnet50"``: the same net on Bottleneck ResNet50 encoders
-    (the JAX bench's second model; SE cells up to C = 2048)."""
+    (the JAX bench's second model; SE cells up to C = 2048). ``dtype``:
+    the compute dtype (None: fp32); the seeded weights do not depend on
+    it."""
     dev = resolve_device(device)
     model = SkipGateESANet(ESANetConfig(
         height=height, width=width, num_classes=num_classes,
-        encoder_rgb=encoder, encoder_depth=encoder))
+        encoder_rgb=encoder, encoder_depth=encoder, dtype=dtype))
     init_weights(model, torch.Generator().manual_seed(seed))
     return model.to(dev, memory_format=torch.channels_last).eval()
 

@@ -149,3 +149,46 @@ def run_mious(text: str) -> list[float]:
 def lines_with(text: str, prefix: str) -> list[str]:
     return [ln.strip() for ln in text.splitlines()
             if ln.strip().startswith(prefix)]
+
+
+def bf16_class_maps(argv: list[str], variables: dict,
+                    label_size: bool) -> dict:
+    """The class maps of the port's and the JAX package's bf16 nets
+    (hard gate) on the test batches that the CLIs of ``argv`` read: at the
+    labels' size through eval's chain (bilinear resize of the logits, then
+    the first argmax) with ``label_size``, else at the model's size
+    (predict's maps). ``sure`` marks the pixels whose JAX top-two logit
+    margin exceeds twice ``err``, the max abs difference of the two nets'
+    logits there: no such difference can change their class."""
+    import torch
+
+    from dynmm_tpu.nn import layers as jl
+    from dynmm_tpu_torch.cli import eval as port_eval
+    from dynmm_tpu_torch.cli.seg_build import build_model, prepare_data
+    from dynmm_tpu_torch.nn import layers
+    from dynmm_tpu_torch.utils.torch_import import load_any_checkpoint
+
+    args = port_eval.build_parser().parse_args(
+        [*argv, "--dynamic", "--global-gate", "--device", "cpu"])
+    loader = prepare_data(args)[1]
+    model = build_model(args, 40)
+    load_any_checkpoint(model, args.ckpt_path)
+    model = model.to(memory_format=torch.channels_last).eval()
+    jm = JaxSkipGate(JaxConfig(num_classes=40, dtype=jnp.bfloat16, **SMALL))
+    apply = jax.jit(lambda v, r, d: jm.apply(v, r, d, train=False, hard=True))
+    port, ref = [], []
+    for b in loader:
+        with torch.no_grad():
+            lp = model(torch.from_numpy(b["image"]),
+                       torch.from_numpy(b["depth"]), hard=True)
+        lj = apply(variables, b["image"], b["depth"])
+        if label_size:
+            hw = b.get("label_orig", b.get("label")).shape[1:3]
+            lp, lj = layers.resize_bilinear(lp, hw), jl.resize_bilinear(lj, hw)
+        port.append(lp.float().numpy())
+        ref.append(np.asarray(lj.astype(jnp.float32)))
+    port, ref = np.concatenate(port), np.concatenate(ref)
+    err = float(np.abs(port - ref).max())
+    top2 = np.sort(ref, axis=-1)[..., -2:]
+    return {"port": port.argmax(-1), "jax": ref.argmax(-1), "err": err,
+            "sure": top2[..., 1] - top2[..., 0] > 2 * err}

@@ -343,6 +343,88 @@ def test_learned_upsample_unaligned_takes_scalar_path(libs):
                   _randn(g, 8)))
 
 
+# ------------------------------------------------------------ bf16 forms
+BF = torch.bfloat16
+
+
+def _bf16_close(out, ref, tol):
+    """Max abs err ≤ ``tol`` of max |ref| (0: bit-identical), dtypes equal."""
+    for o, r in zip(*((out, ref) if isinstance(out, tuple) else ((out,), (ref,)))):
+        assert o.dtype == r.dtype and o.shape == r.shape
+        err = float((o.float() - r.float()).abs().max())
+        assert err <= tol * float(r.float().abs().max()), err
+
+
+@pytest.mark.parametrize("b,h,w,c", [(2, 5, 7, 12), (1, 6, 6, 300)])
+def test_channel_sums_bf16(libs, b, h, w, c):
+    """bf16 maps, fp32 sums: within 1e-5 (the summation order)."""
+    g = _gen(c + 1)
+    rgb, depth = _randn(g, b, h, w, c).to(BF), _randn(g, b, h, w, c).to(BF)
+    out, ref = _both(libs, se.channel_sums, rgb, depth)
+    assert dict(LAUNCHES) == {"channel_sums.bf16": 1}
+    assert out[0].dtype == torch.float32
+    _bf16_close(out, ref, 1e-5)
+
+
+@pytest.mark.parametrize("b,h,w,c", [(2, 9, 10, 8), (1, 8, 12, 4)])
+@pytest.mark.parametrize("negative", [False, True])
+def test_stem_fuse_pool_bf16_bit_identical(libs, b, h, w, c, negative):
+    """The per-op bf16 roundings of the kernel are the plain version's."""
+    g = _gen(h * w + 1)
+    rgb, depth = _randn(g, b, h, w, c), _randn(g, b, h, w, c)
+    if negative:
+        rgb, depth = -rgb.abs() - 1, -depth.abs() - 1
+    s_r, s_d = (torch.rand(b, c, generator=g).to(BF) for _ in range(2))
+    out, ref = _both(libs, stem_fuse.stem_fuse_pool, rgb.to(BF),
+                     depth.to(BF), s_r, s_d)
+    assert dict(LAUNCHES) == {"stem_fuse_pool.bf16": 1}
+    _bf16_close(out, ref, 0.0)
+
+
+@pytest.mark.parametrize("b,h,w,c,cr,w_rgb", [
+    (2, 3, 5, 40, 2, [0.0, 1.0]),
+    (3, 4, 4, 64, 4, [1.0, 0.25, 0.0]),
+    (2, 3, 5, 2048, 128, [0.0, 0.6]),   # two float4 groups a thread
+])
+def test_se_cell_bf16(libs, several_squeeze_blocks, b, h, w, c, cr, w_rgb):
+    """bf16 maps, fp32 MLP weights: within 8e-3 of max |plain| (the fp32
+    means' summation order can move a rounding to bf16 by one step), and
+    two calls bit-identical; the single-map cell through the same
+    kernels."""
+    g = _gen(c + b + 1)
+    ws, wd = _se_weights(g, c, cr), _se_weights(g, c, cr)
+    rgb, depth = _randn(g, b, h, w, c).to(BF), _randn(g, b, h, w, c).to(BF)
+    args = (rgb, depth, torch.tensor(w_rgb), *ws, *wd)
+    out, ref = _both(libs, se.se_fuse_mixed, *args)
+    assert dict(LAUNCHES) == {"se_fuse_mixed.bf16": 1}
+    _bf16_close(out, ref, 8e-3)
+    with emulate.emulated(libs):
+        assert torch.equal(se.se_fuse_mixed(*args), out)
+    x = _randn(g, b, h * w, c).to(BF)
+    out, ref = _both(libs, se.fused_se, x, *ws)
+    assert dict(LAUNCHES) == {"fused_se.bf16": 1}
+    _bf16_close(out, ref, 8e-3)
+
+
+@pytest.mark.parametrize("shape", [(2, 3, 5, 6), (1, 4, 4, 40), (3, 5, 4, 4)])
+def test_learned_upsample_bf16(libs, shape):
+    """bf16 map, taps and bias; fp32 arithmetic rounded once at the store:
+    within 8e-3 of max |plain| (another summation order), both widths."""
+    g = _gen(sum(shape) + 1)
+    c = shape[-1]
+    x, k, bias = (_randn(g, *shape).to(BF), _randn(g, 3, 3, c).to(BF),
+                  _randn(g, c).to(BF))
+    out, ref = _both(libs, upsample.learned_upsample, x, k, bias)
+    assert dict(LAUNCHES) == {"learned_upsample.bf16": 1}
+    _bf16_close(out, ref, 8e-3)
+    # a map that is not 8-byte aligned takes one channel a thread
+    xu = torch.empty(x.numel() + 1, dtype=BF)[1:].view(x.shape)
+    xu.copy_(x)
+    assert xu.data_ptr() % 8
+    with emulate.emulated(libs):
+        _bf16_close(upsample.learned_upsample(xu, k, bias), ref, 8e-3)
+
+
 SMALL_CFG = ESANetConfig(height=64, width=64, num_classes=5,
                          encoder_rgb="resnet18", encoder_depth="resnet18",
                          channels_decoder=(32, 32, 32),
@@ -398,6 +480,33 @@ def test_small_model_serves_through_emulated_kernels(libs):
     torch.testing.assert_close(logits, ref, rtol=1e-5,
                                atol=1e-5 * float(ref.abs().max()))
     assert (class_map == ref.argmax(-1)).float().mean() >= 0.999
+
+
+def test_small_bf16_model_serves_through_emulated_kernels(libs):
+    """The bf16 small model through the emulated bf16 forms: no NBt1D
+    launch (its blocks run PyTorch convs), the other sites' bf16 forms, and
+    the logits of the bf16 plain versions within 2e-2 of max |plain|."""
+    import dataclasses
+
+    model = SkipGateESANet(dataclasses.replace(SMALL_CFG, dtype=BF))
+    init_weights(model, _gen(0))
+    model = model.to(memory_format=torch.channels_last).eval()
+    g = _gen(1)
+    rgb, depth = _randn(g, 1, 64, 64, 3), _randn(g, 1, 64, 64, 1)
+    reset_launches()
+    with emulate.emulated(libs):
+        class_map, weight = serve(model, rgb, depth, mode="dense")
+    assert dict(LAUNCHES) == {
+        f"{k}.bf16": v for k, v in _small_launches([True] * 4).items()
+        if not k.startswith("nbt1d")}
+    with torch.inference_mode():
+        with emulate.emulated(libs):
+            logits = model(rgb, depth, hard=True)
+        ref, ref_w = model(rgb, depth, hard=True, return_weight=True,
+                           use_kernels=False)
+    assert logits.dtype == BF
+    torch.testing.assert_close(weight, ref_w, rtol=0, atol=0)
+    _bf16_close(logits, ref, 2e-2)
 
 
 @pytest.mark.parametrize("mode,paths,ran", [

@@ -12,7 +12,12 @@ Also the ``.pth`` import (``utils/torch_import.py``) against the JAX
 importer: a state_dict with an extra key, a missing gate key and BN
 counters loads into the same parameters with the same unconsumed key, in
 the library and through the CLI; whole-module pickles load; the flags the
-port does not have yet raise naming their ROADMAP item."""
+port does not have yet raise naming their ROADMAP item.
+
+``--dtype bfloat16`` scores the net in bf16 against the JAX CLI at bf16:
+the two packages round at other points, so the class maps are held equal
+on the pixels whose top-two logit margin exceeds the measured logit error
+(``bf16_class_maps``), and both mIoUs are printed."""
 
 import re
 import sys
@@ -23,9 +28,10 @@ import numpy as np
 import pytest
 import torch
 
-from _port_eval_setup import (MODEL_FLAGS, lines_with, random_variables,
-                              run_jax_cli, run_mious, run_port_cli,
-                              save_jax_checkpoint, write_prepared)
+from _port_eval_setup import (MODEL_FLAGS, bf16_class_maps, lines_with,
+                              random_variables, run_jax_cli, run_mious,
+                              run_port_cli, save_jax_checkpoint,
+                              write_prepared)
 from _port_train_setup import one_torch_thread  # noqa: F401 (autouse)
 from dynmm_tpu.utils import torch_import as jax_import
 from dynmm_tpu.utils.torch_export import export_state_dict
@@ -303,9 +309,43 @@ def test_missing_checkpoint_exits(layout, capsys):
     (["--quant", "int8"], "A6"), (["--dtype", "bfloat16"], "A3"),
     (["--activation", "swish"], "A7")], ids=["int8", "bf16", "swish"])
 def test_unported_eval_flags_raise(layout, flags, item):
+    args = layout["args"]
+    if item == "A3":  # bf16 scores the global-gate net; the static one raises
+        args = [a for a in args if a not in ("--dynamic", "--global-gate")]
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-        port_eval.main([*layout["args"], "--ckpt_path", layout["ckpt"],
-                        "--device", "cpu", *flags])
+        port_eval.main([*args, "--ckpt_path", layout["ckpt"], "--device",
+                        "cpu", *flags])
+
+
+@pytest.mark.parametrize("mode", ["noise", "quarter", "capacity", "packed"])
+def test_eval_bf16_chains_run(layout, mode):
+    """Eval's noise, quarter-resolution, capacity-factor and packed-stem
+    chains on the bf16 net; capacity 8.0 scores the exact chain's mIoU."""
+    base = [*layout["args"], "--ckpt_path", layout["ckpt"], "--device",
+            "cpu", "--dtype", "bfloat16"]
+    result = port_eval.main([*base, *MODES[mode]])
+    assert len(result) == (2 if mode == "noise" else 1)
+    assert np.isfinite(result).all()
+    if mode == "capacity":
+        np.testing.assert_array_equal(result, port_eval.main(base))
+
+
+def test_eval_bf16_matches_jax(layout, monkeypatch):
+    argv = [*layout["args"], "--ckpt_path", layout["ckpt"], "--dtype",
+            "bfloat16"]
+    jax_out = run_jax_cli("eval", argv, monkeypatch)
+    port_out = run_port_cli(port_eval, argv)
+    j, p = run_mious(jax_out), run_mious(port_out)
+    maps = bf16_class_maps(argv, layout["variables"], label_size=True)
+    print(f"bf16 eval mIoU: JAX {j}, port {p}; class maps equal on the "
+          f"{maps['sure'].mean() * 100:.2f} % of pixels with margin > "
+          f"2x{maps['err']:.3g}")
+    assert len(j) == len(p) == 1
+    assert lines_with(port_out, "branch ratios") == lines_with(
+        jax_out, "branch ratios")
+    assert maps["sure"].mean() > 0.5
+    np.testing.assert_array_equal(maps["port"][maps["sure"]],
+                                  maps["jax"][maps["sure"]])
 
 
 def test_capacity_factor_needs_hard(layout):

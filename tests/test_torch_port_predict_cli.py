@@ -7,7 +7,9 @@ quarter resolution and the packed stem. The maps each CLI writes
 (``pred_00000.png`` …, read back with cv2) are identical on ≥ 99.9 % of
 pixels, with the same files, and the path distribution and expected-GFLOPs
 lines are equal. Also a ``.pth`` with an extra and a missing key, and the
-flags the port does not have yet."""
+flags the port does not have yet. ``--dtype bfloat16`` against the JAX CLI
+at bf16: the maps are held equal on the pixels whose top-two logit margin
+exceeds the measured logit error (``bf16_class_maps``)."""
 
 import os
 
@@ -16,9 +18,9 @@ import numpy as np
 import pytest
 import torch
 
-from _port_eval_setup import (MODEL_FLAGS, lines_with, random_variables,
-                              run_jax_cli, run_port_cli, save_jax_checkpoint,
-                              write_prepared)
+from _port_eval_setup import (MODEL_FLAGS, bf16_class_maps, lines_with,
+                              random_variables, run_jax_cli, run_port_cli,
+                              save_jax_checkpoint, write_prepared)
 from _port_train_setup import one_torch_thread  # noqa: F401 (autouse)
 from dynmm_tpu.utils.torch_export import export_state_dict
 from dynmm_tpu_torch.cli import predict as port_predict
@@ -35,7 +37,7 @@ def layout(tmp_path_factory):
     sd.pop("gate_layer.conv.1.running_var")  # both packages init it to 1
     sd["bogus_extra"] = torch.ones(2)
     torch.save(sd, root / "odd.pth")
-    return {"root": root, "ckpt": ckpt,
+    return {"root": root, "ckpt": ckpt, "variables": variables,
             "args": ["--dataset", "nyuv2", "--dataset_dir", str(root),
                      *MODEL_FLAGS]}
 
@@ -96,9 +98,33 @@ def test_predict_pth_with_odd_keys_matches_jax(layout, tmp_path, monkeypatch):
     assert lines_with(out, "unconsumed") == ["unconsumed: bogus_extra"]
 
 
+def test_predict_bf16_matches_jax(layout, tmp_path, monkeypatch):
+    argv = [*layout["args"], "--ckpt_path", layout["ckpt"], "--dtype",
+            "bfloat16"]
+    jax_out = run_jax_cli("predict", [*argv, "--out_dir",
+                                      str(tmp_path / "jax")], monkeypatch)
+    port_out = run_port_cli(port_predict, [*argv, "--out_dir",
+                                           str(tmp_path / "port")])
+    for prefix in ("path distribution", "expected total GFLOPs"):
+        assert lines_with(port_out, prefix) == lines_with(jax_out, prefix)
+    maps = bf16_class_maps(argv, layout["variables"], label_size=False)
+    j_names, j_maps = _maps(tmp_path / "jax")
+    p_names, p_maps = _maps(tmp_path / "port")
+    assert p_names == j_names and len(p_names) == len(maps["sure"]) == 6
+    same = np.stack([(p == j).all(axis=-1) for p, j in zip(p_maps, j_maps)])
+    print(f"bf16 predict: maps equal on {same.mean() * 100:.2f} % of pixels; "
+          f"{maps['sure'].mean() * 100:.2f} % have margin > "
+          f"2x{maps['err']:.3g}")
+    assert maps["sure"].mean() > 0.5
+    assert same[maps["sure"]].all()
+
+
+# bf16 serves every model predict builds (the global-gate net), so its bf16
+# case is a model that still raises at bf16: swish (ROADMAP A7)
 @pytest.mark.parametrize("flags, item", [
     (["--export_path", "x.pt2"], "A6"), (["--export_platforms", "cuda"], "A6"),
-    (["--quant", "int8"], "A6"), (["--dtype", "bfloat16"], "A3")],
+    (["--quant", "int8"], "A6"),
+    (["--dtype", "bfloat16", "--activation", "swish"], "A7")],
     ids=["export", "export-platforms", "int8", "bf16"])
 def test_unported_predict_flags_raise(layout, tmp_path, flags, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
