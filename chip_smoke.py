@@ -154,8 +154,35 @@ Run from the root of a checkout on a machine with one NVIDIA GPU:
    mode at B=8 and B=1; then ``cli.eval`` and ``cli.predict --dtype
    bfloat16`` on phase 8's layout (their launches those of the samples'
    paths), eval's mIoU beside fp32's.
-13. Prints the kernels' JSON line (launches summed over phases 3-6 and
-   8-12), the card line, and last ``{"ok": true, "device": {...}}``.
+13. The int8 flagship: the 480×640 flagship with the recipe gate at
+   ``quant="int8"``, fp32 and bf16 compute, calibrated (absmax, fp32) on two
+   batches of ``make_recipe_eval_batch(8, 480, 640, seed=4321+i)`` (the JAX
+   bench's feed): ``quant_sanity`` must count its 177 quantized convs, and
+   its packed forward equal the in-graph one (error 0). One conv of each
+   shape class (3×1, 1×3, their stride-2 forms, 1×1, 1×1/2, 3×3,
+   ``conv_out``, and BasicBlock's 3×3/2 stand-alone) on its input of a dense
+   B=8 forward: ``conv_int8``'s int32 sums equal a float64 conv of the same
+   int8 operands; its time beside the fp32 cuDNN conv's. Serves ``dense``,
+   ``batchmax``, ``compact``, ``low_res``, the packed stem at B=8 and
+   ``switch`` for each sample at B=1, counts at 0 before: each request's
+   launches those of its paths with no NBt1D launch (``int8_launches``) and
+   its int8 convs (``nn/quant.py::INT8_CONVS``) those of its paths. Each
+   request against the dense int8 forward on the same paths (≤ 1e-3 of max
+   |dense| at fp32, 8e-3 at bf16; 0 expected), the int8 plain path with
+   each quantized conv fed the input it got in the kernel forward (gate
+   choices identical, logits within 1e-5 of max |plain| at fp32 and 1e-2 at
+   bf16, class maps equal wherever the plain top-two margin exceeds twice
+   the max logit error; without the replay, rounding flips at quantization
+   boundaries cascade: printed, not held) and the fp32 net (the JAX
+   package's bounds: gate choices identical, relative L2 < 0.12, class-map
+   agreement > 0.85). Request ms of fp32, bf16, int8 and int8-bf16 in turns
+   at B=8 and B=1; then ``cli.eval --quant int8`` (absmax, percentile 99.9;
+   mIoU beside fp32's) and ``cli.predict --quant int8`` (and ``--dtype
+   bfloat16 --output_res quarter --packed_stem``) on phase 8's layout, their
+   launches those of the samples' paths plus the calibration forwards, the
+   PNGs equal to ``serve()``'s maps of a net calibrated on the same batches.
+14. Prints the kernels' JSON line (launches summed over phases 3-6 and
+   8-13), the card line, and last ``{"ok": true, "device": {...}}``.
 
 TF32 is switched off for cuDNN convolutions and matmuls here, so the kernels
 and their plain versions compare in fp32 (bf16 convolutions are unaffected). Any failure exits non-zero before
@@ -2445,6 +2472,503 @@ def check_bf16(report: dict) -> dict:
     return launches
 
 
+# the 480×640 flagship's quantized convs: JAX's quant collection of the same
+# net has 177 in_scale leaves (jax.eval_shape of its init)
+INT8_CONVS_FLAGSHIP = 177
+# make_recipe_eval_batch seeds of the calibration batches (the JAX bench's)
+INT8_CALIB_SEEDS = (4321, 4322)
+# a routed int8 request vs the dense forward, of max |dense|; 0 expected
+INT8_ROUTED_TOL = {"int8": 1e-3, "int8-bf16": 8e-3}
+# int8 kernel path vs int8 plain path, max abs err of the logits over max
+# |plain|, with each quantized conv of the plain forward fed the input it got
+# in the kernel forward (``_replayed_plain``): the float cells round apart by
+# ~1e-6 in fp32, and without the replay inputs within that of a rounding
+# boundary quantize one step apart and the flips cascade through later
+# convs (printed as the upper reading, not held: it is about the int8 error
+# itself). bf16: the kernels' bf16 forms, within the bound asked of the
+# int8 phase (tighter than phase 12's BF16_PLAIN_TOL)
+INT8_PLAIN_TOL = {"int8": 1e-5, "int8-bf16": 1e-2}
+# against the fp32 net: the JAX package's bounds (tests/test_quantize.py)
+INT8_FP32_L2_TOL, INT8_FP32_AGREE = 0.12, 0.85
+# one conv of each shape class of the quantized nets (the flagship's, and
+# BasicBlock's 3×3/2 on a stand-alone conv)
+INT8_CONV_CLASSES = {
+    "3x1": "encoder_rgb.layer1.1.conv3x1_1",
+    "1x3": "encoder_rgb.layer1.1.conv1x3_1",
+    "3x1/2": "encoder_rgb.layer2.0.conv3x1_1",
+    "1x3/2": "encoder_rgb.layer2.0.conv1x3_1",
+    "1x1/2": "encoder_rgb.layer2.0.downsample.0",
+    "1x1": "skip_layer1.0.conv",
+    "3x3": "decoder.decoder_module_1.conv3x3.conv",
+    "conv_out": "decoder.conv_out",
+}
+
+
+def int8_launches(ran: list[bool], low_res: bool, bf16: bool = False) -> dict:
+    """Kernel launches of one int8 flagship forward whose depth stages ran
+    as ``ran`` says: no NBt1D launch (its convs are quantized), the fp32 or
+    bf16 forms of the other kernels (``path_launches``)."""
+    if bf16:
+        return path_launches(ran, low_res, bf16=True)
+    return {k: v for k, v in path_launches(ran, low_res, ()).items()
+            if not k.startswith("nbt1d")}
+
+
+def int8_conv_count(model, ran: list[bool]) -> int:
+    """Quantized convs one forward runs: all but the depth encoder's, plus
+    those of the depth stages that ran."""
+    from dynmm_tpu_torch.utils.quantize import quant_convs
+
+    names = [n for n, _ in quant_convs(model)]
+    depth = [sum(n.startswith(f"encoder_depth.layer{i}.") for n in names)
+             for i in range(1, 5)]
+    return len(names) - sum(depth) + sum(d for d, r in zip(depth, ran) if r)
+
+
+def _rel_l2(a: torch.Tensor, b: torch.Tensor) -> float:
+    a, b = a.float(), b.float()
+    return ((a - b).norm() / b.norm()).item()
+
+
+def _replayed_plain(model, rgb, depth, low_res: bool):
+    """((logits, weight) of the kernel forward, (logits, weight) of the plain
+    forward with each quantized conv fed the input it got in the kernel
+    forward): dense, hard gate. The two then differ by the float cells
+    between the convs only, and not by the rounding flips at quantization
+    boundaries that cascade through later convs."""
+    from collections import defaultdict, deque
+
+    from dynmm_tpu_torch.utils.quantize import quant_convs
+
+    seen = defaultdict(deque)
+    convs = [c for _, c in quant_convs(model)]
+    kw = dict(hard=True, return_weight=True, low_res=low_res)
+    for use_kernels, hook in (
+            (True, lambda m, args: seen[m].append(args[0])),
+            (False, lambda m, args: (seen[m].popleft(),))):
+        hooks = [c.register_forward_pre_hook(hook) for c in convs]
+        try:
+            out = model(rgb, depth, use_kernels=use_kernels, **kw)
+        finally:
+            for h in hooks:
+                h.remove()
+        if use_kernels:
+            kernel = out
+    if any(seen.values()):
+        raise RuntimeError("the plain forward ran fewer quantized convs than "
+                           "the kernel forward")
+    return kernel, out
+
+
+def _int8_conv_classes(model, fp32_model, rgb, depth, card: str) -> list:
+    """Each ``INT8_CONV_CLASSES`` conv on the input it gets in a dense B=8
+    forward (and a stand-alone 3×3/2 BasicBlock conv on a seeded map):
+    ``conv_int8``'s int32 sums against a float64 conv of the same int8
+    operands (equal), the int8 conv's time beside the fp32 cuDNN conv's."""
+    import torch.nn.functional as F
+
+    from dynmm_tpu_torch.nn.layers import Conv2d
+    from dynmm_tpu_torch.nn.quant import conv_int8, quantize_symmetric
+    from dynmm_tpu_torch.utils.device import time_ms
+    from dynmm_tpu_torch.utils.quantize import pack_int8
+
+    inputs = {}
+    hooks = [model.get_submodule(n).register_forward_pre_hook(
+        lambda m, args, n=n: inputs.__setitem__(n, args[0]))
+        for n in INT8_CONV_CLASSES.values()]
+    with torch.inference_mode():
+        model(rgb, depth, hard=True)
+    for h in hooks:
+        h.remove()
+    g = torch.Generator(device="cuda").manual_seed(5)
+    s2 = Conv2d(64, 128, 3, stride=2, padding=1, bias=False,
+                quant="int8").cuda()
+    s2_f = Conv2d(64, 128, 3, stride=2, padding=1, bias=False).cuda().eval()
+    with torch.no_grad():
+        s2.weight.normal_(0, 0.05, generator=g)
+        s2_f.weight.copy_(s2.weight)
+    x2 = torch.randn(BATCH, 64, HEIGHT // 4, WIDTH // 4, generator=g,
+                     device="cuda").to(memory_format=torch.channels_last)
+    s2.in_scale.fill_(x2.abs().max().item() / 127.0)
+    pack_int8(s2.eval())
+    cases = [(k, model.get_submodule(n), fp32_model.get_submodule(n),
+              inputs[n]) for k, n in INT8_CONV_CLASSES.items()]
+    cases.append(("3x3/2", s2, s2_f, x2))
+    rows = []
+    for label, conv, conv_f, x in cases:
+        with torch.inference_mode():
+            x_q = quantize_symmetric(x, conv.in_scale.clamp_min(1e-12))
+            acc = conv_int8(x_q, conv.weight_q, conv.stride, conv.padding,
+                            conv.dilation)
+            ref = F.conv2d(x_q.double(), conv.weight_q.double(),
+                           stride=conv.stride, padding=conv.padding,
+                           dilation=conv.dilation)
+            equal = torch.equal(acc.double(), ref)
+            ms = time_ms(lambda: conv(x))
+            ms_f = time_ms(lambda: conv_f(x.float()))
+        rows.append({"conv": label, "x": list(x.shape),
+                     "weight": list(conv.weight.shape), "sums_equal": equal,
+                     "max_abs_sum": ref.abs().max().item(), "int8_ms": ms,
+                     "fp32_cudnn_ms": ms_f})
+        print(f"  {label:8s} x {tuple(x.shape)} w {tuple(conv.weight.shape)}:"
+              f" int32 sums vs float64 equal {equal} (max |sum| "
+              f"{ref.abs().max().item():.0f}); int8 {ms:.3f} ms, fp32 cuDNN "
+              f"{ms_f:.3f} ms [{card}]", flush=True)
+        if not equal:
+            raise RuntimeError(f"int8 conv {label}: sums differ from float64")
+    return rows
+
+
+def check_int8(report: dict) -> dict:
+    """Phase 13: the int8 flagship (480×640, recipe gate), fp32 and bf16
+    compute, calibrated on the JAX bench's feed and packed, served in every
+    mode and through ``cli.eval`` / ``cli.predict --quant int8``, held
+    against its dense forward, its plain versions and the fp32 net."""
+    import shutil
+
+    import numpy as np
+
+    from dynmm_tpu_torch.cli import eval as eval_cli
+    from dynmm_tpu_torch.cli import predict as predict_cli
+    from dynmm_tpu_torch.data import png
+    from dynmm_tpu_torch.data.nyuv2 import (NYUv2Dataset, class_colors,
+                                            make_recipe_eval_batch)
+    from dynmm_tpu_torch.data.seg_preprocessing import (SegLoader,
+                                                        SegPreprocessor,
+                                                        pack_stem_batch)
+    from dynmm_tpu_torch.kernels import LAUNCHES, reset_launches
+    from dynmm_tpu_torch.nn.layers import first_argmax
+    from dynmm_tpu_torch.nn.quant import INT8_CONVS
+    from dynmm_tpu_torch.serve import build_flagship, serve
+    from dynmm_tpu_torch.train.seg import SegTrainer
+    from dynmm_tpu_torch.utils.checkpoint import save_checkpoint
+    from dynmm_tpu_torch.utils.device import card_line
+    from dynmm_tpu_torch.utils.quantize import (calibrate, pack_int8,
+                                                quant_convs, quant_sanity,
+                                                quantize_int8)
+    from dynmm_tpu_torch.utils.weights import (flax_from_state_dict,
+                                               load_recipe_gate)
+
+    card = card_line()
+    bf16 = torch.bfloat16
+    cuda = lambda a: torch.from_numpy(np.ascontiguousarray(a)).cuda()
+    calib = [tuple(map(cuda, make_recipe_eval_batch(BATCH, HEIGHT, WIDTH,
+                                                    seed=s)))
+             for s in INT8_CALIB_SEEDS]
+    raw = make_recipe_eval_batch(BATCH, HEIGHT, WIDTH)
+    rgb, depth = map(cuda, raw)
+    packed = pack_stem_batch({"image": raw[0], "depth": raw[1]})
+    prgb, pdepth = cuda(packed["image"]), cuda(packed["depth"])
+    models = {}
+    for name, dtype, quant in (("fp32", None, None), ("bf16", bf16, None),
+                               ("int8", None, "int8"),
+                               ("int8-bf16", bf16, "int8")):
+        models[name] = build_flagship(HEIGHT, WIDTH, CLASSES, seed=0,
+                                      dtype=dtype, quant=quant)
+        load_recipe_gate(models[name])
+
+    # calibrate (fp32, the JAX bench's two batches), then pack; the packed
+    # forward against the in-graph one
+    section: dict = {"calibration": {}}
+    for name in ("int8", "int8-bf16"):
+        m = models[name]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        calibrate(m, calib, hard=True)
+        torch.cuda.synchronize()
+        calib_s = time.perf_counter() - t0
+        n = quant_sanity(m)
+        with torch.inference_mode():
+            in_graph = m(rgb, depth, hard=True)
+            pack_int8(m)
+            packed_out = m(rgb, depth, hard=True)
+        packed_err = (packed_out.float() - in_graph.float()).abs().max().item()
+        section["calibration"][name] = {"seconds": calib_s, "quant_sanity": n,
+                                        "packed_vs_in_graph": packed_err}
+        print(f"  {name}: calibrated {n} convs (quant_sanity; the model has "
+              f"{len(quant_convs(m))}) on {len(calib)} batches of {BATCH} in "
+              f"{calib_s:.2f} s; packed vs in-graph logits max abs err "
+              f"{packed_err:.3g}", flush=True)
+        if not n == len(quant_convs(m)) == INT8_CONVS_FLAGSHIP or packed_err:
+            raise RuntimeError(f"{name}: calibration or packing failed")
+    section["convs"] = _int8_conv_classes(models["int8"], models["fp32"], rgb,
+                                          depth, card)
+
+    singles = [(rgb[i:i + 1].contiguous(), depth[i:i + 1].contiguous())
+               for i in range(BATCH)]
+    requests = [("dense", "dense", (rgb, depth), {}),
+                ("batchmax", "batchmax", (rgb, depth), {}),
+                ("compact", "compact", (rgb, depth), {}),
+                ("low_res", "batchmax", (rgb, depth), {"low_res": True}),
+                ("packed stem", "dense", (prgb, pdepth), {}),
+                *((f"switch #{i}", "switch", one, {})
+                  for i, one in enumerate(singles))]
+    for name in ("int8", "int8-bf16"):  # warm-up, not counted
+        for _, mode, images, kw in requests:
+            serve(models[name], *images, mode=mode, **kw)
+    torch.cuda.synchronize()
+
+    # the int8 path's run: counts at 0 just before, read just after
+    reset_launches()
+    INT8_CONVS.clear()
+    served = []
+    for name in ("int8", "int8-bf16"):
+        m = models[name]
+        for label, mode, images, kw in requests:
+            before, c0 = dict(LAUNCHES), INT8_CONVS["cuda"]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            class_map, weight = serve(m, *images, mode=mode, **kw)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            delta = {k: v - before.get(k, 0) for k, v in LAUNCHES.items()
+                     if v - before.get(k, 0)}
+            n_int8 = INT8_CONVS["cuda"] - c0
+            paths = weight.argmax(1).tolist()
+            ran = ([True] * 4 if mode == "dense"
+                   else stages_run(mode, paths, {}))
+            low = kw.get("low_res", False)
+            expected = int8_launches(ran, low, bf16=name == "int8-bf16")
+            if delta != expected or n_int8 != int8_conv_count(m, ran):
+                raise RuntimeError(
+                    f"{name} {label}: launches {delta}, {n_int8} int8 convs; "
+                    f"expected {expected}, {int8_conv_count(m, ran)}")
+            served.append((name, label, mode, images, kw, class_map, weight,
+                           ms, ran, n_int8))
+    launches = dict(LAUNCHES)
+    print(f"  every request's launches those of its paths, no NBt1D launch; "
+          f"its int8 convs those of its paths ({INT8_CONVS['cuda']} in all)",
+          flush=True)
+
+    methods = {"dense": "forward", "batchmax": "forward_switch_batched",
+               "compact": "forward_routed_compact", "switch": "forward_switch"}
+    refs: dict = {}
+    rows = []
+    for (name, label, mode, (r, d), kw, class_map, weight, ms, ran,
+         n_int8) in served:
+        m = models[name]
+        low = kw.get("low_res", False)
+        with torch.inference_mode():
+            logits = getattr(m, methods[mode])(
+                r, d, low_res=low, **({"hard": True} if mode == "dense"
+                                      else {}))
+            key = (name, r.data_ptr(), r.shape[0], low)
+            if key not in refs:
+                refs[key] = (*_replayed_plain(m, r, d, low),
+                             m(r, d, hard=True, return_weight=True,
+                               low_res=low, use_kernels=False),
+                             models["fp32"](r, d, hard=True,
+                                            return_weight=True, low_res=low))
+            (dense, w_d), (plain, w_p), (cascade, w_c), (ref, w32) = refs[key]
+        routed_rel = ((logits.float() - dense.float()).abs().max()
+                      / dense.float().abs().max()).item()
+        plain_err = (dense.float() - plain.float()).abs().max().item()
+        plain_rel = plain_err / plain.float().abs().max().item()
+        cascade_rel = ((dense.float() - cascade.float()).abs().max()
+                       / cascade.float().abs().max()).item()
+        cascade_l2 = _rel_l2(dense, cascade)
+        sure = _sure_pixels(plain, plain_err)
+        sure_same = bool((first_argmax(dense) == first_argmax(plain))[sure]
+                         .all())
+        l2_32 = _rel_l2(dense, ref)
+        agree32 = (first_argmax(dense) == first_argmax(ref)).float().mean(
+            ).item()
+        same_gate = (torch.equal(weight, w_d) and torch.equal(w_d, w_p)
+                     and torch.equal(w_d, w_c) and torch.equal(w_d, w32))
+        out_dtype = bf16 if name == "int8-bf16" else torch.float32
+        hw = (HEIGHT // 4, WIDTH // 4) if low else (HEIGHT, WIDTH)
+        ok_out = (logits.dtype == out_dtype
+                  and logits.shape == (r.shape[0], *hw, CLASSES)
+                  and bool(torch.isfinite(logits).all()))
+        row = {"net": name, "request": label, "mode": mode,
+               "batch": r.shape[0], "paths": weight.argmax(1).tolist(),
+               "depth_stages_run": ran, "int8_convs": n_int8, "ms": ms,
+               "routed_vs_dense_rel_err": routed_rel,
+               "kernels_vs_plain_max_abs_err": plain_err,
+               "kernels_vs_plain_rel_err": plain_rel,
+               "kernels_vs_plain_cascade_rel_err": cascade_rel,
+               "kernels_vs_plain_cascade_rel_l2": cascade_l2,
+               "sure_pixel_share": sure.float().mean().item(),
+               "sure_pixels_equal": sure_same, "fp32_rel_l2": l2_32,
+               "fp32_class_map_agreement": agree32, "same_gate": same_gate}
+        rows.append(row)
+        print(f"  {name:9s} {label:11s} B={r.shape[0]} paths {row['paths']}:"
+              f" {ms:.2f} ms, {n_int8} int8 convs; routed vs dense "
+              f"{routed_rel:.3g} of max |dense|; kernels vs plain (conv "
+              f"inputs replayed) max abs err {plain_err:.3g} ({plain_rel:.3g} "
+              f"of max |plain|; without the replay {cascade_rel:.3g}, rel L2 "
+              f"{cascade_l2:.3g}), class maps equal on the "
+              f"{row['sure_pixel_share'] * 100:.2f} % of pixels with margin > "
+              f"2x{plain_err:.3g}: {sure_same}; vs fp32: rel L2 {l2_32:.4f}, "
+              f"class maps agree on {agree32 * 100:.2f} %; gate choices "
+              f"identical (int8, plain, fp32): {same_gate}", flush=True)
+        if (not ok_out or not same_gate
+                or routed_rel > INT8_ROUTED_TOL[name]
+                or plain_rel > INT8_PLAIN_TOL[name] or not sure_same
+                or l2_32 >= INT8_FP32_L2_TOL or agree32 <= INT8_FP32_AGREE):
+            raise RuntimeError(f"{name} {label}: disagreement")
+    del refs
+
+    # request ms, the four nets in turns, B=8 and B=1
+    timed = [("dense", (rgb, depth)), ("batchmax", (rgb, depth)),
+             ("dense", singles[0]), ("switch", singles[0])]
+    names = ("fp32", "bf16", "int8", "int8-bf16")
+    times = []
+    for mode, images in timed:
+        got = {k: [] for k in names}
+        for rep in range(TIMED_REPS):
+            for name in names[rep % 4:] + names[:rep % 4]:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                serve(models[name], *images, mode=mode)
+                torch.cuda.synchronize()
+                got[name].append((time.perf_counter() - t0) * 1e3)
+        med = {k: sorted(v)[len(v) // 2] for k, v in got.items()}
+        times.append({"mode": mode, "batch": images[0].shape[0],
+                      **{f"{k}_ms": v for k, v in med.items()},
+                      **{f"{k}_all": v for k, v in got.items()}})
+        print(f"  {mode:8s} B={images[0].shape[0]}: "
+              + ", ".join(f"{k} {med[k]:.2f} ms" for k in names)
+              + f" (median of {TIMED_REPS}, in turns) [{card}]", flush=True)
+    for name in ("bf16", "int8", "int8-bf16"):
+        del models[name]
+
+    # cli.eval and cli.predict --quant int8 on phase 8's layout
+    root = ROOT / "build" / "chip_smoke_int8"
+    shutil.rmtree(root, ignore_errors=True)
+    clis: dict = {}
+    # the CLIs' calibration seconds (calibrate, select, pack): eval's
+    # SegTrainer.calibrate_quant, predict's quantize_int8, each timed to a
+    # synchronize
+    calib_times: list = []
+    originals = (SegTrainer.calibrate_quant, predict_cli.quantize_int8)
+
+    def timed(fn):
+        def run(*args, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            torch.cuda.synchronize()
+            calib_times.append(time.perf_counter() - t0)
+            return out
+        return run
+
+    SegTrainer.calibrate_quant = timed(originals[0])
+    predict_cli.quantize_int8 = timed(originals[1])
+    try:
+        _write_layout(root)
+        m32 = models.pop("fp32")
+        v = flax_from_state_dict(m32.state_dict())
+        ckpt = str(root / "flagship.msgpack")
+        save_checkpoint(ckpt, {"params": v["params"], "model_state": {
+            "batch_stats": v["batch_stats"]}}, epoch=0)
+        ds = NYUv2Dataset(str(root), "test")
+        pre = SegPreprocessor(ds.depth_mean, ds.depth_std, HEIGHT, WIDTH,
+                              phase="test")
+        batches = []
+        for b in SegLoader(ds, pre, batch_size=BATCH, prefetch=0):
+            p = pack_stem_batch(b)
+            batches.append({k: cuda(x) for k, x in (
+                ("rgb", b["image"]), ("depth", b["depth"]),
+                ("prgb", p["image"]), ("pdepth", p["depth"]))})
+        # the CLIs' nets: calibrated on their loaders' batches (all of them:
+        # --calib_batches 8 ≥ 2), raw or packed, then packed
+        refs = {}
+        for name, dtype, keys in (("int8", None, ("rgb", "depth")),
+                                  ("int8-bf16", bf16, ("prgb", "pdepth"))):
+            m = build_flagship(HEIGHT, WIDTH, CLASSES, seed=0, dtype=dtype,
+                               quant="int8")
+            load_recipe_gate(m)
+            quantize_int8(m, [tuple(b[k] for k in keys) for b in batches],
+                          hard=True)
+            refs[name] = (m, keys)
+        with torch.inference_mode():
+            paths = {name: [m.gate_only(*(b[k] for k in keys)).argmax(1)
+                            .tolist() for b in batches]
+                     for name, (m, keys) in refs.items()}
+        n_b = len(batches)
+        calib_l = _add({}, int8_launches([True] * 4, False), n_b)
+        dense = int8_launches([True] * 4, False)
+        base = ["--dataset", "nyuv2", "--dataset_dir", str(root), "--height",
+                str(HEIGHT), "--width", str(WIDTH), "--batch_size",
+                str(BATCH), "--ckpt_path", ckpt]
+        hard = [*base, "--dynamic", "--global-gate", "--hard"]
+        pct = ["--calib_estimator", "percentile", "--calib_percentile", "99.9"]
+        runs = [
+            ("eval", eval_cli.main, [*hard, "--quant", "int8"],
+             _add(dict(calib_l), dense, n_b), None),
+            ("eval p99.9", eval_cli.main, [*hard, "--quant", "int8", *pct],
+             _add(dict(calib_l), dense, n_b), None),
+            ("predict", predict_cli.main, [*base, "--quant", "int8",
+                                           "--out_dir", str(root / "p1")],
+             None, ("int8", False)),
+            ("predict bf16 quarter packed", predict_cli.main,
+             [*base, "--quant", "int8", "--dtype", "bfloat16", "--output_res",
+              "quarter", "--packed_stem", "--out_dir", str(root / "p2")],
+             None, ("int8-bf16", True)),
+        ]
+        colors = class_colors(CLASSES + 1)
+        for label, fn, argv, expected, pred in runs:
+            if pred is not None:
+                name, low = pred
+                expected = dict(calib_l)
+                for p in paths[name]:
+                    _add(expected, int8_launches(
+                        stages_run("batchmax", p, {}), low,
+                        bf16=name == "int8-bf16"))
+            reset_launches()
+            t0 = time.perf_counter()
+            res, lines = _cli_run(fn, argv)
+            wall = time.perf_counter() - t0
+            got = {k: v for k, v in LAUNCHES.items() if v}
+            if got != expected:
+                raise RuntimeError(f"{label} --quant int8: launches {got} != "
+                                   f"{expected}")
+            _add(launches, got)
+            row = {"wall_s": wall, "calib_s": calib_times.pop(),
+                   "launches": got, "lines": [
+                ln for ln in lines if ln.startswith(("Calibrated", "Run",
+                                                     "  branch", "path",
+                                                     "model"))]}
+            if pred is None:
+                row["miou"] = res.tolist()
+            else:
+                m, keys = refs[name]
+                maps = []
+                for b in batches:
+                    cm, _ = serve(m, *(b[k] for k in keys), mode="batchmax",
+                                  low_res=low)
+                    maps.extend(cm.cpu().numpy())
+                err = max(int(np.abs(png.read(str(Path(argv[-1]) /
+                                                  f"pred_{i:05d}.png"))
+                                     .astype(np.int32)
+                                     - colors[maps[i] + 1]).max())
+                          for i in range(res["n"]))
+                row.update(n=res["n"], fps=res["fps"], png_max_abs_err=err)
+                if err or res["n"] != CLI_SAMPLES:
+                    raise RuntimeError(f"{label} --quant int8: written maps "
+                                       "differ from serve()'s")
+            clis[label] = row
+            print(f"  cli.{label}: {row['lines']}, calibration "
+                  f"{row['calib_s']:.2f} s, {wall:.2f} s in all [{card}]",
+                  flush=True)
+        res32, _ = _cli_run(eval_cli.main, hard)
+        clis["eval"]["miou_fp32"] = res32.tolist()
+        print(f"  cli.eval --quant int8: mIoU {clis['eval']['miou']} "
+              f"(p99.9 {clis['eval p99.9']['miou']}; fp32 "
+              f"{clis['eval']['miou_fp32']}); cli.predict --quant int8: "
+              f"{clis['predict']['fps']:.2f} frames/s, bf16 quarter packed "
+              f"{clis['predict bf16 quarter packed']['fps']:.2f} frames/s; "
+              f"PNGs equal to serve()'s maps [{card}]", flush=True)
+        del refs
+    finally:
+        SegTrainer.calibrate_quant, predict_cli.quantize_int8 = originals
+        shutil.rmtree(root, ignore_errors=True)
+    section.update(requests=rows, request_ms=times, clis=clis)
+    report["int8"] = section
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this check runs on the card",
@@ -2503,13 +3027,16 @@ def main() -> int:
         (12, f"the bf16 flagship at {HEIGHT}x{WIDTH} with the recipe gate: "
              "every serving mode, cli.eval and cli.predict --dtype bfloat16",
          check_bf16),
+        (13, f"the int8 flagship at {HEIGHT}x{WIDTH} with the recipe gate, "
+             "fp32 and bf16 compute: calibration, every serving mode, "
+             "cli.eval and cli.predict --quant int8", check_int8),
     ]
     for n, title, check in phases:
         print(f"[{n}] {title}", flush=True)
         t0 = time.perf_counter()
         runs.append(check(report) or {})
         print(f"  phase {n}: {time.perf_counter() - t0:.1f} s", flush=True)
-    print("[13] kernels", flush=True)
+    print("[14] kernels", flush=True)
     for k in kernels:
         k["launches"] = sum(run.get(k["name"], 0) for run in runs)
         if k["launches"] == 0:

@@ -22,10 +22,13 @@ encoder's and the whole net's GFLOPs, then the mean and std over runs.
 Every model of the JAX CLI is scored (the local-gate net samples its hard
 gates under ``test``); ``--capacity_factor`` takes the global-gate net
 only. ``--dtype bfloat16`` scores the global-gate net in bf16, every chain
-above included. Flags of features the port does not have yet raise
-(``cli/seg_build.py::check_supported``: ``--quant int8`` ROADMAP A6,
-``--dtype bfloat16`` for any other model A3, ``--activation swish|hswish``
-A7).
+above included. ``--quant int8`` scores the int8 net (the global-gate net,
+fp32 or bf16, or the static ESANet): the scales calibrated on the first
+``--calib_batches`` clean batches (``--calib_estimator absmax`` or
+``percentile`` at ``--calib_percentile``), then the weights packed, before
+the capacity-factor calibration. Flags of features the port does not have
+yet raise (``cli/seg_build.py::check_supported``: ``--dtype bfloat16`` for
+any other model ROADMAP A3, ``--activation swish|hswish`` A7).
 """
 
 from __future__ import annotations
@@ -112,6 +115,18 @@ def main(argv=None) -> np.ndarray:
         low_res_eval=args.output_res == "quarter")
     trainer = SegTrainer(model, cfg, np.ones(n_classes, np.float32),
                          device=args.device)
+
+    if args.quant == "int8":
+        # PTQ calibration on clean batches, then score the int8 net with
+        # its weights packed: the same checkpoint and metric chain
+        trainer.calibrate_quant(model, data_loader,
+                                n_batches=args.calib_batches,
+                                estimator=args.calib_estimator,
+                                percentile=args.calib_percentile)
+        print(f"Calibrated int8 scales on {args.calib_batches} batches "
+              f"({args.calib_estimator}"
+              + (f" p{args.calib_percentile}"
+                 if args.calib_estimator == "percentile" else "") + ")")
 
     if args.capacity_factor > 0:
         # deployment branch ratios on clean batches (stems + gate only),

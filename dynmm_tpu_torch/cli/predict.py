@@ -21,8 +21,12 @@ prefetch thread. Writes ``pred_00000.png`` … (colour
 path distribution, the expected GFLOPs a sample and frames/s (host clock,
 forward to class map on the host). ``--dtype bfloat16`` serves the net in
 bf16 (fp32 parameters, bf16 maps, the gate in fp32; the inputs stay fp32
-and the stems cast them). ``--export_path`` / ``--export_platforms``
-(``torch.export``) and ``--quant int8`` raise, naming ROADMAP A6.
+and the stems cast them). ``--quant int8`` serves the int8 net (fp32 or,
+with ``--dtype bfloat16``, bf16 between the convs): its scales calibrated
+with the hard dense forward on the first ``--calib_batches`` batches of the
+serving feed (``--calib_estimator``, ``--calib_percentile``), then its
+weights packed. ``--export_path`` / ``--export_platforms``
+(``torch.export``) raise, naming ROADMAP A6-export.
 """
 
 from __future__ import annotations
@@ -47,6 +51,7 @@ from dynmm_tpu_torch.models.skip_gate import capacity_ladders, flop_table
 from dynmm_tpu_torch.nn.layers import pack_weights
 from dynmm_tpu_torch.serve import SERVE_MODES, serve
 from dynmm_tpu_torch.utils.device import resolve_device
+from dynmm_tpu_torch.utils.quantize import quantize_int8
 from dynmm_tpu_torch.utils.torch_import import load_any_checkpoint
 
 
@@ -61,9 +66,9 @@ def build_parser() -> ArgumentParserRGBDSegmentation:
     parser.add_argument("--num", type=int, default=0,
                         help="limit sample count")
     parser.add_argument("--export_path", default="",
-                        help="not ported (torch.export, ROADMAP A6)")
+                        help="not ported (torch.export, ROADMAP A6-export)")
     parser.add_argument("--export_platforms", default="",
-                        help="not ported (torch.export, ROADMAP A6)")
+                        help="not ported (torch.export, ROADMAP A6-export)")
     parser.add_argument(
         "--serve_mode", default="batchmax", choices=SERVE_MODES,
         help="execution strategy: batchmax = batch-adaptive depth skipping; "
@@ -97,7 +102,7 @@ def main(argv=None) -> dict:
     if args.export_path or args.export_platforms:
         raise NotImplementedError(
             "not ported yet: --export_path/--export_platforms (a serialized "
-            "serving forward through torch.export, ROADMAP A6)")
+            "serving forward through torch.export, ROADMAP A6-export)")
     check_supported(args)
 
     ds = make_dataset(args, args.split)
@@ -122,6 +127,16 @@ def main(argv=None) -> dict:
     pack_weights(model)
     to_dev = lambda x: torch.as_tensor(np.asarray(x)).to(device)
     low_res = args.output_res == "quarter"
+
+    if args.quant == "int8":
+        # PTQ calibration on clean preprocessed batches (packed like the
+        # serving feed), then serve the int8 net with its weights packed
+        quantize_int8(model, ((to_dev(b["image"]), to_dev(b["depth"]))
+                              for b in itertools.islice(iter(loader),
+                                                        args.calib_batches)),
+                      args.calib_estimator, args.calib_percentile, hard=True)
+        print(f"Calibrated int8 scales on {args.calib_batches} batches "
+              f"({args.calib_estimator})")
 
     ratios = None
     if args.capacity_factor > 0:

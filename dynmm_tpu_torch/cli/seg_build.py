@@ -15,7 +15,10 @@ layouts (``data/nyuv2.py``, ``data/other_datasets.py``) and ``synthetic``.
 feature the port does not have yet, naming its ROADMAP item; none is
 silently ignored. ``--dtype bfloat16`` serves and scores the global-gate
 SkipGateESANet (``--dynamic --global-gate``) in bf16; the other models and
-training take fp32 only.
+training take fp32 only. ``--quant int8`` builds the global-gate net (fp32
+or bf16) or the static ESANet with quantized convs for cli.eval and
+cli.predict, which calibrate it; the local-gate net and the one-modality
+net raise, and so does training.
 """
 
 from __future__ import annotations
@@ -52,8 +55,10 @@ def check_supported(args, training: bool = False) -> None:
         missing.append(f"--dtype {args.dtype} for a model other than the "
                        "global-gate SkipGateESANet (bf16 for the others, "
                        "ROADMAP A3)")
-    if args.quant != "none":
-        missing.append(f"--quant {args.quant} (int8, ROADMAP A6)")
+    if args.quant != "none" and training:
+        missing.append(f"--quant {args.quant} in training (a serving-time "
+                       "knob: cli.eval and cli.predict calibrate a trained "
+                       "net; training stays float, ROADMAP A6)")
     if missing:
         raise NotImplementedError("not ported yet: " + "; ".join(missing))
 
@@ -77,6 +82,7 @@ def build_config(args, n_classes: int) -> ESANetConfig:
         fuse_depth_in_rgb_encoder=args.fuse_depth_in_rgb_encoder,
         upsampling=args.upsampling,
         dtype=torch.bfloat16 if args.dtype == "bfloat16" else None,
+        quant=None if args.quant == "none" else args.quant,
     )
 
 
@@ -92,6 +98,9 @@ def build_model(args, n_classes: int):
         assert len(block_rule) == 4
         if args.global_gate:
             return SkipGateESANet(cfg)
+        if cfg.quant is not None:
+            raise NotImplementedError(
+                "--quant supports global-gate / static models only")
         return SkipESANet(cfg, block_rule=block_rule)
     if args.modality == "rgbd":
         return ESANet(cfg)

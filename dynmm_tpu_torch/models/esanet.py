@@ -17,6 +17,15 @@ APPM or none. ``ESANet`` is the static baseline: depth always fused.
 fp32, or bf16 for the global-gate SkipGateESANet in eval, whose modules the
 constructor puts in bf16 (``nn/layers.py::set_compute_dtype``); the other
 models of the family take fp32 only (ROADMAP A3).
+
+``ESANetConfig.quant`` (``nn/quant.py``): None, ``"calib"`` or ``"int8"``
+for the convs the JAX model quantizes: the encoder stages' (every block's,
+downsamples included), the decoder's ``conv3x3`` and NBt1D blocks,
+``conv_out`` and the skip projections. The stems, the context module, the
+gate, the SE MLPs, ``side_output`` and the upsamples stay float. The
+global-gate SkipGateESANet (fp32 or bf16) and the static ESANet (fp32)
+take it; the local-gate SkipESANet and ESANetOneModality raise, as the JAX
+factory refuses the one and has no quantized conv in the other.
 """
 
 from __future__ import annotations
@@ -53,6 +62,10 @@ class ESANetConfig:
     fuse_depth_in_rgb_encoder: str = "SE-add"
     upsampling: str = "learned-3x3-zeropad"
     dtype: torch.dtype | None = None  # compute dtype; params stay fp32
+    # int8 post-training quantization (nn/quant.py): None | "calib" | "int8"
+    # for the encoder stages' convs, the decoder's ConvBNActs, NBt1D blocks
+    # and conv_out, and the skip projections
+    quant: str | None = None
 
 
 def require_fp32(cfg: ESANetConfig, model: str) -> None:
@@ -63,19 +76,29 @@ def require_fp32(cfg: ESANetConfig, model: str) -> None:
             "global-gate SkipGateESANet only; the others, ROADMAP A3)")
 
 
+def require_no_quant(cfg: ESANetConfig, model: str) -> None:
+    """Raise on a quant mode for ``model`` (the JAX factory quantizes the
+    global-gate SkipGateESANet and the static ESANet only)."""
+    if cfg.quant is not None:
+        raise NotImplementedError(
+            f"--quant supports global-gate / static models only, not {model}")
+
+
 class DecoderModule(nn.Module):
     """3×3 ConvBNAct → N NonBottleneck1D blocks → ×2 upsample → + skip
     (the skip only under ``encoder_decoder_fusion == "add"``)."""
 
     def __init__(self, channels_in: int, channels_dec: int, nr_blocks: int,
                  num_classes: int, upsampling_mode: str,
-                 activation: str = "relu", encoder_decoder_fusion: str = "add"):
+                 activation: str = "relu", encoder_decoder_fusion: str = "add",
+                 quant: str | None = None):
         super().__init__()
         self.add_skip = encoder_decoder_fusion == "add"
         self.conv3x3 = ConvBNAct(channels_in, channels_dec, 3,
-                                 activation=activation)
+                                 activation=activation, quant=quant)
         self.decoder_blocks = nn.ModuleList(
-            NonBottleneck1D(channels_dec, channels_dec, activation=activation)
+            NonBottleneck1D(channels_dec, channels_dec, activation=activation,
+                            quant=quant)
             for _ in range(nr_blocks))
         self.side_output = nn.Conv2d(channels_dec, num_classes, 1)
         self.upsample = Upsample(upsampling_mode, channels_dec)
@@ -98,16 +121,17 @@ class Decoder(nn.Module):
     def __init__(self, channels_in: int, channels_decoder: Sequence[int],
                  nr_decoder_blocks: Sequence[int], num_classes: int,
                  upsampling_mode: str, activation: str = "relu",
-                 encoder_decoder_fusion: str = "add"):
+                 encoder_decoder_fusion: str = "add",
+                 quant: str | None = None):
         super().__init__()
         ins = (channels_in, channels_decoder[0], channels_decoder[1])
         for i in range(3):
             setattr(self, f"decoder_module_{i + 1}", DecoderModule(
                 ins[i], channels_decoder[i], nr_decoder_blocks[i],
                 num_classes, upsampling_mode, activation,
-                encoder_decoder_fusion))
+                encoder_decoder_fusion, quant))
         self.conv_out = Conv2d(channels_decoder[2], num_classes, 3,
-                               padding=1)
+                               padding=1, quant=quant)
         self.upsample1 = Upsample(upsampling_mode, num_classes)
         self.upsample2 = Upsample(upsampling_mode, num_classes)
 
@@ -140,7 +164,7 @@ def build_encoder(cfg: ESANetConfig, which: str,
         input_channels = 3 if which == "rgb" else 1
     return make_resnet(getattr(cfg, f"encoder_{which}"),
                        block=cfg.encoder_block, input_channels=input_channels,
-                       activation=cfg.activation)
+                       activation=cfg.activation, quant=cfg.quant)
 
 
 class _Head(nn.Module):
@@ -159,7 +183,8 @@ class _Head(nn.Module):
             setattr(self, f"skip_layer{i}", None if (
                 c_enc == c_dec or not skip_layers) else
                 nn.Sequential(ConvBNAct(c_enc, c_dec, 1,
-                                        activation=cfg.activation)))
+                                        activation=cfg.activation,
+                                        quant=cfg.quant)))
         # learned-3x3 upsampling cannot upscale the non-×2 context maps
         context_upsampling = ("nearest" if "learned-3x3" in cfg.upsampling
                               else cfg.upsampling)
@@ -169,7 +194,7 @@ class _Head(nn.Module):
             upsampling_mode=context_upsampling)
         self.decoder = Decoder(channels_after, cd, cfg.nr_decoder_blocks,
                                cfg.num_classes, cfg.upsampling, cfg.activation,
-                               cfg.encoder_decoder_fusion)
+                               cfg.encoder_decoder_fusion, cfg.quant)
 
     def skip(self, idx: int, fused):
         layer = getattr(self, f"skip_layer{idx}")

@@ -14,7 +14,7 @@ the reference.
 from __future__ import annotations
 
 from dynmm_tpu_torch.models.esanet import (ESANetConfig, _Head, build_encoder,
-                                           require_fp32)
+                                           require_fp32, require_no_quant)
 from dynmm_tpu_torch.nn.layers import (SqueezeAndExcitation, max_pool_3x3_s2,
                                        nchw)
 
@@ -27,6 +27,8 @@ class ESANetOneModality(_Head):
     def __init__(self, cfg: ESANetConfig, input_channels: int = 3,
                  weighting_in_encoder: str = "None"):
         require_fp32(cfg, "ESANetOneModality")
+        require_no_quant(cfg, "ESANetOneModality, which has no quantized "
+                              "conv in the JAX package either")
         super().__init__()
         self.cfg = cfg
         self.encoder = build_encoder(cfg, "rgb", input_channels)

@@ -22,6 +22,11 @@ fp32 input to bf16 (the JAX stem casts ``x`` and ``w``), every conv runs in
 cuDNN bf16 on the convs' bf16 weight copies, and a NonBottleneck1D block
 runs its unfused convs: the NBt1D kernels have no bf16 form, and the JAX
 model's bf16 block runs XLA convs too.
+
+With ``quant`` (``nn/quant.py``) every conv of every block, ``downsample``
+included, is a quantized ``Conv2d``, and a NonBottleneck1D block runs its
+four convs unfused, in calibration too, as the JAX int8 block does; the
+stem conv stays float.
 """
 
 from __future__ import annotations
@@ -50,20 +55,21 @@ class NonBottleneck1D(Packed):
 
     def __init__(self, in_planes: int, planes: int, stride: int = 1,
                  has_downsample: bool = False, dilation: int = 1,
-                 activation: str = "relu"):
+                 activation: str = "relu", quant: str | None = None):
         super().__init__()
         d = dilation
+        q = dict(quant=quant)
         self.conv3x1_1 = Conv2d(in_planes, planes, (3, 1), stride=(stride, 1),
-                                padding=(1, 0))
+                                padding=(1, 0), **q)
         self.conv1x3_1 = Conv2d(planes, planes, (1, 3), stride=(1, stride),
-                                padding=(0, 1))
+                                padding=(0, 1), **q)
         self.bn1 = BatchNorm2d(planes, eps=NBT1D_BN_EPS)
         self.conv3x1_2 = Conv2d(planes, planes, (3, 1), padding=(d, 0),
-                                dilation=(d, 1))
+                                dilation=(d, 1), **q)
         self.conv1x3_2 = Conv2d(planes, planes, (1, 3), padding=(0, d),
-                                dilation=(1, d))
+                                dilation=(1, d), **q)
         self.bn2 = BatchNorm2d(planes, eps=NBT1D_BN_EPS)
-        self.downsample = (_downsample(in_planes, planes, stride)
+        self.downsample = (_downsample(in_planes, planes, stride, quant)
                            if has_downsample else None)
         self.act = get_activation(activation)
         # the kernel's block: stride 1, identity skip, no dilation, relu
@@ -74,8 +80,11 @@ class NonBottleneck1D(Packed):
     @property
     def fused(self) -> bool:
         """Served by ``nbt1d_block``: a fusable block of an fp32 model (the
-        kernels have no bf16 form)."""
-        return self.fusable and self.compute_dtype in (None, torch.float32)
+        kernels have no bf16 form) without quantized convs (the fused
+        kernels neither take int8 nor expose the inner convs' inputs to
+        calibration)."""
+        return (self.fusable and self.compute_dtype in (None, torch.float32)
+                and self.conv3x1_1.quant is None)
 
     def repack(self):
         names = ("w1", "w2", "s1", "t1", "w3", "w4", "s2", "t2")
@@ -115,9 +124,11 @@ class NonBottleneck1D(Packed):
         return self.act(out + identity)
 
 
-def _downsample(in_planes: int, out_planes: int, stride: int):
+def _downsample(in_planes: int, out_planes: int, stride: int,
+                quant: str | None = None):
     return nn.Sequential(Conv2d(in_planes, out_planes, 1, stride=stride,
-                                bias=False), BatchNorm2d(out_planes))
+                                bias=False, quant=quant),
+                         BatchNorm2d(out_planes))
 
 
 class BasicBlock(nn.Module):
@@ -126,14 +137,16 @@ class BasicBlock(nn.Module):
     expansion = 1
 
     def __init__(self, in_planes: int, planes: int, stride: int = 1,
-                 has_downsample: bool = False, activation: str = "relu"):
+                 has_downsample: bool = False, activation: str = "relu",
+                 quant: str | None = None):
         super().__init__()
         self.conv1 = Conv2d(in_planes, planes, 3, stride=stride, padding=1,
-                            bias=False)
+                            bias=False, quant=quant)
         self.bn1 = BatchNorm2d(planes)
-        self.conv2 = Conv2d(planes, planes, 3, padding=1, bias=False)
+        self.conv2 = Conv2d(planes, planes, 3, padding=1, bias=False,
+                            quant=quant)
         self.bn2 = BatchNorm2d(planes)
-        self.downsample = (_downsample(in_planes, planes, stride)
+        self.downsample = (_downsample(in_planes, planes, stride, quant)
                            if has_downsample else None)
         self.act = get_activation(activation)
 
@@ -151,17 +164,18 @@ class Bottleneck(nn.Module):
     expansion = 4
 
     def __init__(self, in_planes: int, planes: int, stride: int = 1,
-                 has_downsample: bool = False, activation: str = "relu"):
+                 has_downsample: bool = False, activation: str = "relu",
+                 quant: str | None = None):
         super().__init__()
         out_planes = planes * self.expansion
-        self.conv1 = Conv2d(in_planes, planes, 1, bias=False)
+        self.conv1 = Conv2d(in_planes, planes, 1, bias=False, quant=quant)
         self.bn1 = BatchNorm2d(planes)
         self.conv2 = Conv2d(planes, planes, 3, stride=stride, padding=1,
-                            bias=False)
+                            bias=False, quant=quant)
         self.bn2 = BatchNorm2d(planes)
-        self.conv3 = Conv2d(planes, out_planes, 1, bias=False)
+        self.conv3 = Conv2d(planes, out_planes, 1, bias=False, quant=quant)
         self.bn3 = BatchNorm2d(out_planes)
-        self.downsample = (_downsample(in_planes, out_planes, stride)
+        self.downsample = (_downsample(in_planes, out_planes, stride, quant)
                            if has_downsample else None)
         self.act = get_activation(activation)
 
@@ -183,13 +197,14 @@ class ResNetStage(nn.ModuleList):
 
     def __init__(self, planes: int, n_blocks: int, stride: int = 1,
                  in_planes: int = 64, activation: str = "relu",
-                 block: str = "NonBottleneck1D"):
+                 block: str = "NonBottleneck1D", quant: str | None = None):
         cls = BLOCKS[block]
         out_planes = planes * cls.expansion
         needs_ds = stride != 1 or in_planes != out_planes
         blocks = [cls(in_planes, planes, stride=stride,
-                      has_downsample=needs_ds, activation=activation)]
-        blocks += [cls(out_planes, planes, activation=activation)
+                      has_downsample=needs_ds, activation=activation,
+                      quant=quant)]
+        blocks += [cls(out_planes, planes, activation=activation, quant=quant)
                    for _ in range(1, n_blocks)]
         super().__init__(blocks)
 
@@ -233,7 +248,8 @@ class ResNet(nn.Module):
     (64, 64e, 128e, 256e)[i] channels, e the block's expansion."""
 
     def __init__(self, layers, input_channels: int = 3,
-                 activation: str = "relu", block: str = "NonBottleneck1D"):
+                 activation: str = "relu", block: str = "NonBottleneck1D",
+                 quant: str | None = None):
         super().__init__()
         self.input_channels = input_channels
         self.block = block
@@ -247,7 +263,8 @@ class ResNet(nn.Module):
         for i, ((planes, stride, in_planes), n) in enumerate(zip(plan, layers)):
             setattr(self, f"layer{i + 1}",
                     ResNetStage(planes, n, stride=stride, in_planes=in_planes,
-                                activation=activation, block=block))
+                                activation=activation, block=block,
+                                quant=quant))
 
     @property
     def expansion(self) -> int:
@@ -288,12 +305,14 @@ class ResNet(nn.Module):
 
 
 def make_resnet(name: str, block: str = "NonBottleneck1D",
-                input_channels: int = 3, activation: str = "relu") -> ResNet:
+                input_channels: int = 3, activation: str = "relu",
+                quant: str | None = None) -> ResNet:
     """The reference's constructors: resnet18 / resnet34 take ``block``
-    (BasicBlock or NonBottleneck1D), resnet50 always Bottleneck."""
+    (BasicBlock or NonBottleneck1D), resnet50 always Bottleneck. ``quant``:
+    the stage convs' quant mode (the stem conv stays float)."""
     if name == "resnet50":
         block = "Bottleneck"
     elif block not in ("BasicBlock", "NonBottleneck1D"):
         raise NotImplementedError(f"Block {block} is not implemented")
     return ResNet(RESNET_LAYERS[name], input_channels=input_channels,
-                  activation=activation, block=block)
+                  activation=activation, block=block, quant=quant)

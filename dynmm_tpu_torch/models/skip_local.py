@@ -27,7 +27,7 @@ from typing import Sequence
 import torch
 
 from dynmm_tpu_torch.models.esanet import (ESANetConfig, _DualEncoderParts,
-                                           require_fp32)
+                                           require_fp32, require_no_quant)
 from dynmm_tpu_torch.nn.layers import SqueezeAndExciteReweigh, nchw
 
 
@@ -40,6 +40,7 @@ class SkipESANet(_DualEncoderParts):
     def __init__(self, cfg: ESANetConfig,
                  block_rule: Sequence[int] = (1, 1, 1, 1)):
         require_fp32(cfg, "the local-gate SkipESANet")
+        require_no_quant(cfg, "the local-gate SkipESANet")
         super().__init__(dataclasses.replace(cfg,
                                              fuse_depth_in_rgb_encoder="add"))
         self.block_rule = tuple(int(r) for r in block_rule)

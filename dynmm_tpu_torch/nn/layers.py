@@ -22,6 +22,11 @@ their weight and bias, its ``Upsample``s take bf16 taps, both made once in
 and writes bf16, as flax's BN at ``dtype=bf16``. Every module computes in
 the dtype of the map it is given: the stems cast the fp32 images to the
 model's dtype, and the global gate casts back to fp32.
+
+int8 (``Conv2d(quant=...)``, ``nn/quant.py``): a quantized conv quantizes
+its input with its calibrated scale and convolves int8 with int8, exact in
+int32, then dequantizes in fp32 and casts to the map's dtype; every other
+module keeps its float path, so the maps between convs stay fp32 or bf16.
 """
 
 from __future__ import annotations
@@ -38,6 +43,9 @@ from dynmm_tpu_torch.kernels.se import (channel_sums, channel_sums_plain,
                                         se_fuse_mixed_plain, se_reference)
 from dynmm_tpu_torch.kernels.stem_fuse import stem_se_fusion_pool
 from dynmm_tpu_torch.kernels.upsample import learned_upsample, learned_upsample_plain
+from dynmm_tpu_torch.nn.quant import (CALIB_PERCENTILES, QUANT_MODES,
+                                      conv_int8_gemm, gemm_weight, observe,
+                                      quantize_symmetric, quantize_weight)
 
 BN_EPS = 1e-5
 BN_MOMENTUM = 0.1  # torch convention: the new-statistic fraction
@@ -122,18 +130,59 @@ class Conv2d(nn.Conv2d):
     ``repack`` after construction, every ``load_state_dict`` and
     ``pack_weights``, as flax's ``nn.Conv(dtype=bf16)`` casts its fp32
     parameters. In training, and for a map of the parameters' dtype, it is
-    ``nn.Conv2d``."""
+    ``nn.Conv2d``.
+
+    ``quant`` (``nn/quant.py``; the JAX ``QConv``, ungrouped convs only):
+    ``"calib"`` records the input's running abs-max and percentile grid
+    over 127 (``in_scale``, ``in_pct``) around the float conv; ``"int8"``
+    quantizes the input with ``in_scale``, convolves it with the int8
+    weight, exactly in int32, and dequantizes with ``in_scale · w_scale``
+    plus the bias, in the map's dtype. The int8 weight is the packed one
+    (``pack``, from ``utils/quantize.py::pack_int8``: its GEMM matrix
+    ``w_mat`` with ``w_scale``; ``weight_q`` reads it back as OIHW) or,
+    unpacked, quantized from the float weight each call. A
+    ``load_state_dict`` drops the packed copy of the old weight."""
 
     compute_dtype: torch.dtype | None = None
 
-    def __init__(self, *args, **kwargs):
+    def __init__(self, *args, quant: str | None = None, **kwargs):
         super().__init__(*args, **kwargs)
-        self.register_load_state_dict_post_hook(_after_load)
+        if quant not in QUANT_MODES:
+            raise ValueError(f"quant must be one of {QUANT_MODES}, got "
+                             f"{quant!r}")
+        if quant is not None and self.groups != 1:
+            raise ValueError("grouped convs stay float (no quant)")
+        self.quant = quant
+        if quant is not None:
+            _set_buffer(self, "in_scale", torch.zeros(()))
+            _set_buffer(self, "in_pct", torch.zeros(len(CALIB_PERCENTILES)))
+            self.unpack()
+        self.register_load_state_dict_post_hook(_conv_after_load)
         self.repack()
+
+    def pack(self, w_q: torch.Tensor | None,
+             w_scale: torch.Tensor | None) -> None:
+        """Hold the int8 OIHW weight ``w_q`` as its GEMM matrix (``w_mat``)
+        with its per-output-channel scales; None unpacks."""
+        _set_buffer(self, "w_mat", None if w_q is None else gemm_weight(w_q))
+        _set_buffer(self, "w_scale", w_scale)
+
+    def unpack(self) -> None:
+        self.pack(None, None)
+
+    @property
+    def weight_q(self) -> torch.Tensor | None:
+        """The packed int8 weight as OIHW (a view of ``w_mat``), or None."""
+        w = getattr(self, "w_mat", None)
+        if w is None:
+            return None
+        o, c, kh, kw = self.weight.shape
+        return w[:o, :kh * kw * c].reshape(o, kh, kw, c).permute(0, 3, 1, 2)
 
     def repack(self) -> None:
         dt = self.compute_dtype
-        cast = dt is not None and dt != self.weight.dtype
+        cast = (dt is not None and dt != self.weight.dtype
+                and self.quant != "int8")
         _set_buffer(self, "weight_c", self.weight.to(dt) if cast else None)
         _set_buffer(self, "bias_c", self.bias.to(dt) if cast
                     and self.bias is not None else None)
@@ -151,7 +200,36 @@ class Conv2d(nn.Conv2d):
         return self.weight_c, self.bias_c
 
     def forward(self, x):
+        if self.quant == "int8":
+            return self.forward_int8(x)
+        if self.quant == "calib":
+            observe(self.in_scale, self.in_pct, x)
         return self._conv_forward(x, *self.weights(x.dtype))
+
+    def forward_int8(self, x):
+        """The int8 conv of an NCHW map: NCHW (channels_last) out, in the
+        map's dtype."""
+        scale = torch.clamp_min(self.in_scale, 1e-12)
+        x_q = quantize_symmetric(nhwc(x), scale)
+        if self.w_mat is not None:
+            w_mat, s_w = self.w_mat, self.w_scale
+        else:
+            w_q, s_w = quantize_weight(self.weight)
+            w_mat = gemm_weight(w_q)
+        acc, (b, ho, wo) = conv_int8_gemm(
+            x_q, w_mat, self.out_channels, self.kernel_size, self.stride,
+            self.padding, self.dilation)
+        # the JAX order: acc · (s_in · s_w), then + bias, in fp32
+        y = acc.float() * (scale * s_w)
+        if self.bias is not None:
+            y = y + self.bias
+        return nchw(y.to(x.dtype).reshape(b, ho, wo, -1))
+
+
+def _conv_after_load(module: Conv2d, _keys) -> None:
+    if module.quant is not None:
+        module.unpack()
+    module.repack()
 
 
 @torch.no_grad()
@@ -195,14 +273,16 @@ class BatchNorm2d(nn.Module):
 
 
 class ConvBNAct(nn.Module):
-    """conv (no bias, padding ``k//2 + dilation − 1``) → BN → activation."""
+    """conv (no bias, padding ``k//2 + dilation − 1``) → BN → activation;
+    ``quant``: the conv's quant mode."""
 
     def __init__(self, c_in: int, c_out: int, kernel_size: int,
-                 activation: str = "relu", dilation: int = 1, stride: int = 1):
+                 activation: str = "relu", dilation: int = 1, stride: int = 1,
+                 quant: str | None = None):
         super().__init__()
         self.conv = Conv2d(c_in, c_out, kernel_size, stride=stride,
                            padding=kernel_size // 2 + dilation - 1,
-                           dilation=dilation, bias=False)
+                           dilation=dilation, bias=False, quant=quant)
         self.bn = BatchNorm2d(c_out)
         self.act = get_activation(activation)
 
@@ -213,10 +293,11 @@ class ConvBNAct(nn.Module):
 class ConvBN(nn.Module):
     """conv → BN without activation."""
 
-    def __init__(self, c_in: int, c_out: int, kernel_size: int):
+    def __init__(self, c_in: int, c_out: int, kernel_size: int,
+                 quant: str | None = None):
         super().__init__()
         self.conv = Conv2d(c_in, c_out, kernel_size,
-                           padding=kernel_size // 2, bias=False)
+                           padding=kernel_size // 2, bias=False, quant=quant)
         self.bn = BatchNorm2d(c_out)
 
     def forward(self, x):

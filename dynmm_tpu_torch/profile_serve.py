@@ -1,10 +1,11 @@
 """Where a served flagship forward spends its card time.
 
     python3 -m dynmm_tpu_torch.profile_serve [--mode MODE] [--low_res]
-        [--dtype float32|bfloat16]
+        [--dtype float32|bfloat16] [--quant int8]
 
-Builds the 480×640 flagship (in ``--dtype``, fp32 by default) with seeded
-random weights on the card, warms
+Builds the 480×640 flagship (in ``--dtype``, fp32 by default; with
+``--quant int8`` the int8 net, calibrated on two seeded B=8 batches and
+packed) with seeded random weights on the card, warms
 up, then traces 3 requests at B=8 and 3 at B=1 served through ``--mode``
 (``serve``'s modes; ``dense`` by default, the switch modes at B=1 only)
 with ``torch.profiler``. It prints the card's name and power limit and, for
@@ -12,8 +13,8 @@ each batch size, the host-clock latency (profiler on),
 the device's busy share of the traced window (union of kernel intervals
 over the window) and device time by kernel, grouped into the port's
 kernels, cuDNN/cuBLAS convolutions and other PyTorch ops. Writes the same to
-``chiprun_out/profile_serve_<mode>[_low_res][_bf16].json`` at the root of the
-checkout. TF32 is off for convolutions and matmuls, as in
+``chiprun_out/profile_serve_<mode>[_low_res][_bf16][_int8].json`` at the
+root of the checkout. TF32 is off for convolutions and matmuls, as in
 ``chip_smoke.py``.
 """
 
@@ -32,6 +33,7 @@ from torch.profiler import ProfilerActivity, profile
 
 from dynmm_tpu_torch.serve import SERVE_MODES, build_flagship, serve
 from dynmm_tpu_torch.utils.device import card_line
+from dynmm_tpu_torch.utils.quantize import quantize_int8
 
 PORT_KERNELS = ("nbt1d_block_kernel", "nbt1d_conv_kernel",
                 "sums_partial_kernel", "sums_finalize_kernel",
@@ -112,14 +114,25 @@ def main(argv=None) -> int:
     ap.add_argument("--dtype", default="float32",
                     choices=("float32", "bfloat16"),
                     help="the model's compute dtype (parameters stay fp32)")
+    ap.add_argument("--quant", default="none", choices=("none", "int8"),
+                    help="int8: the int8 net (quantized convs)")
     args = ap.parse_args(argv)
     bf16 = args.dtype == "bfloat16"
+    int8 = args.quant == "int8"
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     card = card_line()
     print(f"card: {card}; torch {torch.__version__}; mode {args.mode}"
-          f"{', low_res' if args.low_res else ''}; {args.dtype}", flush=True)
-    model = build_flagship(seed=0, dtype=torch.bfloat16 if bf16 else None)
+          f"{', low_res' if args.low_res else ''}; {args.dtype}"
+          f"{', int8' if int8 else ''}", flush=True)
+    model = build_flagship(seed=0, dtype=torch.bfloat16 if bf16 else None,
+                           quant="int8" if int8 else None)
+    if int8:
+        g = torch.Generator(device="cuda").manual_seed(99)
+        quantize_int8(model, [
+            (torch.randn(8, 480, 640, 3, generator=g, device="cuda"),
+             torch.randn(8, 480, 640, 1, generator=g, device="cuda"))
+            for _ in range(2)], hard=True)
     batches = (1,) if args.mode.startswith("switch") else (8, 1)
     results = [profile_batch(model, b, mode=args.mode, low_res=args.low_res)
                for b in batches]
@@ -134,10 +147,11 @@ def main(argv=None) -> int:
     out = Path(__file__).resolve().parents[1] / "chiprun_out"
     out.mkdir(exist_ok=True)
     name = (f"profile_serve_{args.mode}{'_low_res' if args.low_res else ''}"
-            f"{'_bf16' if bf16 else ''}")
+            f"{'_bf16' if bf16 else ''}{'_int8' if int8 else ''}")
     (out / f"{name}.json").write_text(json.dumps(
         {"card": card, "mode": args.mode, "low_res": args.low_res,
-         "dtype": args.dtype, "results": results}, indent=1))
+         "dtype": args.dtype, "quant": args.quant, "results": results},
+        indent=1))
     return 0
 
 

@@ -9,7 +9,9 @@ upsampling and 40 classes at 480×640, in fp32 eval with the hard global
 gate; ``build_flagship(encoder="resnet50")`` builds the same net on
 Bottleneck ResNet50 encoders, ``build_flagship(dtype=torch.bfloat16)`` the
 bf16 net (fp32 parameters, bf16 maps, the gate in fp32; the JAX bench's
-serving dtype). ``serve`` serves any SkipGateESANet.
+serving dtype), ``build_flagship(quant="int8")`` the int8 net, calibrated
+and packed by ``utils/quantize.py::quantize_int8``. ``serve`` serves any
+SkipGateESANet.
 
     model = build_flagship()                                # on the card
     class_map, weight = serve(model, rgb, depth)            # batchmax
@@ -66,17 +68,21 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> None:
 
 def build_flagship(height: int = 480, width: int = 640, num_classes: int = 40,
                    device=None, seed: int = 0, encoder: str = "resnet34",
-                   dtype: torch.dtype | None = None) -> SkipGateESANet:
+                   dtype: torch.dtype | None = None,
+                   quant: str | None = None) -> SkipGateESANet:
     """The flagship with seeded random weights, in eval, on ``device``
     (``None`` = the card; raises without one unless ``device="cpu"``).
     ``encoder="resnet50"``: the same net on Bottleneck ResNet50 encoders
     (the JAX bench's second model; SE cells up to C = 2048). ``dtype``:
     the compute dtype (None: fp32); the seeded weights do not depend on
-    it."""
+    it. ``quant="int8"``: the net with quantized convs (``nn/quant.py``),
+    which ``utils/quantize.py::quantize_int8`` calibrates and packs before
+    it serves."""
     dev = resolve_device(device)
     model = SkipGateESANet(ESANetConfig(
         height=height, width=width, num_classes=num_classes,
-        encoder_rgb=encoder, encoder_depth=encoder, dtype=dtype))
+        encoder_rgb=encoder, encoder_depth=encoder, dtype=dtype,
+        quant=quant))
     init_weights(model, torch.Generator().manual_seed(seed))
     return model.to(dev, memory_format=torch.channels_last).eval()
 

@@ -37,13 +37,16 @@ SkipESANet (``dynamic``: its Gumbel gates draw from the epoch's
 generator; validation samples hard under ``test`` from a generator seeded
 0 each batch, the JAX trainer's fixed key), the static ESANet and
 ESANetOneModality (``modality`` rgb | depth, one input); the last three
-have a zero FLOP loss. The mesh and int8 calibration are not ported.
+have a zero FLOP loss. ``calibrate_quant`` is the int8 PTQ calibration
+of eval.py's ``--quant int8`` (the global-gate net and the static ESANet).
+The mesh is not ported.
 """
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import itertools
 import math
 import os
 import pickle
@@ -420,6 +423,32 @@ class SegTrainer:
         for i, r in enumerate(DOWN_RATES):
             logs[f"loss_train_down_{r}"] = float(per_scales[i + 1])
         return state, logs
+
+    def calibrate_quant(self, state, loader, n_batches: int = 8,
+                        estimator: str = "absmax", percentile: float = 99.9):
+        """int8 PTQ calibration (``utils/quantize.py``) of the model (a
+        ``TrainState`` or the model) over the first ``n_batches`` clean
+        batches of ``loader``, with the serving input prep (modality
+        selection, ``packed_stem`` packing): the dense forward, hard-gated
+        for the global-gate net (``baseline`` as configured), in fp32
+        whatever the model's compute dtype; then ``select_scales`` and
+        ``pack_int8`` (``utils/quantize.py::quantize_int8``). The model's
+        quantized convs hold the scales and int8 weights afterwards;
+        returns the model."""
+        from dynmm_tpu_torch.utils.quantize import quantize_int8
+
+        model = state.model if hasattr(state, "model") else state
+
+        def batches():
+            for batch in itertools.islice(iter(loader), n_batches):
+                image, depth = self._packed(batch["image"], batch["depth"])
+                yield self._inputs(self._tensor(image), self._tensor(depth))
+
+        kwargs = {}
+        if self._global:
+            kwargs = dict(hard=True, baseline=bool(self.cfg.baseline))
+        quantize_int8(model, batches(), estimator, percentile, **kwargs)
+        return model
 
     def validate(self, state, loader, logs: Optional[dict] = None,
                  noise_mode: int = -1, noise: float = 0.0, run_seed: int = 0,

@@ -21,6 +21,11 @@ kernels (in, H, D) ↔ (H·D, in) and biases (H, D) ↔ (H·D,); the attention
 ``out`` kernel (H, D, out) ↔ (out, H·D); LayerNorm and BN ``scale`` ↔
 ``weight``; BN ``mean``/``var`` ↔ running statistics. ``load_flax_variables``
 and ``flax_variables`` pick the rules from the model.
+
+The segmentation models' quantized convs (``nn/quant.py``) carry the flax
+``quant`` collection both ways: ``in_scale``, ``in_pct`` and, once packed,
+``w_scale`` under the conv's flax path, and a packed conv's int8 ``kernel``
+in ``params``.
 """
 
 from __future__ import annotations
@@ -243,24 +248,111 @@ def _tree_variables(model: torch.nn.Module) -> dict:
     return out
 
 
+_QUANT_LEAVES = ("in_scale", "in_pct", "w_scale")
+
+
+def _quant_convs(model: torch.nn.Module):
+    """(flax path of the conv, conv) of every quantized conv of ``model``."""
+    from dynmm_tpu_torch.utils.quantize import quant_convs
+
+    for name, conv in quant_convs(model):
+        path, _ = flax_leaf(f"{name}.weight", 4)
+        yield path[:-1], conv
+
+
+def _quant_collection(model: torch.nn.Module, params: dict) -> dict:
+    """The flax ``quant`` collection of ``model``'s quantized convs
+    (``in_scale``, ``in_pct``, and ``w_scale`` where packed), numpy; a
+    packed conv's ``kernel`` in ``params`` becomes its int8 HWIO twin."""
+    quant: dict = {}
+    for path, conv in _quant_convs(model):
+        for leaf in _QUANT_LEAVES:
+            t = getattr(conv, leaf)
+            if t is not None:
+                _set_path(quant, path + (leaf,),
+                          t.detach().cpu().numpy().copy())
+        if conv.weight_q is not None:
+            _set_path(params, path + ("kernel",), _flax_layout(
+                "kernel", conv.weight_q.cpu().numpy().copy()))
+    return quant
+
+
 def flax_variables(model: torch.nn.Module) -> dict:
     """``{"params": ..., "batch_stats": ...}`` of ``model`` as flax trees
-    of numpy copies (either naming scheme)."""
+    of numpy copies (either naming scheme), with the ``quant`` collection
+    of a model with quantized convs (``_quant_collection``)."""
     if uses_flax_tree(model):
         return _tree_variables(model)
-    return flax_from_state_dict(model.state_dict())
+    out = flax_from_state_dict(model.state_dict())
+    quant = _quant_collection(model, out["params"])
+    if quant:
+        out["quant"] = quant
+    return out
+
+
+def _node(tree, path: tuple[str, ...]):
+    for k in path:
+        if not isinstance(tree, Mapping) or k not in tree:
+            return None
+        tree = tree[k]
+    return tree
+
+
+def _dequantized_kernels(params: dict, quant) -> dict:
+    """``params`` with each packed (int8) ``kernel`` replaced by
+    ``kernel · w_scale`` in fp32, the float weight that loads strictly."""
+    out = dict(params)
+    for k, v in params.items():
+        if isinstance(v, Mapping):
+            out[k] = _dequantized_kernels(v, _node(quant, (k,)))
+        elif k == "kernel" and np.asarray(v).dtype == np.int8:
+            out[k] = (np.asarray(v, np.float32)
+                      * np.asarray(quant["w_scale"], np.float32))
+    return out
+
+
+def _load_quant(model: torch.nn.Module, params: dict, quant: dict) -> None:
+    """Set the quantized convs' buffers from a flax ``quant`` collection:
+    the scales it has, and a packed conv's int8 kernel (``params``)."""
+    convs = dict(_quant_convs(model))
+    for path, _ in _leaf_paths(quant):
+        if path[:-1] not in convs:
+            raise KeyError(f"quant/{'/'.join(path)}: no quantized conv of "
+                           "the model at that path")
+    for path, conv in convs.items():
+        node = _node(quant, path) or {}
+        for leaf in ("in_scale", "in_pct"):
+            if leaf in node:
+                getattr(conv, leaf).copy_(torch.tensor(
+                    np.asarray(node[leaf], np.float32)))
+        kernel = np.asarray(_node(params, path + ("kernel",)))
+        if kernel.dtype == np.int8:
+            dev = conv.weight.device
+            conv.pack(torch.tensor(_torch_layout("kernel", kernel).copy(),
+                                   device=dev),
+                      torch.tensor(np.asarray(node["w_scale"], np.float32),
+                                   device=dev))
 
 
 def load_flax_variables(model: torch.nn.Module, variables: dict) -> None:
     """Load ``{"params": ..., "batch_stats": ...}`` (numpy leaves) into
     ``model`` with ``strict=True``. Modules that keep kernel-packed copies
-    of their weights repack them from a load hook."""
+    of their weights repack them from a load hook. A ``quant`` collection
+    sets the quantized convs' scales and, where its tree is packed (int8
+    kernels, ``w_scale``), their int8 weights; their float weights are
+    then ``kernel · w_scale``."""
+    quant = variables.get("quant")
     if uses_flax_tree(model):
         sd = _tree_state_dict(variables)
     else:
-        sd = state_dict_from_flax(variables.get("params", {}),
-                                  variables.get("batch_stats"))
+        params = variables.get("params", {})
+        if quant:
+            params = _dequantized_kernels(params, quant)
+        sd = state_dict_from_flax(params, variables.get("batch_stats"))
     model.load_state_dict(sd, strict=True)
+    if quant:
+        with torch.no_grad():
+            _load_quant(model, variables["params"], quant)
 
 
 def merge_subtree(dst: dict, src: dict, path: str = "") -> dict:

@@ -192,3 +192,56 @@ def bf16_class_maps(argv: list[str], variables: dict,
     top2 = np.sort(ref, axis=-1)[..., -2:]
     return {"port": port.argmax(-1), "jax": ref.argmax(-1), "err": err,
             "sure": top2[..., 1] - top2[..., 0] > 2 * err}
+
+
+def int8_class_maps(argv: list[str], variables: dict) -> dict:
+    """predict's quarter-resolution class maps (the H/4 argmax repeated ×4)
+    of the port's and the JAX package's int8 nets (hard gate, dense; at
+    ``--dtype``, on the ``--packed_stem`` feed where ``argv`` asks) on the
+    test batches that the CLIs of ``argv`` read, each net calibrated as its
+    predict CLI calibrates it (absmax over the first ``--calib_batches``
+    batches of that feed in fp32, then packed). ``sure`` as in
+    ``bf16_class_maps``, from the H/4 logits."""
+    import dataclasses
+
+    import torch
+
+    from dynmm_tpu.utils import quantize as jax_quantize
+    from dynmm_tpu_torch.cli import eval as port_eval
+    from dynmm_tpu_torch.cli.seg_build import build_model, prepare_data
+    from dynmm_tpu_torch.data.seg_preprocessing import pack_stem_batch
+    from dynmm_tpu_torch.utils import quantize
+    from dynmm_tpu_torch.utils.torch_import import load_any_checkpoint
+
+    args = port_eval.build_parser().parse_args(
+        [*argv, "--dynamic", "--global-gate", "--device", "cpu"])
+    pack = pack_stem_batch if args.packed_stem else dict
+    feed = [(b["image"], b["depth"]) for b in map(pack, prepare_data(args)[1])]
+    calib = feed[:args.calib_batches]
+    model = build_model(args, 40)
+    load_any_checkpoint(model, args.ckpt_path)
+    model = model.to(memory_format=torch.channels_last).eval()
+    quantize.quantize_int8(model, [tuple(map(torch.from_numpy, b))
+                                   for b in calib], hard=True)
+    cfg = JaxConfig(num_classes=40, quant="int8", **SMALL,
+                    dtype=jnp.bfloat16 if args.dtype == "bfloat16" else None)
+    qcoll = jax_quantize.calibrate(
+        JaxSkipGate(dataclasses.replace(cfg, quant="calib", dtype=None)),
+        variables, [tuple(map(jnp.asarray, b)) for b in calib], train=False,
+        hard=True)
+    packed = jax_quantize.pack_weights({**variables, "quant": qcoll})
+    jm = JaxSkipGate(cfg)
+    apply = jax.jit(lambda v, r, d: jm.apply(v, r, d, train=False, hard=True,
+                                             low_res=True))
+    port, ref = [], []
+    for r, d in feed:
+        with torch.no_grad():
+            port.append(model(torch.from_numpy(r), torch.from_numpy(d),
+                              hard=True, low_res=True).float().numpy())
+        ref.append(np.asarray(apply(packed, r, d).astype(jnp.float32)))
+    port, ref = np.concatenate(port), np.concatenate(ref)
+    err = float(np.abs(port - ref).max())
+    top2 = np.sort(ref, axis=-1)[..., -2:]
+    up = lambda m: m.repeat(4, axis=1).repeat(4, axis=2)
+    return {"port": up(port.argmax(-1)), "jax": up(ref.argmax(-1)),
+            "err": err, "sure": up(top2[..., 1] - top2[..., 0] > 2 * err)}

@@ -305,14 +305,39 @@ def test_missing_checkpoint_exits(layout, capsys):
         capsys.readouterr().out
 
 
-@pytest.mark.parametrize("flags, item", [
-    (["--quant", "int8"], "A6"), (["--dtype", "bfloat16"], "A3"),
-    (["--activation", "swish"], "A7")], ids=["int8", "bf16", "swish"])
-def test_unported_eval_flags_raise(layout, flags, item):
-    args = layout["args"]
-    if item == "A3":  # bf16 scores the global-gate net; the static one raises
-        args = [a for a in args if a not in ("--dynamic", "--global-gate")]
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
+@pytest.mark.parametrize("calib", [
+    [], ["--calib_estimator", "percentile", "--calib_percentile", "99.9"]],
+    ids=["absmax", "percentile"])
+def test_eval_int8_matches_jax(layout, monkeypatch, calib):
+    """``--quant int8``: the calibration line, mIoU and branch ratios of the
+    JAX CLI (the two int8 nets differ by rounding flips at quantization
+    boundaries, which move the mIoU in its last printed digit at most)."""
+    argv = [*layout["args"], "--ckpt_path", layout["ckpt"], "--quant",
+            "int8", "--calib_batches", "2", *calib]
+    jax_out = run_jax_cli("eval", argv, monkeypatch)
+    port_out = run_port_cli(port_eval, argv)
+    print("int8 eval:", lines_with(jax_out, "Run"),
+          lines_with(port_out, "Run"))
+    assert lines_with(port_out, "Calibrated int8") == lines_with(
+        jax_out, "Calibrated int8")
+    assert lines_with(port_out, "Calibrated int8")
+    _compare(jax_out, port_out)
+
+
+# the int8 cases: the nets --quant int8 does not take, the local-gate net
+# (the JAX factory's refusal) and the one-modality net (no quantized conv)
+@pytest.mark.parametrize("flags, drop, match", [
+    (["--quant", "int8"], ("--global-gate",),
+     "--quant supports global-gate / static models only"),
+    (["--quant", "int8", "--modality", "rgb"],
+     ("--dynamic", "--global-gate"), "only, not ESANetOneModality"),
+    (["--dtype", "bfloat16"], ("--dynamic", "--global-gate"), "ROADMAP A3"),
+    (["--activation", "swish"], (), "ROADMAP A7")],
+    ids=["int8", "int8-one-modality", "bf16", "swish"])
+def test_unported_eval_flags_raise(layout, flags, drop, match):
+    # bf16 scores the global-gate net; the static one raises
+    args = [a for a in layout["args"] if a not in drop]
+    with pytest.raises(NotImplementedError, match=match):
         port_eval.main([*args, "--ckpt_path", layout["ckpt"], "--device",
                         "cpu", *flags])
 

@@ -18,9 +18,10 @@ import numpy as np
 import pytest
 import torch
 
-from _port_eval_setup import (MODEL_FLAGS, bf16_class_maps, lines_with,
-                              random_variables, run_jax_cli, run_port_cli,
-                              save_jax_checkpoint, write_prepared)
+from _port_eval_setup import (MODEL_FLAGS, bf16_class_maps,
+                              int8_class_maps, lines_with, random_variables,
+                              run_jax_cli, run_port_cli, save_jax_checkpoint,
+                              write_prepared)
 from _port_train_setup import one_torch_thread  # noqa: F401 (autouse)
 from dynmm_tpu.utils.torch_export import export_state_dict
 from dynmm_tpu_torch.cli import predict as port_predict
@@ -119,11 +120,53 @@ def test_predict_bf16_matches_jax(layout, tmp_path, monkeypatch):
     assert same[maps["sure"]].all()
 
 
-# bf16 serves every model predict builds (the global-gate net), so its bf16
-# case is a model that still raises at bf16: swish (ROADMAP A7)
+def test_predict_int8_matches_jax(layout, tmp_path, monkeypatch):
+    """``--quant int8 --output_res quarter``: the calibration, path and
+    GFLOPs lines as the JAX CLI's, and its maps equal to the JAX CLI's on
+    every pixel whose JAX top-two margin at H/4 exceeds twice the max logit
+    error of the two int8 nets (``int8_class_maps``: rounding flips at
+    quantization boundaries cascade, so the int8 nets differ by about the
+    int8 error itself)."""
+    _predict_int8(layout, tmp_path, monkeypatch, [])
+
+
+def test_predict_int8_bf16_packed_matches_jax(layout, tmp_path, monkeypatch):
+    """The same at ``--dtype bfloat16 --packed_stem``, the JAX bench's int8
+    serving chain (bf16 compute, packed stem, quarter-res class map)."""
+    _predict_int8(layout, tmp_path, monkeypatch,
+                  ["--dtype", "bfloat16", "--packed_stem"])
+
+
+def _predict_int8(layout, tmp_path, monkeypatch, extra):
+    argv = [*layout["args"], "--ckpt_path", layout["ckpt"], "--quant",
+            "int8", "--output_res", "quarter", "--calib_batches", "2", *extra]
+    jax_out = run_jax_cli("predict", [*argv, "--out_dir",
+                                      str(tmp_path / "jax")], monkeypatch)
+    port_out = run_port_cli(port_predict, [*argv, "--out_dir",
+                                           str(tmp_path / "port")])
+    for prefix in ("Calibrated int8", "path distribution",
+                   "expected total GFLOPs"):
+        assert lines_with(port_out, prefix) == lines_with(jax_out, prefix)
+        assert lines_with(port_out, prefix)
+    maps = int8_class_maps(argv, layout["variables"])
+    j_names, j_maps = _maps(tmp_path / "jax")
+    p_names, p_maps = _maps(tmp_path / "port")
+    assert p_names == j_names and len(p_names) == len(maps["sure"]) == 6
+    same = np.stack([(p == j).all(axis=-1) for p, j in zip(p_maps, j_maps)])
+    print(f"int8 predict {extra}: maps equal on {same.mean() * 100:.2f} % of "
+          f"pixels; "
+          f"{maps['sure'].mean() * 100:.2f} % have margin > "
+          f"2x{maps['err']:.3g}")
+    assert maps["sure"].mean() > 0.2
+    assert same[maps["sure"]].all()
+
+
+# bf16 and int8 serve every model predict builds (the global-gate net), so
+# their cases are a model that still raises there: swish (ROADMAP A7)
 @pytest.mark.parametrize("flags, item", [
-    (["--export_path", "x.pt2"], "A6"), (["--export_platforms", "cuda"], "A6"),
-    (["--quant", "int8"], "A6"),
+    (["--export_path", "x.pt2"], "A6-export"),
+    (["--export_platforms", "cuda"], "A6-export"),
+    (["--quant", "int8", "--activation", "swish"], "A7"),
     (["--dtype", "bfloat16", "--activation", "swish"], "A7")],
     ids=["export", "export-platforms", "int8", "bf16"])
 def test_unported_predict_flags_raise(layout, tmp_path, flags, item):
