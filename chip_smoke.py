@@ -28,12 +28,14 @@ Run from the root of a checkout on a machine with one NVIDIA GPU:
    shapes and at C = 2048. The time of each kernel per dense forward is
    printed for B=8 and B=1, of the flagship and of the R50 net. The bf16
    forms (``channel_sums``, ``stem_fuse_pool``, ``se_fuse_mixed``,
-   ``learned_upsample``, named "<name>.bf16") run at the same shapes on
-   bf16 maps against their bf16 plain versions (``BF16_TOL``: the stem
-   bit-identical, the sums ≤ 1e-5, the SE cell and the upsample ≤ 8e-3 of
-   max |plain| with 20-call bit-identical repeats), their bounds from bf16
-   bytes, beside two bf16→fp32 ``torch.sum`` and a bf16
-   ``conv_transpose2d``.
+   ``fused_se``, ``learned_upsample``, named "<name>.bf16") run at the same
+   shapes on bf16 maps against their bf16 plain versions (``BF16_TOL``: the
+   stem bit-identical, the sums ≤ 1e-5, the SE cells and the upsample
+   ≤ 8e-3 of max |plain| with 20-call bit-identical repeats, the
+   single-map SE cell at B=8 and B=1), their bounds from bf16 bytes, beside
+   two bf16→fp32 ``torch.sum`` and a bf16 ``conv_transpose2d``; the bf16
+   sums also at the local-gate net's four gate shapes and at R50's widest
+   gate (1024 channels).
 3. Serve, dense: builds the 480×640 flagship with seeded random weights,
    serves 3 batches of 8 and 3 of 1 through ``dynmm_tpu_torch.serve.serve``
    (``mode="dense"``) with every launch count at 0 before, checks the
@@ -135,9 +137,18 @@ Run from the root of a checkout on a machine with one NVIDIA GPU:
 11. For the static ESANet, the local-gate SkipESANet (block rule 1122) and
    the one-modality net on rgb with SE, R34-NBt1D at 480×640:
    ``cli.train`` for 1 epoch of 2 steps of B=8, then ``cli.eval`` on the
-   rolling checkpoint; each run's launches those of the net's kernel sites
-   (the local gates' ``channel_sums``, the single-map ``fused_se``), and
-   the trained weights' kernel eval path against the plain one.
+   rolling checkpoint in fp32, ``--dtype bfloat16`` and, for the static
+   net, ``--quant int8 --dtype bfloat16``; each run's launches those of the
+   net's kernel sites (the local gates' ``channel_sums``, the single-map
+   ``fused_se``; in bf16 their bf16 forms and no NBt1D launch), and the
+   trained weights' kernel eval path against the plain one. On the same
+   weights in bf16: the kernel path against the bf16 plain path (gate
+   choices identical, logits within 2e-2 of max |plain|, class maps equal
+   wherever the plain top-two margin exceeds twice the logit error) and
+   against the fp32 net (drift < 5e-2 of max |fp32|; the local gates'
+   choices that differ from fp32's are counted and their samples left out
+   of the drift); request ms of fp32 and bf16 in turns (median of 5) at
+   B=8 and B=1, with one traced request's device time and busy share.
 12. The bf16 flagship: the 480×640 flagship at ``dtype=torch.bfloat16``
    (fp32 parameters, bf16 maps, the gate in fp32) with the recipe gate
    serves ``make_recipe_eval_batch(8, 480, 640)`` through ``dense``,
@@ -246,7 +257,16 @@ SOURCES = {
 # the net whose forward each kernel's totals in the kernels line count:
 # the flagship, or for the single-map SE cell the R34-NBt1D one-modality
 # net with SE (five calls a forward)
-TOTALS_NET = {"fused_se": "R34 one-modality"}
+TOTALS_NET = {"fused_se": "R34 one-modality",
+              "fused_se.bf16": "R34 one-modality"}
+# the single-map SE cell's shapes: the R34 one-modality net's five cells,
+# and the R50 one-modality net's last one
+ONE_MODALITY_SE = ((64, 240, 320, "R34 one-modality"),
+                   (64, 120, 160, "R34 one-modality"),
+                   (128, 60, 80, "R34 one-modality"),
+                   (256, 30, 40, "R34 one-modality"),
+                   (512, 15, 20, "R34 one-modality"),
+                   (2048, 15, 20, "R50 one-modality"))
 # ResNet50 encoders: Bottleneck blocks (cuDNN), no stride-1 NBt1D block
 R50_ENCODER_BLOCKS = ()
 
@@ -445,12 +465,7 @@ def kernel_cases(inp: Inputs) -> list[Case]:
                     r, d, wr, *ws),
                 None, 3 * n * 4 + se_weight_bytes(c, 2), 5.0 * n, None,
                 batch=bb, repeat=True, r50_calls=int(h > 1)))
-    for c, h, w, net in ((64, 240, 320, "R34 one-modality"),
-                         (64, 120, 160, "R34 one-modality"),
-                         (128, 60, 80, "R34 one-modality"),
-                         (256, 30, 40, "R34 one-modality"),
-                         (512, 15, 20, "R34 one-modality"),
-                         (2048, 15, 20, "R50 one-modality")):
+    for c, h, w, net in ONE_MODALITY_SE:
         cr = c // 16
         wts = [inp.randn(c, cr, scale=1 / math.sqrt(c)), inp.randn(cr, scale=0.1),
                inp.randn(cr, c, scale=1 / math.sqrt(cr)), inp.randn(c, scale=0.1)]
@@ -467,8 +482,10 @@ def kernel_cases(inp: Inputs) -> list[Case]:
 
 def bf16_cases(inp: Inputs) -> list[Case]:
     """The bf16 forms at the bf16 flagship's shapes (the SE cell at R50's
-    too), against their bf16 plain versions with ``BF16_TOL``; bounds count
-    bf16 map bytes (2 a value) and fp32 sums, scales and SE weights."""
+    too), the single-map SE cell at the one-modality nets' and the sums at
+    the local gates', against their bf16 plain versions with ``BF16_TOL``;
+    bounds count bf16 map bytes (2 a value) and fp32 sums, scales and SE
+    weights."""
     from dynmm_tpu_torch.kernels import se, stem_fuse, upsample
 
     bf = torch.bfloat16
@@ -536,6 +553,39 @@ def bf16_cases(inp: Inputs) -> list[Case]:
                 None, 3 * n * 2 + se_weight_bytes(c, 2), 5.0 * n, batch=bb,
                 repeat=True, r50_calls=1 - calls,
                 tol=BF16_TOL["se_fuse_mixed"]))
+    # the single-map SE cell on bf16 maps: the bf16 R34 one-modality net's
+    # five cells and the R50 one-modality net's last one (C = 2048)
+    for c, h, w, net in ONE_MODALITY_SE:
+        cr = c // 16
+        wts = [inp.randn(c, cr, scale=1 / math.sqrt(c)), inp.randn(cr, scale=0.1),
+               inp.randn(cr, c, scale=1 / math.sqrt(cr)), inp.randn(c, scale=0.1)]
+        x = inp.randn(b, h * w, c).to(bf)
+        for bb in (b, 1):
+            xb = x[:bb].contiguous()
+            n = bb * h * w * c
+            cases.append(Case(
+                "fused_se.bf16", f"{bb}x{h}x{w}x{c}", 1,
+                lambda x=xb, ws=wts: se.fused_se(x, *ws),
+                lambda x=xb, ws=wts: se.se_reference(x, *ws),
+                None, 2 * n * 2 + se_weight_bytes(c, 1), 3.0 * n, batch=bb,
+                repeat=True, net=net, tol=BF16_TOL["se_fuse_mixed"]))
+    # the local gates' channel sums of the bf16 local-gate SkipESANet: R34's
+    # four gates and R50's widest (1024 channels at 30×40)
+    for c, h, w, net in ((64, 240, 320, "R34 local-gate"),
+                         (64, 120, 160, "R34 local-gate"),
+                         (128, 60, 80, "R34 local-gate"),
+                         (256, 30, 40, "R34 local-gate"),
+                         (1024, 30, 40, "R50 local-gate")):
+        n = b * h * w * c
+        r, d = inp.randn(b, h, w, c).to(bf), inp.randn(b, h, w, c).to(bf)
+        cases.append(Case(
+            "channel_sums.bf16", f"{b}x{h}x{w}x{c}", 1,
+            lambda r=r, d=d: se.channel_sums(r, d),
+            lambda r=r, d=d: se.channel_sums_plain(r, d),
+            lambda r=r, d=d: (torch.sum(r, dim=(1, 2), dtype=torch.float32),
+                              torch.sum(d, dim=(1, 2), dtype=torch.float32)),
+            2 * n * 2 + 2 * b * c * 4, 2.0 * n, net=net,
+            tol=BF16_TOL["channel_sums"]))
     return cases
 
 
@@ -1447,13 +1497,18 @@ def check_r50_train(report: dict) -> dict:
     return launches
 
 
-def variant_launches(kind: str) -> dict:
+def variant_launches(kind: str, bf16: bool = False) -> dict:
     """Launches of one eval forward of the R34-NBt1D variants: ``static``
     (the dense flagship's), ``local`` (the stem through ``stem_fuse_pool``
     with unit scales, one ``channel_sums`` a local gate, plain-add fusion),
-    ``rgb-se`` (one encoder, five single-map SE cells)."""
+    ``rgb-se`` (one encoder, five single-map SE cells). ``bf16``: the bf16
+    net, whose NBt1D blocks launch nothing (cuDNN convs) and whose other
+    kernels count as "<name>.bf16"."""
     from dynmm_tpu_torch.kernels.nbt1d import NBT1D_FUSED_MAX_C
 
+    if bf16:
+        return {f"{k}.bf16": v for k, v in variant_launches(kind).items()
+                if not k.startswith("nbt1d")}
     if kind == "static":
         return dict(EXPECTED)
     counts = {"nbt1d_fused": 0, "nbt1d_pair": 0, "learned_upsample": 5}
@@ -1478,21 +1533,123 @@ VARIANTS = {  # name: (kind, flags)
 }
 
 
+def _variant_forward(model, kind: str, rgb, depth, use_kernels: bool = True):
+    """(logits, the local gates' weights side by side or None) of one eval
+    forward of a phase 11 variant; the local gates under ``test`` with the
+    eval CLI's fixed generator."""
+    if kind == "local":
+        logits, ws = model(rgb, depth, torch.Generator().manual_seed(0),
+                           test=True, return_weights=True,
+                           use_kernels=use_kernels)
+        return logits, torch.cat([w.float() for w in ws], 1)
+    inputs = (rgb,) if kind == "rgb-se" else (rgb, depth)
+    return model(*inputs, use_kernels=use_kernels), None
+
+
+def _variant_model(eval_argv: list, ckpt: Path, dtype: str):
+    """The eval CLI's model of ``eval_argv`` at ``dtype`` with the
+    checkpoint's weights, on the card."""
+    from dynmm_tpu_torch.cli import eval as eval_cli
+    from dynmm_tpu_torch.cli.seg_build import build_model
+    from dynmm_tpu_torch.nn.layers import pack_weights
+    from dynmm_tpu_torch.utils.weights import load_checkpoint_into
+
+    args = eval_cli.build_parser().parse_args([*eval_argv, "--dtype", dtype])
+    model = build_model(args, CLASSES)
+    load_checkpoint_into(model, str(ckpt))
+    model = model.cuda().to(memory_format=torch.channels_last).eval()
+    pack_weights(model)
+    return model
+
+
+def _variant_bf16(name: str, kind: str, models: dict, rgb, depth,
+                  card: str) -> dict:
+    """The bf16 variant against its bf16 plain versions and the fp32 net on
+    the same weights, and both nets' request ms in turns (B=8 and B=1) with
+    one traced request's device time and busy share each."""
+    from dynmm_tpu_torch.nn.layers import first_argmax
+
+    with torch.inference_mode():
+        lk, wk = _variant_forward(models["bf16"], kind, rgb, depth)
+        lp, wp = _variant_forward(models["bf16"], kind, rgb, depth, False)
+        l32, w32 = _variant_forward(models["fp32"], kind, rgb, depth)
+    plain_err = (lk.float() - lp.float()).abs().max().item()
+    plain_rel = plain_err / lp.float().abs().max().item()
+    sure = _sure_pixels(lp, plain_err)
+    sure_same = bool((first_argmax(lk) == first_argmax(lp))[sure].all())
+    same_gate = wk is None or bool(torch.equal(wk, wp))
+    # against fp32: the samples whose gate choices agree (every one but a
+    # local gate's flips)
+    agree = (torch.ones(rgb.shape[0], dtype=torch.bool, device=rgb.device)
+             if wk is None else (wk == w32).all(1))
+    flips = int((~agree).sum().item())
+    drift = ((lk.float() - l32)[agree].abs().max() / l32.abs().max()).item() \
+        if bool(agree.any()) else float("nan")
+    agree32 = (first_argmax(lk) == first_argmax(l32)).float().mean().item()
+    ok = (lk.dtype == torch.bfloat16 and bool(torch.isfinite(lk).all())
+          and same_gate and plain_rel <= BF16_PLAIN_TOL and sure_same
+          and bool(agree.any()) and drift < BF16_DRIFT_TOL)
+    row = {"kernels_vs_plain_max_abs_err": plain_err,
+           "kernels_vs_plain_rel_err": plain_rel,
+           "sure_pixel_share": sure.float().mean().item(),
+           "sure_pixels_equal": sure_same, "same_gate_as_plain": same_gate,
+           "gate_flips_vs_fp32": flips, "fp32_drift": drift,
+           "fp32_class_map_agreement": agree32}
+    print(f"    bf16: kernels vs plain {plain_rel:.3g} of max |plain|, class "
+          f"maps equal on the {row['sure_pixel_share'] * 100:.4f} % of "
+          f"pixels with margin > 2x{plain_err:.3g}: {sure_same}; gate "
+          f"choices as plain: {same_gate}; vs fp32: {flips} of "
+          f"{rgb.shape[0]} samples with other gate choices, drift "
+          f"{drift:.3g} of max |fp32| on the others, class maps agree on "
+          f"{agree32 * 100:.4f} %", flush=True)
+    if not ok:
+        raise RuntimeError(f"{name} bf16: disagreement {row}")
+    times = []
+    for bb in (BATCH, 1):
+        r, d = rgb[:bb].contiguous(), depth[:bb].contiguous()
+        got = {"fp32": [], "bf16": []}
+        with torch.inference_mode():
+            for rep in range(TIMED_REPS + 1):  # the first is a warm-up
+                for dt in ("fp32", "bf16") if rep % 2 else ("bf16", "fp32"):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    _variant_forward(models[dt], kind, r, d)
+                    torch.cuda.synchronize()
+                    if rep:
+                        got[dt].append((time.perf_counter() - t0) * 1e3)
+            med = {k: sorted(v)[len(v) // 2] for k, v in got.items()}
+            traced = {k: _timed(lambda m=m: _variant_forward(m, kind, r, d),
+                                reps=1)[3] for k, m in models.items()}
+        times.append({"batch": bb, "fp32_ms": med["fp32"],
+                      "bf16_ms": med["bf16"], "fp32_all": got["fp32"],
+                      "bf16_all": got["bf16"], "traced": traced})
+        print(f"    B={bb}: fp32 {med['fp32']:.2f} ms, bf16 {med['bf16']:.2f}"
+              f" ms (median of {TIMED_REPS}, in turns); traced device ms / "
+              f"busy share fp32 {traced['fp32']['device_ms']:.2f} / "
+              f"{traced['fp32']['busy_share'] * 100:.1f} %, bf16 "
+              f"{traced['bf16']['device_ms']:.2f} / "
+              f"{traced['bf16']['busy_share'] * 100:.1f} % [{card}]",
+              flush=True)
+    row["request_ms"] = times
+    return row
+
+
 def check_variants(report: dict) -> dict:
     """Phase 11: ``cli.train`` (1 epoch of 2 steps of B=8) then ``cli.eval``
     on the rolling checkpoint for the static ESANet, the local-gate
     SkipESANet and the one-modality net with SE, R34-NBt1D at 480×640; the
-    kernel eval path against the plain one on the trained weights."""
+    kernel eval path against the plain one on the trained weights. Then on
+    the same checkpoint ``cli.eval --dtype bfloat16`` (and for the static
+    net ``--quant int8 --dtype bfloat16``) and the bf16 net against its
+    plain versions and the fp32 net (``_variant_bf16``)."""
     import shutil
 
     from dynmm_tpu_torch.cli import eval as eval_cli
     from dynmm_tpu_torch.cli import train as train_cli
-    from dynmm_tpu_torch.cli.seg_build import build_model
     from dynmm_tpu_torch.data.nyuv2 import make_recipe_eval_batch
     from dynmm_tpu_torch.kernels import LAUNCHES, reset_launches
-    from dynmm_tpu_torch.nn.layers import first_argmax, pack_weights
+    from dynmm_tpu_torch.nn.layers import first_argmax
     from dynmm_tpu_torch.utils.device import card_line
-    from dynmm_tpu_torch.utils.weights import load_checkpoint_into
 
     card = card_line()
     total: dict = {}
@@ -1515,65 +1672,73 @@ def check_variants(report: dict) -> dict:
             eval_argv = [*_synthetic_argv(root, HEIGHT, WIDTH)[:-4], *flags,
                          *(["--hard"] if "--dynamic" in flags else []),
                          "--ckpt_path", str(ckpt)]
-            reset_launches()
-            t0 = time.perf_counter()
-            result, eval_lines = _cli_run(eval_cli.main, eval_argv)
-            eval_s = time.perf_counter() - t0
-            eval_launches = dict(LAUNCHES)
+            # the eval CLI in fp32, bf16 and (static) int8-bf16; its one
+            # valid batch: one forward, after one fp32 calibration forward
+            # of the int8 net (no NBt1D launch: its convs are quantized)
+            evals = [("fp32", [], variant_launches(kind)),
+                     ("bf16", ["--dtype", "bfloat16"],
+                      variant_launches(kind, bf16=True))]
+            if kind == "static":
+                calib = {k: v for k, v in variant_launches(kind).items()
+                         if not k.startswith("nbt1d")}
+                evals.append(("int8-bf16", ["--quant", "int8", "--dtype",
+                                            "bfloat16", "--calib_batches",
+                                            "1"],
+                              _add(calib, variant_launches(kind, True))))
+            eval_runs = {}
+            for label, extra, expected in evals:
+                reset_launches()
+                t0 = time.perf_counter()
+                result, _ = _cli_run(eval_cli.main, [*eval_argv, *extra])
+                got = {k: v for k, v in LAUNCHES.items() if v}
+                eval_runs[label] = {"miou": result.tolist(), "launches": got,
+                                    "wall_s": time.perf_counter() - t0}
+                if got != expected or not math.isfinite(float(result[0])):
+                    raise RuntimeError(f"{name} cli.eval {label}: launches "
+                                       f"{got}, expected {expected}, mIoU "
+                                       f"{result.tolist()}")
+                _add(total, got)
+            models = {"fp32": _variant_model(eval_argv, ckpt, "float32"),
+                      "bf16": _variant_model(eval_argv, ckpt, "bfloat16")}
             # the trained weights: kernel eval path against the plain one
-            args = eval_cli.build_parser().parse_args(eval_argv)
-            model = build_model(args, CLASSES)
-            load_checkpoint_into(model, str(ckpt))
-            model = model.cuda().to(memory_format=torch.channels_last).eval()
-            pack_weights(model)
             with torch.inference_mode():
-                outs = []
-                for use_kernels in (True, False):
-                    if kind == "local":
-                        logits, ws = model(
-                            rgb, depth, torch.Generator().manual_seed(0),
-                            test=True, return_weights=True,
-                            use_kernels=use_kernels)
-                        outs.append((logits, torch.cat(ws, 1)))
-                    else:
-                        inputs = (rgb,) if kind == "rgb-se" else (rgb, depth)
-                        logits = model(*inputs, use_kernels=use_kernels)
-                        outs.append((logits, None))
-            del model
+                (lk, wk), (lp, wp) = (
+                    _variant_forward(models["fp32"], kind, rgb, depth, uk)
+                    for uk in (True, False))
+            print(f"  {name}:", flush=True)
+            bf16_row = _variant_bf16(name, kind, models, rgb, depth, card)
+            del models
         finally:
             probe.close()
             shutil.rmtree(root, ignore_errors=True)
-        (lk, wk), (lp, wp) = outs
         rel = _rel(lk, lp)
         agree = (first_argmax(lk) == first_argmax(lp)).float().mean().item()
         same_gate = wk is None or bool(torch.equal(wk, wp))
         expected = variant_launches(kind)
         got_train = {k: v for k, v in train_launches.items() if v}
-        got_eval = {k: v for k, v in eval_launches.items() if v}
         _add(total, got_train)
-        _add(total, got_eval)
         miou_valid = next((ln.split()[2] for ln in train_lines
                            if ln.startswith("Test mIoU")), None)
         steps = probe.steps
         row = {"model": name, "steps": steps, "train_s": train_s,
-               "eval_s": eval_s, "eval_miou": result.tolist(),
-               "train_valid_miou": miou_valid, "train_launches": got_train,
-               "eval_launches": got_eval,
+               "eval": eval_runs, "train_valid_miou": miou_valid,
+               "train_launches": got_train,
                "kernels_vs_plain_rel_err": rel, "class_map_agreement": agree,
-               "same_gate": same_gate}
+               "same_gate": same_gate, "bf16": bf16_row}
         rows.append(row)
-        print(f"  {name:20s}: steps {[round(st['ms'], 2) for st in steps]} "
-              f"ms, losses {[round(st['loss'], 4) for st in steps]}; "
-              f"validation mIoU {miou_valid}, cli.eval mIoU "
-              f"{result.tolist()} ({eval_s:.2f} s); kernels vs plain rel "
-              f"err {rel:.3g}, class maps agree on {agree * 100:.4f} %, gate "
-              f"choices identical: {same_gate} [{card}]", flush=True)
-        if got_train != expected or got_eval != expected:
-            raise RuntimeError(f"{name}: launches train {got_train}, eval "
-                               f"{got_eval}, expected {expected} each")
+        print(f"    fp32: steps {[round(st['ms'], 2) for st in steps]} ms, "
+              f"losses {[round(st['loss'], 4) for st in steps]}; validation "
+              f"mIoU {miou_valid}; cli.eval mIoU "
+              + ", ".join(f"{k} {v['miou']} ({v['wall_s']:.2f} s)"
+                          for k, v in eval_runs.items())
+              + f"; kernels vs plain rel err {rel:.3g}, class maps agree on "
+              f"{agree * 100:.4f} %, gate choices identical: {same_gate} "
+              f"[{card}]", flush=True)
+        if got_train != expected:
+            raise RuntimeError(f"{name}: launches train {got_train}, "
+                               f"expected {expected}")
         if (rel > 1e-3 or agree < 0.999 or not same_gate
-                or not bool(torch.isfinite(lk).all())
-                or not math.isfinite(float(result[0]))):
+                or not bool(torch.isfinite(lk).all())):
             raise RuntimeError(f"{name}: kernel eval path disagrees with the "
                                "plain one")
     report["variants"] = rows

@@ -21,14 +21,15 @@ strict capacity-factor compact forward on branch ratios estimated with
 encoder's and the whole net's GFLOPs, then the mean and std over runs.
 Every model of the JAX CLI is scored (the local-gate net samples its hard
 gates under ``test``); ``--capacity_factor`` takes the global-gate net
-only. ``--dtype bfloat16`` scores the global-gate net in bf16, every chain
-above included. ``--quant int8`` scores the int8 net (the global-gate net,
-fp32 or bf16, or the static ESANet): the scales calibrated on the first
-``--calib_batches`` clean batches (``--calib_estimator absmax`` or
-``percentile`` at ``--calib_percentile``), then the weights packed, before
-the capacity-factor calibration. Flags of features the port does not have
-yet raise (``cli/seg_build.py::check_supported``: ``--dtype bfloat16`` for
-any other model ROADMAP A3, ``--activation swish|hswish`` A7).
+only. ``--dtype bfloat16`` scores any of them in bf16, every chain above
+that the model takes included. ``--quant int8`` scores the int8 net (the
+global-gate net or the static ESANet, each fp32 or bf16): the scales
+calibrated on the first ``--calib_batches`` clean batches
+(``--calib_estimator absmax`` or ``percentile`` at
+``--calib_percentile``), then the weights packed, before the
+capacity-factor calibration. Flags of features the port does not have yet
+raise (``cli/seg_build.py::check_supported``: ``--activation
+swish|hswish`` ROADMAP A7).
 """
 
 from __future__ import annotations

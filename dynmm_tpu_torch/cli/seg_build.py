@@ -13,12 +13,11 @@ PPM, APPM or no context module, with the 2×2 packed stem under
 layouts (``data/nyuv2.py``, ``data/other_datasets.py``) and ``synthetic``.
 ``check_supported`` raises ``NotImplementedError`` on every flag of a
 feature the port does not have yet, naming its ROADMAP item; none is
-silently ignored. ``--dtype bfloat16`` serves and scores the global-gate
-SkipGateESANet (``--dynamic --global-gate``) in bf16; the other models and
-training take fp32 only. ``--quant int8`` builds the global-gate net (fp32
-or bf16) or the static ESANet with quantized convs for cli.eval and
-cli.predict, which calibrate it; the local-gate net and the one-modality
-net raise, and so does training.
+silently ignored. ``--dtype bfloat16`` serves and scores every model in
+bf16; training takes fp32 only. ``--quant int8`` builds the global-gate
+net or the static ESANet (each fp32 or bf16) with quantized convs for
+cli.eval and cli.predict, which calibrate it; the local-gate net and the
+one-modality net raise, and so does training.
 """
 
 from __future__ import annotations
@@ -51,10 +50,6 @@ def check_supported(args, training: bool = False) -> None:
     if args.dtype != "float32" and training:
         missing.append(f"--dtype {args.dtype} in training (bf16 training, "
                        "ROADMAP A3-train)")
-    elif args.dtype != "float32" and not (args.dynamic and args.global_gate):
-        missing.append(f"--dtype {args.dtype} for a model other than the "
-                       "global-gate SkipGateESANet (bf16 for the others, "
-                       "ROADMAP A3)")
     if args.quant != "none" and training:
         missing.append(f"--quant {args.quant} in training (a serving-time "
                        "knob: cli.eval and cli.predict calibrate a trained "

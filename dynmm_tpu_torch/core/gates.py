@@ -25,6 +25,17 @@ def hard_one_hot(y_soft: torch.Tensor, dim: int = -1) -> torch.Tensor:
     return torch.zeros_like(y_soft).scatter_(dim, index, 1.0)
 
 
+def softmax(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
+    """``F.softmax``; below fp32 (bf16) in ``jax.nn.softmax``'s order of
+    operations, each rounding to ``x``'s dtype: exp(x − max), its sum (an
+    fp32 accumulation), the quotient. ``F.softmax`` rounds its output
+    alone, one bf16 step away from JAX's."""
+    if x.dtype in (torch.float32, torch.float64):
+        return F.softmax(x, dim=dim)
+    e = torch.exp(x - x.amax(dim=dim, keepdim=True))
+    return e / e.sum(dim=dim, keepdim=True)
+
+
 def diff_softmax(logits: torch.Tensor, tau: float = 1.0, hard: bool = False,
                  dim: int = -1) -> torch.Tensor:
     """Temperature softmax with optional straight-through hard one-hot."""
@@ -50,7 +61,7 @@ def gumbel_softmax(logits: torch.Tensor, generator: torch.Generator,
     g = sample_gumbel(logits.shape, generator,
                       dtype=torch.promote_types(logits.dtype, torch.float32),
                       device=generator.device).to(logits.device)
-    y_soft = F.softmax((logits + g.to(logits.dtype)) / tau, dim=dim)
+    y_soft = softmax((logits + g.to(logits.dtype)) / tau, dim=dim)
     if not hard:
         return y_soft
     return straight_through(hard_one_hot(y_soft, dim=dim), y_soft)

@@ -40,6 +40,8 @@ class GateStats:
 
     def append(self, weights) -> None:
         if isinstance(weights, torch.Tensor):
+            if weights.dtype == torch.bfloat16:  # numpy has no bf16
+                weights = weights.float()
             weights = weights.detach().cpu().numpy()
         self._chunks.append(np.asarray(weights))
 

@@ -14,16 +14,18 @@ projections and the decoder ignores the skips; the context module is PPM,
 APPM or none. ``ESANet`` is the static baseline: depth always fused.
 
 ``ESANetConfig.dtype`` is the compute dtype (parameters stay fp32): None or
-fp32, or bf16 for the global-gate SkipGateESANet in eval, whose modules the
-constructor puts in bf16 (``nn/layers.py::set_compute_dtype``); the other
-models of the family take fp32 only (ROADMAP A3).
+fp32, or bf16 in eval for every model of the family (the global-gate
+SkipGateESANet, the static ESANet, the local-gate SkipESANet and
+ESANetOneModality), whose modules the constructor puts in bf16
+(``compute_in``, ``nn/layers.py::set_compute_dtype``). Training takes
+fp32 only (ROADMAP A3-train).
 
 ``ESANetConfig.quant`` (``nn/quant.py``): None, ``"calib"`` or ``"int8"``
 for the convs the JAX model quantizes: the encoder stages' (every block's,
 downsamples included), the decoder's ``conv3x3`` and NBt1D blocks,
 ``conv_out`` and the skip projections. The stems, the context module, the
 gate, the SE MLPs, ``side_output`` and the upsamples stay float. The
-global-gate SkipGateESANet (fp32 or bf16) and the static ESANet (fp32)
+global-gate SkipGateESANet and the static ESANet (each fp32 or bf16)
 take it; the local-gate SkipESANet and ESANetOneModality raise, as the JAX
 factory refuses the one and has no quantized conv in the other.
 """
@@ -68,12 +70,11 @@ class ESANetConfig:
     quant: str | None = None
 
 
-def require_fp32(cfg: ESANetConfig, model: str) -> None:
-    """Raise on a compute dtype other than fp32 for ``model``."""
+def compute_in(module: nn.Module, cfg: ESANetConfig) -> None:
+    """Serve ``module``'s maps in ``cfg.dtype`` (bf16 copies of its conv
+    weights); fp32 leaves it as built."""
     if cfg.dtype not in (None, torch.float32):
-        raise NotImplementedError(
-            f"{model} in {cfg.dtype}: not ported yet (bf16 serves the "
-            "global-gate SkipGateESANet only; the others, ROADMAP A3)")
+        set_compute_dtype(module, cfg.dtype)
 
 
 def require_no_quant(cfg: ESANetConfig, model: str) -> None:
@@ -237,8 +238,7 @@ class _DualEncoderParts(_Head):
                 setattr(self, f"se_layer{i}",
                         SqueezeAndExciteFusionAdd(c, activation=cfg.activation))
         self._build_head(cfg, ch)
-        if cfg.dtype not in (None, torch.float32):
-            set_compute_dtype(self, cfg.dtype)
+        compute_in(self, cfg)
 
     def stem_pool(self, rgb, depth, use_kernels: bool = True):
         """Stem tail: (pool(fuse(rgb, depth)), pool(depth)), NCHW; the
@@ -271,10 +271,6 @@ class ESANet(_DualEncoderParts):
     layout is NHWC: ``forward(rgb (B,H,W,3), depth (B,H,W,1))`` → logits
     (B,H,W,classes) (H/4 with ``low_res``); in training the four scales
     ``(out, down_8, down_16, down_32)``, every cell on its plain version."""
-
-    def __init__(self, cfg: ESANetConfig):
-        require_fp32(cfg, "the static ESANet")
-        super().__init__(cfg)
 
     def forward(self, rgb, depth, low_res: bool = False,
                 use_kernels: bool = True):

@@ -8,13 +8,16 @@ recalibration after the stem and each stage (the single-map ``fused_se``
 cell on the card), then the family's skips, context module and decoder.
 Unlike the dual-encoder models, the skip projections are built whatever
 ``encoder_decoder_fusion`` says (the decoder then ignores the skips), as in
-the reference.
+the reference. In bf16 (``ESANetConfig.dtype``) the stem casts the image
+and every cell serves bf16 maps; the SE cells are ``fused_se``'s bf16
+form, whose MLP runs in fp32 on the fp32 weights (the Pallas function's
+rounding, where the JAX module runs it on bf16 copies).
 """
 
 from __future__ import annotations
 
 from dynmm_tpu_torch.models.esanet import (ESANetConfig, _Head, build_encoder,
-                                           require_fp32, require_no_quant)
+                                           compute_in, require_no_quant)
 from dynmm_tpu_torch.nn.layers import (SqueezeAndExcitation, max_pool_3x3_s2,
                                        nchw)
 
@@ -26,7 +29,6 @@ class ESANetOneModality(_Head):
 
     def __init__(self, cfg: ESANetConfig, input_channels: int = 3,
                  weighting_in_encoder: str = "None"):
-        require_fp32(cfg, "ESANetOneModality")
         require_no_quant(cfg, "ESANetOneModality, which has no quantized "
                               "conv in the JAX package either")
         super().__init__()
@@ -39,6 +41,7 @@ class ESANetOneModality(_Head):
                 setattr(self, f"se_layer{i}",
                         SqueezeAndExcitation(c, activation=cfg.activation))
         self._build_head(cfg, ch, skip_layers=True)
+        compute_in(self, cfg)
 
     def _se(self, i: int, x, use_kernels: bool):
         if not self.se:

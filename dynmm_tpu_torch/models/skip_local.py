@@ -14,7 +14,10 @@ config with ``add`` fusion, so it has no SE fusion cells and its stem runs
 ``stem_fuse_pool`` with unit scales.
 
 The gates sample Gumbel noise from the ``torch.Generator`` the caller
-passes (``random_policy``: uniform branch choices). ``test`` makes every
+passes (``random_policy``: uniform branch choices). In bf16 the gates
+compute in bf16 as the JAX gates do (the SE weight, its sigmoid, the
+logits and the Gumbel softmax), and so do the mix weights and
+``prev_weight``. ``test`` makes every
 sample hard. There is no resource loss: in training ``forward`` returns the
 four-scale predictions alone, every cell on its plain version.
 """
@@ -27,7 +30,7 @@ from typing import Sequence
 import torch
 
 from dynmm_tpu_torch.models.esanet import (ESANetConfig, _DualEncoderParts,
-                                           require_fp32, require_no_quant)
+                                           compute_in, require_no_quant)
 from dynmm_tpu_torch.nn.layers import SqueezeAndExciteReweigh, nchw
 
 
@@ -39,7 +42,6 @@ class SkipESANet(_DualEncoderParts):
 
     def __init__(self, cfg: ESANetConfig,
                  block_rule: Sequence[int] = (1, 1, 1, 1)):
-        require_fp32(cfg, "the local-gate SkipESANet")
         require_no_quant(cfg, "the local-gate SkipESANet")
         super().__init__(dataclasses.replace(cfg,
                                              fuse_depth_in_rgb_encoder="add"))
@@ -48,8 +50,9 @@ class SkipESANet(_DualEncoderParts):
             raise ValueError(f"block_rule must be 4 of 0/1/2, got {block_rule}")
         ch = self.encoder_rgb.down_channels
         for i, c in enumerate([64, ch[4], ch[8], ch[16]]):
-            setattr(self, f"gate_layer{i}",
-                    SqueezeAndExciteReweigh(c, activation=cfg.activation))
+            gate = SqueezeAndExciteReweigh(c, activation=cfg.activation)
+            compute_in(gate, cfg)
+            setattr(self, f"gate_layer{i}", gate)
 
     def forward(self, rgb, depth, generator: torch.Generator,
                 temp: float = 1.0, hard: bool = False,

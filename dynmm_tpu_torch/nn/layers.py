@@ -356,7 +356,8 @@ class SqueezeAndExcitation(Packed):
 
     def recalibrate(self, x, use_kernels: bool = True):
         """``x · se(x)`` (NCHW) as the single-map ``fused_se`` cell (its
-        plain version ``se_reference`` without ``use_kernels``)."""
+        plain version ``se_reference`` without ``use_kernels``), fp32 or
+        bf16; at bf16 it rounds as ``map_scale`` does."""
         if not self.relu:
             raise NotImplementedError(
                 "the fused SE cells take relu SE MLPs; swish/hswish wait")
@@ -370,20 +371,32 @@ class SqueezeAndExcitationWeight(nn.Module):
     """SE recalibration collapsed to a per-sample scalar:
     ``(x · se(x)).mean over (H, W, C)``, computed from the channel means
     ``m`` as ``mean_c(m · sigmoid(fc(m)))`` (the same value without the
-    recalibrated map)."""
+    recalibrated map).
+
+    At a compute dtype below fp32 (bf16) it rounds where the JAX module at
+    that ``dtype`` rounds: the means, each 1×1 conv's product and then its
+    bias (on the convs' bf16 weight copies), the sigmoid, and the scalar.
+    JAX rounds each product ``x·w`` of the map too before its fp32 mean;
+    those roundings move the mean by far less than its own bf16 step, and
+    here the mean is taken of the fp32 ``m·w``."""
 
     def __init__(self, channels: int, reduction: int = 16,
                  activation: str = "relu"):
         super().__init__()
         cr = channels // reduction
         self.fc = nn.Sequential(
-            nn.Conv2d(channels, cr, 1), activation_module(activation),
-            nn.Conv2d(cr, channels, 1), nn.Sigmoid())
+            Conv2d(channels, cr, 1), activation_module(activation),
+            Conv2d(cr, channels, 1), nn.Sigmoid())
 
-    def from_means(self, means: torch.Tensor) -> torch.Tensor:
-        """The scalar (B,) of a map whose channel means are ``means`` (B, C)."""
-        w = self.fc(means[:, :, None, None])[:, :, 0, 0]
-        return (means * w).mean(dim=1)
+    def from_means(self, means: torch.Tensor,
+                   dtype: torch.dtype) -> torch.Tensor:
+        """The scalar (B,), in ``dtype``, of a map of ``dtype`` whose
+        channel means are ``means`` (B, C, at least fp32)."""
+        (w1, b1), (w2, b2) = (conv.weights(dtype)
+                              for conv in (self.fc[0], self.fc[2]))
+        h = self.fc[1](means.to(dtype) @ w1[:, :, 0, 0].t() + b1)
+        w = torch.sigmoid(h @ w2[:, :, 0, 0].t() + b2)
+        return (means * w.to(means.dtype)).mean(dim=1).to(dtype)
 
 
 class SqueezeAndExciteReweigh(nn.Module):
@@ -392,7 +405,8 @@ class SqueezeAndExciteReweigh(nn.Module):
     (hard under ``hard`` or ``test``), noise drawn from ``generator``;
     ``random_policy`` draws uniform choices instead. ``prev_weight`` (B,)
     chains the gates: the fuse column becomes ``w_1 · prev_weight``.
-    Returns (B, 2) weights ``[rgb only, fuse]``.
+    Returns (B, 2) weights ``[rgb only, fuse]`` in the maps' dtype, which
+    every step after the channel sums computes in, as the JAX gate does.
 
     The concatenation is never built: its channel means are those of rgb
     and depth side by side, on the card one ``channel_sums`` launch of both
@@ -416,8 +430,8 @@ class SqueezeAndExciteReweigh(nn.Module):
             sums = channel_sums if use_kernels else channel_sums_plain
             hw = rgb.shape[2] * rgb.shape[3]
             s_r, s_d = sums(nhwc(rgb), nhwc(depth))
-            w = torch.sigmoid(self.se.from_means(torch.cat([s_r, s_d], 1)
-                                                 / hw))
+            w = torch.sigmoid(self.se.from_means(
+                torch.cat([s_r, s_d], 1) / hw, rgb.dtype))
             logits = torch.stack([w, 1.0 - w], dim=1)
             w_norm = gumbel_softmax(logits / temp, generator, tau=1.0,
                                     hard=hard or test)

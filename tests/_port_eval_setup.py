@@ -17,6 +17,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
+from dynmm_tpu.models.esanet import ESANet as JaxESANet
 from dynmm_tpu.models.esanet import ESANetConfig as JaxConfig
 from dynmm_tpu.models.skip_gate import SkipGateESANet as JaxSkipGate
 from dynmm_tpu.utils import checkpoint as jax_ckpt
@@ -68,22 +69,26 @@ def write_prepared(root: Path, n: int, h: int = FILE_H, w: int = FILE_W,
     return root
 
 
-def jax_model(n_classes: int = 40) -> JaxSkipGate:
-    return JaxSkipGate(JaxConfig(num_classes=n_classes, **SMALL))
+def jax_model(n_classes: int = 40, static: bool = False, **over):
+    """The small JAX SkipGateESANet, or with ``static`` the static ESANet."""
+    cls = JaxESANet if static else JaxSkipGate
+    return cls(JaxConfig(num_classes=n_classes, **SMALL, **over))
 
 
 @functools.lru_cache(maxsize=4)
-def _shapes(n_classes: int):
-    return jax.eval_shape(lambda: jax_model(n_classes).init(
+def _shapes(n_classes: int, static: bool = False):
+    return jax.eval_shape(lambda: jax_model(n_classes, static).init(
         jax.random.PRNGKey(0), jnp.zeros((1, H, W, 3)),
         jnp.zeros((1, H, W, 1)), train=False))
 
 
-def random_variables(n_classes: int = 40, seed: int = 0) -> dict:
+def random_variables(n_classes: int = 40, seed: int = 0,
+                     static: bool = False) -> dict:
     """{"params", "batch_stats"} of the small model, numpy float32: He-normal
     kernels, small random biases, BN affines and statistics away from
-    identity; then the recipe gate asset (gate, stems, stem fusion) merged
-    in, so the synthetic samples take a mix of paths (0, 2, 3)."""
+    identity; then (the gate net only) the recipe gate asset (gate, stems,
+    stem fusion) merged in, so the synthetic samples take a mix of paths
+    (0, 2, 3)."""
     rng = np.random.default_rng(seed)
 
     def leaf(path, s):
@@ -99,7 +104,9 @@ def random_variables(n_classes: int = 40, seed: int = 0) -> dict:
             x = rng.uniform(0.5, 1.5, s.shape)
         return x.astype(np.float32)
 
-    tree = jax.tree_util.tree_map_with_path(leaf, _shapes(n_classes))
+    tree = jax.tree_util.tree_map_with_path(leaf, _shapes(n_classes, static))
+    if static:
+        return {"params": tree["params"], "batch_stats": tree["batch_stats"]}
     asset = msgpack_restore(
         (REPO / "bench_assets" / "gate_recipe.msgpack").read_bytes())
     sub = asset["subtree"]
@@ -151,15 +158,23 @@ def lines_with(text: str, prefix: str) -> list[str]:
             if ln.strip().startswith(prefix)]
 
 
+def _model_flags(static: bool) -> tuple[list[str], dict]:
+    """(the flags that build the net, its forward kwargs): the hard
+    global-gate net, or the static ESANet."""
+    return ([], {}) if static else (["--dynamic", "--global-gate"],
+                                    {"hard": True})
+
+
 def bf16_class_maps(argv: list[str], variables: dict,
-                    label_size: bool) -> dict:
+                    label_size: bool, static: bool = False) -> dict:
     """The class maps of the port's and the JAX package's bf16 nets
-    (hard gate) on the test batches that the CLIs of ``argv`` read: at the
-    labels' size through eval's chain (bilinear resize of the logits, then
-    the first argmax) with ``label_size``, else at the model's size
-    (predict's maps). ``sure`` marks the pixels whose JAX top-two logit
-    margin exceeds twice ``err``, the max abs difference of the two nets'
-    logits there: no such difference can change their class."""
+    (hard gate, or with ``static`` the static ESANet) on the test batches
+    that the CLIs of ``argv`` read: at the labels' size through eval's chain
+    (bilinear resize of the logits, then the first argmax) with
+    ``label_size``, else at the model's size (predict's maps). ``sure``
+    marks the pixels whose JAX top-two logit margin exceeds twice ``err``,
+    the max abs difference of the two nets' logits there: no such
+    difference can change their class; ``scale`` is max |JAX logits|."""
     import torch
 
     from dynmm_tpu.nn import layers as jl
@@ -168,19 +183,20 @@ def bf16_class_maps(argv: list[str], variables: dict,
     from dynmm_tpu_torch.nn import layers
     from dynmm_tpu_torch.utils.torch_import import load_any_checkpoint
 
+    flags, kw = _model_flags(static)
     args = port_eval.build_parser().parse_args(
-        [*argv, "--dynamic", "--global-gate", "--device", "cpu"])
+        [*argv, *flags, "--device", "cpu"])
     loader = prepare_data(args)[1]
     model = build_model(args, 40)
     load_any_checkpoint(model, args.ckpt_path)
     model = model.to(memory_format=torch.channels_last).eval()
-    jm = JaxSkipGate(JaxConfig(num_classes=40, dtype=jnp.bfloat16, **SMALL))
-    apply = jax.jit(lambda v, r, d: jm.apply(v, r, d, train=False, hard=True))
+    jm = jax_model(static=static, dtype=jnp.bfloat16)
+    apply = jax.jit(lambda v, r, d: jm.apply(v, r, d, train=False, **kw))
     port, ref = [], []
     for b in loader:
         with torch.no_grad():
             lp = model(torch.from_numpy(b["image"]),
-                       torch.from_numpy(b["depth"]), hard=True)
+                       torch.from_numpy(b["depth"]), **kw)
         lj = apply(variables, b["image"], b["depth"])
         if label_size:
             hw = b.get("label_orig", b.get("label")).shape[1:3]
@@ -191,18 +207,21 @@ def bf16_class_maps(argv: list[str], variables: dict,
     err = float(np.abs(port - ref).max())
     top2 = np.sort(ref, axis=-1)[..., -2:]
     return {"port": port.argmax(-1), "jax": ref.argmax(-1), "err": err,
+            "scale": float(np.abs(ref).max()),
             "sure": top2[..., 1] - top2[..., 0] > 2 * err}
 
 
-def int8_class_maps(argv: list[str], variables: dict) -> dict:
+def int8_class_maps(argv: list[str], variables: dict,
+                    static: bool = False) -> dict:
     """predict's quarter-resolution class maps (the H/4 argmax repeated ×4)
-    of the port's and the JAX package's int8 nets (hard gate, dense; at
-    ``--dtype``, on the ``--packed_stem`` feed where ``argv`` asks) on the
-    test batches that the CLIs of ``argv`` read, each net calibrated as its
-    predict CLI calibrates it (absmax over the first ``--calib_batches``
-    batches of that feed in fp32, then packed). ``sure`` as in
-    ``bf16_class_maps``, from the H/4 logits."""
-    import dataclasses
+    of the port's and the JAX package's int8 nets (hard gate, dense, or
+    with ``static`` the static ESANet; at ``--dtype``, on the
+    ``--packed_stem`` feed where ``argv`` asks) on the test batches that the
+    CLIs of ``argv`` read, each net calibrated as its predict CLI calibrates
+    it (absmax over the first ``--calib_batches`` batches of that feed in
+    fp32, then packed). ``sure`` as in ``bf16_class_maps``, from the H/4
+    logits; ``rel_l2`` the relative L2 distance of the two nets' H/4
+    logits."""
 
     import torch
 
@@ -213,8 +232,9 @@ def int8_class_maps(argv: list[str], variables: dict) -> dict:
     from dynmm_tpu_torch.utils import quantize
     from dynmm_tpu_torch.utils.torch_import import load_any_checkpoint
 
+    flags, kw = _model_flags(static)
     args = port_eval.build_parser().parse_args(
-        [*argv, "--dynamic", "--global-gate", "--device", "cpu"])
+        [*argv, *flags, "--device", "cpu"])
     pack = pack_stem_batch if args.packed_stem else dict
     feed = [(b["image"], b["depth"]) for b in map(pack, prepare_data(args)[1])]
     calib = feed[:args.calib_batches]
@@ -222,26 +242,25 @@ def int8_class_maps(argv: list[str], variables: dict) -> dict:
     load_any_checkpoint(model, args.ckpt_path)
     model = model.to(memory_format=torch.channels_last).eval()
     quantize.quantize_int8(model, [tuple(map(torch.from_numpy, b))
-                                   for b in calib], hard=True)
-    cfg = JaxConfig(num_classes=40, quant="int8", **SMALL,
-                    dtype=jnp.bfloat16 if args.dtype == "bfloat16" else None)
+                                   for b in calib], **kw)
+    dtype = jnp.bfloat16 if args.dtype == "bfloat16" else None
     qcoll = jax_quantize.calibrate(
-        JaxSkipGate(dataclasses.replace(cfg, quant="calib", dtype=None)),
-        variables, [tuple(map(jnp.asarray, b)) for b in calib], train=False,
-        hard=True)
+        jax_model(static=static, quant="calib"), variables,
+        [tuple(map(jnp.asarray, b)) for b in calib], train=False, **kw)
     packed = jax_quantize.pack_weights({**variables, "quant": qcoll})
-    jm = JaxSkipGate(cfg)
-    apply = jax.jit(lambda v, r, d: jm.apply(v, r, d, train=False, hard=True,
-                                             low_res=True))
+    jm = jax_model(static=static, quant="int8", dtype=dtype)
+    apply = jax.jit(lambda v, r, d: jm.apply(v, r, d, train=False,
+                                             low_res=True, **kw))
     port, ref = [], []
     for r, d in feed:
         with torch.no_grad():
             port.append(model(torch.from_numpy(r), torch.from_numpy(d),
-                              hard=True, low_res=True).float().numpy())
+                              low_res=True, **kw).float().numpy())
         ref.append(np.asarray(apply(packed, r, d).astype(jnp.float32)))
     port, ref = np.concatenate(port), np.concatenate(ref)
     err = float(np.abs(port - ref).max())
     top2 = np.sort(ref, axis=-1)[..., -2:]
     up = lambda m: m.repeat(4, axis=1).repeat(4, axis=2)
     return {"port": up(port.argmax(-1)), "jax": up(ref.argmax(-1)),
-            "err": err, "sure": up(top2[..., 1] - top2[..., 0] > 2 * err)}
+            "err": err, "sure": up(top2[..., 1] - top2[..., 0] > 2 * err),
+            "rel_l2": float(np.linalg.norm(port - ref) / np.linalg.norm(ref))}

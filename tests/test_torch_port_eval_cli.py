@@ -17,7 +17,8 @@ port does not have yet raise naming their ROADMAP item.
 ``--dtype bfloat16`` scores the net in bf16 against the JAX CLI at bf16:
 the two packages round at other points, so the class maps are held equal
 on the pixels whose top-two logit margin exceeds the measured logit error
-(``bf16_class_maps``), and both mIoUs are printed."""
+(``bf16_class_maps``), and both mIoUs are printed. The same for the
+static ESANet, in bf16 and with ``--quant int8 --dtype bfloat16``."""
 
 import re
 import sys
@@ -28,10 +29,10 @@ import numpy as np
 import pytest
 import torch
 
-from _port_eval_setup import (MODEL_FLAGS, bf16_class_maps, lines_with,
-                              random_variables, run_jax_cli, run_mious,
-                              run_port_cli, save_jax_checkpoint,
-                              write_prepared)
+from _port_eval_setup import (MODEL_FLAGS, bf16_class_maps,
+                              int8_class_maps, lines_with, random_variables,
+                              run_jax_cli, run_mious, run_port_cli,
+                              save_jax_checkpoint, write_prepared)
 from _port_train_setup import one_torch_thread  # noqa: F401 (autouse)
 from dynmm_tpu.utils import torch_import as jax_import
 from dynmm_tpu.utils.torch_export import export_state_dict
@@ -325,17 +326,18 @@ def test_eval_int8_matches_jax(layout, monkeypatch, calib):
 
 
 # the int8 cases: the nets --quant int8 does not take, the local-gate net
-# (the JAX factory's refusal) and the one-modality net (no quantized conv)
+# (the JAX factory's refusal) and the one-modality net (no quantized conv);
+# bf16 scores every net, so its case is bf16 with swish on the static net
 @pytest.mark.parametrize("flags, drop, match", [
     (["--quant", "int8"], ("--global-gate",),
      "--quant supports global-gate / static models only"),
     (["--quant", "int8", "--modality", "rgb"],
      ("--dynamic", "--global-gate"), "only, not ESANetOneModality"),
-    (["--dtype", "bfloat16"], ("--dynamic", "--global-gate"), "ROADMAP A3"),
+    (["--dtype", "bfloat16", "--activation", "swish"],
+     ("--dynamic", "--global-gate"), "ROADMAP A7"),
     (["--activation", "swish"], (), "ROADMAP A7")],
     ids=["int8", "int8-one-modality", "bf16", "swish"])
 def test_unported_eval_flags_raise(layout, flags, drop, match):
-    # bf16 scores the global-gate net; the static one raises
     args = [a for a in layout["args"] if a not in drop]
     with pytest.raises(NotImplementedError, match=match):
         port_eval.main([*args, "--ckpt_path", layout["ckpt"], "--device",
@@ -369,6 +371,69 @@ def test_eval_bf16_matches_jax(layout, monkeypatch):
     assert lines_with(port_out, "branch ratios") == lines_with(
         jax_out, "branch ratios")
     assert maps["sure"].mean() > 0.5
+    np.testing.assert_array_equal(maps["port"][maps["sure"]],
+                                  maps["jax"][maps["sure"]])
+
+
+@pytest.fixture(scope="module")
+def static(layout):
+    """A checkpoint of the small static ESANet (SE-add) on the layout, and
+    the eval flags that build it."""
+    variables = random_variables(seed=7, static=True)
+    ckpt = save_jax_checkpoint(layout["root"] / "static.msgpack", variables)
+    args = [a for a in layout["args"]
+            if a not in ("--dynamic", "--global-gate", "--hard")]
+    return {"variables": variables, "args": [*args, "--ckpt_path", ckpt]}
+
+
+def test_eval_static_bf16_matches_jax(static, monkeypatch):
+    """The static ESANet in bf16 against the JAX CLI at bf16: the logits at
+    the labels' size within 5e-2 of max |JAX logits| (the whole-net bf16
+    bound) and the class maps equal wherever the margin rule applies. This
+    net's random weights leave most pixels' top-two margins within the
+    two bf16 nets' error (JAX's own bf16 and fp32 nets differ by 1.8 % in
+    relative L2 here), so the rule is asked to cover a quarter of them."""
+    argv = [*static["args"], "--dtype", "bfloat16"]
+    jax_out = run_jax_cli("eval", argv, monkeypatch)
+    port_out = run_port_cli(port_eval, argv)
+    j, p = run_mious(jax_out), run_mious(port_out)
+    maps = bf16_class_maps(argv, static["variables"], label_size=True,
+                           static=True)
+    print(f"static bf16 eval mIoU: JAX {j}, port {p}; class maps equal on "
+          f"the {maps['sure'].mean() * 100:.2f} % of pixels with margin > "
+          f"2x{maps['err']:.3g}")
+    assert len(j) == len(p) == 1
+    assert maps["err"] < 5e-2 * maps["scale"]
+    assert maps["sure"].mean() > 0.25
+    np.testing.assert_array_equal(maps["port"][maps["sure"]],
+                                  maps["jax"][maps["sure"]])
+
+
+def test_eval_static_int8_bf16_matches_jax(static, monkeypatch):
+    """``--quant int8 --dtype bfloat16`` on the static ESANet against the
+    JAX CLI, on the int8 rules of ``test_torch_port_quant.py`` (which holds
+    this net's every conv exactly on JAX's inputs, ``static-bf16``): the
+    two int8 nets differ by rounding flips at quantization boundaries that
+    cascade, here on top of bf16's own 2 % (relative L2, the bf16 test
+    above), so their H/4 logits are held by the JAX package's bounds for an
+    int8 net against its float net (relative L2 < 0.12, class maps agree on
+    > 85 %) and the margin rule; the calibration line is JAX's."""
+    argv = [*static["args"], "--quant", "int8", "--dtype", "bfloat16",
+            "--calib_batches", "2"]
+    jax_out = run_jax_cli("eval", argv, monkeypatch)
+    port_out = run_port_cli(port_eval, argv)
+    assert lines_with(port_out, "Calibrated int8") == lines_with(
+        jax_out, "Calibrated int8")
+    assert lines_with(port_out, "Calibrated int8")
+    j, p = run_mious(jax_out), run_mious(port_out)
+    maps = int8_class_maps(argv, static["variables"], static=True)
+    agree = (maps["port"] == maps["jax"]).mean()
+    print(f"static int8-bf16 eval mIoU: JAX {j}, port {p}; H/4 logits "
+          f"relative L2 {maps['rel_l2']:.3g}, class maps agree on "
+          f"{agree * 100:.2f} %, equal on the {maps['sure'].mean() * 100:.2f}"
+          f" % of pixels with margin > 2x{maps['err']:.3g}")
+    assert len(j) == len(p) == 1
+    assert maps["rel_l2"] < 0.12 and agree > 0.85
     np.testing.assert_array_equal(maps["port"][maps["sure"]],
                                   maps["jax"][maps["sure"]])
 

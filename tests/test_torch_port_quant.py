@@ -78,7 +78,7 @@ NETS = {
 }
 # the int8 nets at bf16 compute (the JAX bench's int8 serving dtype):
 # calibrated in fp32, as both packages calibrate
-BF16_RUNS = {"r34-nbt1d-bf16": "r34-nbt1d"}
+BF16_RUNS = {"r34-nbt1d-bf16": "r34-nbt1d", "static-bf16": "static"}
 
 
 # ------------------------------------------------- scales and quantization
