@@ -33,9 +33,9 @@ Run from the root of a checkout on a machine with one NVIDIA GPU:
    stem bit-identical, the sums ≤ 1e-5, the SE cells and the upsample
    ≤ 8e-3 of max |plain| with 20-call bit-identical repeats, the
    single-map SE cell at B=8 and B=1), their bounds from bf16 bytes, beside
-   two bf16→fp32 ``torch.sum`` and a bf16 ``conv_transpose2d``; the bf16
-   sums also at the local-gate net's four gate shapes and at R50's widest
-   gate (1024 channels).
+   two bf16→fp32 ``torch.sum`` and a bf16 ``conv_transpose2d``; the sums,
+   fp32 and bf16, also at the local-gate net's four gate shapes and at
+   R50's widest gate (1024 channels), beside two ``torch.sum``.
 3. Serve, dense: builds the 480×640 flagship with seeded random weights,
    serves 3 batches of 8 and 3 of 1 through ``dynmm_tpu_torch.serve.serve``
    (``mode="dense"``) with every launch count at 0 before, checks the
@@ -267,6 +267,13 @@ ONE_MODALITY_SE = ((64, 240, 320, "R34 one-modality"),
                    (256, 30, 40, "R34 one-modality"),
                    (512, 15, 20, "R34 one-modality"),
                    (2048, 15, 20, "R50 one-modality"))
+# the local gates' channel sums: the R34 local-gate net's four gates and the
+# R50 one's widest (C = 1024)
+LOCAL_GATE_SUMS = ((64, 240, 320, "R34 local-gate"),
+                   (64, 120, 160, "R34 local-gate"),
+                   (128, 60, 80, "R34 local-gate"),
+                   (256, 30, 40, "R34 local-gate"),
+                   (1024, 30, 40, "R50 local-gate"))
 # ResNet50 encoders: Bottleneck blocks (cuDNN), no stride-1 NBt1D block
 R50_ENCODER_BLOCKS = ()
 
@@ -398,6 +405,19 @@ def kernel_cases(inp: Inputs) -> list[Case]:
                   lambda a=args: stem_fuse.stem_fuse_pool_plain(*a),
                   None, (2 * n + 2 * n // 4) * 4, 3.0 * n + 18.0 * n / 4, None,
                   r50_calls=1))
+    # the local gates' channel sums of the fp32 local-gate SkipESANet: R34's
+    # four gates and R50's widest (1024 channels at 30×40); after the stem's
+    # two cases, whose c, h, w this loop rebinds
+    for c, h, w, net in LOCAL_GATE_SUMS:
+        n = b * h * w * c
+        r, d = inp.randn(b, h, w, c), inp.randn(b, h, w, c)
+        cases.append(Case(
+            "channel_sums", f"{b}x{h}x{w}x{c}", 1,
+            lambda r=r, d=d: se.channel_sums(r, d),
+            lambda r=r, d=d: se.channel_sums_plain(r, d),
+            lambda r=r, d=d: (torch.sum(r, dim=(1, 2)),
+                              torch.sum(d, dim=(1, 2))),
+            2 * n * 4 + 2 * b * c * 4, 2.0 * n, net=net))
     # K3: three decoder-module upsamples and the two logits upsamples
     for c, h, w in ((512, 15, 20), (256, 30, 40), (128, 60, 80),
                     (40, 120, 160), (40, 240, 320)):
@@ -571,11 +591,7 @@ def bf16_cases(inp: Inputs) -> list[Case]:
                 repeat=True, net=net, tol=BF16_TOL["se_fuse_mixed"]))
     # the local gates' channel sums of the bf16 local-gate SkipESANet: R34's
     # four gates and R50's widest (1024 channels at 30×40)
-    for c, h, w, net in ((64, 240, 320, "R34 local-gate"),
-                         (64, 120, 160, "R34 local-gate"),
-                         (128, 60, 80, "R34 local-gate"),
-                         (256, 30, 40, "R34 local-gate"),
-                         (1024, 30, 40, "R50 local-gate")):
+    for c, h, w, net in LOCAL_GATE_SUMS:
         n = b * h * w * c
         r, d = inp.randn(b, h, w, c).to(bf), inp.randn(b, h, w, c).to(bf)
         cases.append(Case(
@@ -1585,6 +1601,11 @@ def _variant_bf16(name: str, kind: str, models: dict, rgb, depth,
     flips = int((~agree).sum().item())
     drift = ((lk.float() - l32)[agree].abs().max() / l32.abs().max()).item() \
         if bool(agree.any()) else float("nan")
+    # the bf16 plain path's drift: beside the kernels' it tells the bf16
+    # net's own distance from fp32 on these weights from a kernel fault
+    plain_drift = ((lp.float() - l32)[agree].abs().max()
+                   / l32.abs().max()).item() if bool(agree.any()) \
+        else float("nan")
     agree32 = (first_argmax(lk) == first_argmax(l32)).float().mean().item()
     ok = (lk.dtype == torch.bfloat16 and bool(torch.isfinite(lk).all())
           and same_gate and plain_rel <= BF16_PLAIN_TOL and sure_same
@@ -1594,14 +1615,17 @@ def _variant_bf16(name: str, kind: str, models: dict, rgb, depth,
            "sure_pixel_share": sure.float().mean().item(),
            "sure_pixels_equal": sure_same, "same_gate_as_plain": same_gate,
            "gate_flips_vs_fp32": flips, "fp32_drift": drift,
+           "plain_fp32_drift": plain_drift,
+           "fp32_max_abs": l32.abs().max().item(),
            "fp32_class_map_agreement": agree32}
     print(f"    bf16: kernels vs plain {plain_rel:.3g} of max |plain|, class "
           f"maps equal on the {row['sure_pixel_share'] * 100:.4f} % of "
           f"pixels with margin > 2x{plain_err:.3g}: {sure_same}; gate "
           f"choices as plain: {same_gate}; vs fp32: {flips} of "
           f"{rgb.shape[0]} samples with other gate choices, drift "
-          f"{drift:.3g} of max |fp32| on the others, class maps agree on "
-          f"{agree32 * 100:.4f} %", flush=True)
+          f"{drift:.3g} of max |fp32| ({row['fp32_max_abs']:.4g}) on the "
+          f"others (the plain path's {plain_drift:.3g}), class maps agree "
+          f"on {agree32 * 100:.4f} %", flush=True)
     if not ok:
         raise RuntimeError(f"{name} bf16: disagreement {row}")
     times = []

@@ -17,7 +17,9 @@ otherwise, warp collectives (``mma.sync``) through a per-warp barrier of 32
 and a per-warp exchange buffer (``emu_warp_sync``, ``emu_warp_mem``), and
 ``cp.async`` as a synchronous copy; ``__threadfence`` is a no-op and
 ``atomicAdd`` a plain read-modify-write, since blocks run in turn on one OS
-thread; ``__stcs`` and ``__ldcg`` are plain stores and loads. ``__nv_bfloat16``
+thread; ``__stcs`` and ``__ldcg`` are plain stores and loads. A block that
+waits for blocks which started before it (the SE cell's MLP queue) finds
+them done, so ``__nanosleep`` is a no-op; ``__trap`` aborts the process. ``__nv_bfloat16``
 is a 16-bit struct with ``cuda_bf16.h``'s round-to-nearest-even
 ``__float2bfloat16_rn`` and ``__bfloat162float``, so the bf16 forms run here
 too. Wrappers
@@ -58,6 +60,7 @@ SHIM = r"""
 #include <algorithm>
 #include <cmath>
 #include <cstddef>
+#include <cstdlib>
 #include <cstring>
 #include <memory>
 #include <utility>
@@ -115,6 +118,10 @@ template <class T>
 inline T atomicAdd(T* p, T v) { return std::exchange(*p, *p + v); }
 template <class T>
 inline T __ldcg(const T* p) { return *p; }
+// A wait on another block's flag is met at once (the blocks it waits for
+// ran before it); __trap ends the process, as it ends the kernel.
+inline void __nanosleep(unsigned) {}
+[[noreturn]] inline void __trap() { std::abort(); }
 template <class T>
 inline void __stcs(T* p, T v) { *p = v; }
 inline void emu_warp_sync() { emu_arrive(emu_cur->warp->bar); }
@@ -138,6 +145,11 @@ struct alignas(16) float4 { float x, y, z, w; };
 inline float4 make_float4(float a, float b, float c, float d) { return {a, b, c, d}; }
 struct alignas(8) uint2 { unsigned x, y; };
 inline uint2 make_uint2(unsigned a, unsigned b) { return {a, b}; }
+struct alignas(16) uint4 { unsigned x, y, z, w; };
+inline uint4 make_uint4(unsigned a, unsigned b, unsigned c, unsigned d) {
+  return {a, b, c, d};
+}
+struct alignas(8) float2 { float x, y; };
 inline float __uint_as_float(unsigned u) {
   float f;
   std::memcpy(&f, &u, sizeof f);
@@ -166,7 +178,7 @@ inline unsigned short __bfloat16_as_ushort(__nv_bfloat16 b) { return b.x; }
 #define __device__
 #define __forceinline__ inline
 #define __restrict__ __restrict
-#define __launch_bounds__(x)
+#define __launch_bounds__(...)
 #define CUDART_INF_F INFINITY
 template <class F>
 void emu_launch(bool barrier, dim3 g, dim3 b, size_t smem, F&& f) {

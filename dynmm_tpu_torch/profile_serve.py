@@ -35,10 +35,9 @@ from dynmm_tpu_torch.serve import SERVE_MODES, build_flagship, serve
 from dynmm_tpu_torch.utils.device import card_line
 from dynmm_tpu_torch.utils.quantize import quantize_int8
 
-PORT_KERNELS = ("nbt1d_block_kernel", "nbt1d_conv_kernel",
-                "sums_partial_kernel", "sums_finalize_kernel",
-                "se_squeeze_kernel", "se_mix_kernel", "stem_fuse_pool_kernel",
-                "learned_upsample_kernel")
+PORT_KERNELS = ("nbt1d_block_kernel", "nbt1d_conv_kernel", "sums_kernel",
+                "se_squeeze_kernel", "se_mlp_kernel", "se_mix_kernel",
+                "stem_fuse_pool_kernel", "learned_upsample_kernel")
 CONV_MARKS = ("conv", "cudnn", "xmma", "gemm", "implicit", "winograd", "fft")
 
 

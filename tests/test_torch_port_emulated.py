@@ -10,7 +10,11 @@ the one-launch block's tiles cut by the image's last row and column, its
 partial chunks and groups of channels, its passes of items and its
 ``cp.async`` staging; odd pooled sizes; the upsample's strips of rows at
 both vector widths and C = 40; the SE cell's last-block finalize over
-several squeeze blocks, and its counters reset between calls. The whole
+several squeeze blocks, and its counters reset between calls; the 16-byte
+accesses of the sums and of the SE cell (8 bf16 channels a thread) and the
+narrower ones a shape or an offset forces; the sums' last-block finalize;
+the SE MLPs' own launch from C = 1024 up (its item queue, passes of 8
+samples, ragged slices and tiles). The whole
 small model is served through the emulated kernels, densely and through the
 routed strategies, with the launch counts of its forward. On the card,
 ``chip_smoke.py`` holds the same sources, built by ``nvcc``, against the
@@ -423,6 +427,158 @@ def test_learned_upsample_bf16(libs, shape):
     assert xu.data_ptr() % 8
     with emulate.emulated(libs):
         _bf16_close(upsample.learned_upsample(xu, k, bias), ref, 8e-3)
+
+
+# ------------------------- 16-byte accesses, narrower ones, the MLP launch
+DTYPES = {"fp32": torch.float32, "bf16": BF}
+
+
+def _suffix(dtype):
+    return ".bf16" if dtype == BF else ""
+
+
+def _offset(x, nbytes):
+    """x's values in a tensor that starts ``nbytes`` past an allocation."""
+    k = nbytes // x.element_size()
+    y = torch.empty(x.numel() + k, dtype=x.dtype)[k:].view(x.shape)
+    y.copy_(x)
+    assert y.data_ptr() % 16 == nbytes % 16
+    return y
+
+
+@pytest.fixture
+def several_sums_blocks(monkeypatch):
+    """More ``channel_sums`` blocks per (sample, map) than the emulation's
+    two SMs give, so the last block adds several partials."""
+    monkeypatch.setattr(se, "SUMS_BLOCKS_PER_SM", 16)
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("b,h,w,c", [
+    (1, 37, 71, 8),    # splits of 526 (fp32) / 1314 (bf16) pixels: full
+                       # unrolled steps of every lane, then a ragged tail
+    (2, 9, 31, 64),    # 279 pixels: 4 (fp32) / 2 (bf16) splits, ragged
+    (2, 5, 7, 1024),   # one or two pixel lanes, 8 / 4 splits of 35 pixels
+    (1, 9, 30, 1024),  # 16 splits: the last block's loads in two passes
+])
+def test_channel_sums_several_blocks(libs, several_sums_blocks, dtype, b, h,
+                                     w, c):
+    """16-byte accesses (4 fp32 or 8 bf16 channels a thread), several
+    blocks per (sample, map) whose partials the last block adds (in lanes
+    of a channel up to C = 64, one thread a channel at 1024), HW a multiple
+    of neither the unroll nor the split. Two calls are bit-identical and
+    leave every ticket at 0."""
+    g = _gen(c + h)
+    rgb = _randn(g, b, h, w, c).to(DTYPES[dtype])
+    depth = _randn(g, b, h, w, c).to(DTYPES[dtype])
+    width = se._access_width(c, (rgb, depth))
+    assert width == 16 // rgb.element_size()
+    splits = se._sums_splits(b, h * w, c, width, emulate.SMS)
+    assert splits >= 2 and (h * w) % splits and (h * w) % se.SUMS_UNROLL
+    out, ref = _both(libs, se.channel_sums, rgb, depth)
+    assert dict(LAUNCHES) == {"channel_sums" + _suffix(rgb.dtype): 1}
+    assert out[0].dtype == torch.float32
+    _bf16_close(out, ref, 1e-5)
+    assert not se._SUMS_COUNTERS[torch.device("cpu")].any()
+    with emulate.emulated(libs):
+        again = se.channel_sums(rgb, depth)
+    assert all(torch.equal(a, o) for a, o in zip(again, out))
+
+
+@pytest.mark.parametrize("dtype,c,offset,width", [
+    ("fp32", 12, 0, 4), ("fp32", 13, 0, 1), ("fp32", 64, 8, 2),
+    ("fp32", 64, 4, 1), ("bf16", 12, 0, 4), ("bf16", 300, 0, 4),
+    ("bf16", 6, 0, 2), ("bf16", 7, 0, 1), ("bf16", 64, 8, 4),
+])
+def test_channel_sums_narrow_accesses(libs, several_sums_blocks, dtype, c,
+                                      offset, width):
+    """Where C or the maps' alignment does not allow 16 bytes, the same
+    kernel takes a narrower access (a bf16 map with C % 8 != 0, maps that
+    start 8 or 4 bytes past a 16-byte boundary); it never falls back to the
+    plain version."""
+    g = _gen(c + offset)
+    rgb, depth = (_offset(_randn(g, 2, 7, 9, c).to(DTYPES[dtype]), offset)
+                  for _ in range(2))
+    assert se._access_width(c, (rgb, depth)) == width
+    out, ref = _both(libs, se.channel_sums, rgb, depth)
+    assert dict(LAUNCHES) == {"channel_sums" + _suffix(rgb.dtype): 1}
+    _bf16_close(out, ref, 1e-5)
+
+
+@pytest.mark.parametrize("b,h,w,c,cr", [(3, 4, 6, 64, 4), (2, 3, 5, 512, 32)])
+def test_se_cell_bf16_16_byte_accesses(libs, several_squeeze_blocks, b, h,
+                                       w, c, cr):
+    """bf16 maps at C ≤ 512 in 16-byte accesses (8 channels a thread):
+    bit-identical to the plain version, the rounding points unchanged, in
+    both SE forms."""
+    g = _gen(c + 3)
+    ws, wd = _se_weights(g, c, cr), _se_weights(g, c, cr)
+    rgb, depth = _randn(g, b, h, w, c).to(BF), _randn(g, b, h, w, c).to(BF)
+    assert se._access_width(c, (rgb, depth)) == 8
+    out, ref = _both(libs, se.se_fuse_mixed, rgb, depth,
+                     torch.rand(b, generator=g), *ws, *wd)
+    assert dict(LAUNCHES) == {"se_fuse_mixed.bf16": 1}
+    _bf16_close(out, ref, 0.0)
+    out, ref = _both(libs, se.fused_se, _randn(g, b, h * w, c).to(BF), *ws)
+    assert dict(LAUNCHES) == {"fused_se.bf16": 1}
+    _bf16_close(out, ref, 0.0)
+
+
+@pytest.mark.parametrize("c,offset", [(44, 0), (12, 0), (64, 8)])
+def test_se_cell_bf16_narrow_accesses(libs, several_squeeze_blocks, c,
+                                      offset):
+    """A bf16 map with C % 8 != 0, or 8 bytes past a 16-byte boundary,
+    takes the 8-byte access (4 channels a thread) in the same kernels."""
+    g = _gen(c + offset + 5)
+    cr = max(1, c // 16)
+    ws, wd = _se_weights(g, c, cr), _se_weights(g, c, cr)
+    rgb, depth = (_offset(_randn(g, 2, 3, 5, c).to(BF), offset)
+                  for _ in range(2))
+    assert se._access_width(c, (rgb, depth)) == 4
+    args = (rgb, depth, torch.rand(2, generator=g), *ws, *wd)
+    out, ref = _both(libs, se.se_fuse_mixed, *args)
+    assert dict(LAUNCHES) == {"se_fuse_mixed.bf16": 1}
+    _bf16_close(out, ref, 8e-3)
+    x = _offset(_randn(g, 2, 15, c).to(BF), offset)
+    out, ref = _both(libs, se.fused_se, x, *ws)
+    assert dict(LAUNCHES) == {"fused_se.bf16": 1}
+    _bf16_close(out, ref, 8e-3)
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("b,h,w,c,cr", [
+    (10, 1, 2, 1024, 64),   # two passes of 8 samples in the MLP launch
+    (2, 2, 3, 1536, 96),    # three ranges of 32 hidden units
+    (3, 1, 3, 2048, 128),   # ResNet50's stage-4 cell
+    (2, 2, 2, 1040, 65),    # a ragged last slice, unit range and tile
+])
+def test_se_cell_mlp_launch(libs, several_squeeze_blocks, dtype, b, h, w, c,
+                            cr):
+    """From C = SE_SPLIT_C up the MLPs of every sample run in their own
+    launch (layer-1 items, then layer-2 items that wait for them): fp32
+    within the file's limits, bf16 within 8e-3 of max |plain| (another
+    summation order of the MLP may move a scale by one bf16 step), two
+    calls bit-identical, every queue counter left at 0; both SE forms."""
+    assert c >= se.SE_SPLIT_C
+    g = _gen(c + b)
+    ws, wd = _se_weights(g, c, cr), _se_weights(g, c, cr)
+    rgb = _randn(g, b, h, w, c).to(DTYPES[dtype])
+    depth = _randn(g, b, h, w, c).to(DTYPES[dtype])
+    args = (rgb, depth, torch.rand(b, generator=g), *ws, *wd)
+
+    def check(fn, *a):
+        out, ref = _both(libs, fn, *a)
+        assert dict(LAUNCHES) == {fn.__name__ + _suffix(rgb.dtype): 1}
+        if rgb.dtype == BF:
+            _bf16_close(out, ref, 8e-3)
+        else:
+            _close(out, ref)
+        assert not se._COUNTERS[torch.device("cpu")].any()
+        with emulate.emulated(libs):
+            assert torch.equal(fn(*a), out)
+
+    check(se.se_fuse_mixed, *args)
+    check(se.fused_se, _randn(g, b, h * w, c).to(rgb.dtype), *ws)
 
 
 SMALL_CFG = ESANetConfig(height=64, width=64, num_classes=5,
