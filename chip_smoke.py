@@ -144,11 +144,16 @@ Run from the root of a checkout on a machine with one NVIDIA GPU:
    trained weights' kernel eval path against the plain one. On the same
    weights in bf16: the kernel path against the bf16 plain path (gate
    choices identical, logits within 2e-2 of max |plain|, class maps equal
-   wherever the plain top-two margin exceeds twice the logit error) and
-   against the fp32 net (drift < 5e-2 of max |fp32|; the local gates'
-   choices that differ from fp32's are counted and their samples left out
-   of the drift); request ms of fp32 and bf16 in turns (median of 5) at
-   B=8 and B=1, with one traced request's device time and busy share.
+   wherever the plain top-two margin exceeds twice the logit error). The
+   bf16 net against the fp32 net on the variant's seeded weights
+   (``serve.init_weights``, seed 0: the same in every run): drift < 5e-2
+   of max |fp32|, the local gates' choices that differ from fp32's counted
+   and their samples left out of the drift; the same drifts of the
+   kernels and of the bf16 plain path on the trained weights, which
+   cuDNN's nondeterministic backward makes differ from run to run, are
+   printed and stored, not bounded. Request ms of fp32 and bf16 in turns
+   (median of 5) at B=8 and B=1, with one traced request's device time and
+   busy share.
 12. The bf16 flagship: the 480×640 flagship at ``dtype=torch.bfloat16``
    (fp32 parameters, bf16 maps, the gate in fp32) with the recipe gate
    serves ``make_recipe_eval_batch(8, 480, 640)`` through ``dense``,
@@ -192,8 +197,30 @@ Run from the root of a checkout on a machine with one NVIDIA GPU:
    bfloat16 --output_res quarter --packed_stem``) on phase 8's layout, their
    launches those of the samples' paths plus the calibration forwards, the
    PNGs equal to ``serve()``'s maps of a net calibrated on the same batches.
-14. Prints the kernels' JSON line (launches summed over phases 3-6 and
-   8-13), the card line, and last ``{"ok": true, "device": {...}}``.
+14. Export: the 480×640 recipe flagship's serving forward as
+   ``torch.export`` artifacts (``utils/serve_export.py``): ``dense``,
+   ``batchmax``, ``compact`` (the default ladder and
+   ``capacity_schedule``'s) and ``low_res`` at B=8, ``switch`` at B=1 (one
+   artifact, the live gate, replayed for each sample of
+   ``make_recipe_eval_batch(8, 480, 640)``), the bf16 and the int8 net
+   dense at B=8. ``cli.predict --export_path`` on a layout of phase 8's
+   exports the fp32 ``batchmax`` and the ``--quant int8 --serve_mode
+   dense`` forms (the module it exports is held for the eager side), and
+   their reloaded artifacts' PNGs of the first batch are byte-equal to
+   ``cli.predict``'s own; the other forms are exported in process. Each
+   is exported, saved, reloaded from the file and
+   replayed with the counts at 0: logits and gate weights equal to the
+   eager forward's with error 0, the replay's launches per kernel equal
+   to the eager forward's, which are those its paths give (the int8
+   program's ``aten._int_mm`` nodes equal the eager forward's int8
+   convs). Prints export seconds, artifact bytes and request ms of eager
+   and artifact in turns (median of 5; B=8, and B=1 for ``switch``). One
+   ``cuda,cpu`` artifact (dense, B=1) replays on the CPU through the
+   plain versions: class maps equal to the card's wherever the CPU's
+   top-two margin exceeds twice the max logit error.
+15. Prints the kernels' JSON line (launches summed over phases 3-6 and
+   8-14; phase 14's are its replays'), the card line, and last
+   ``{"ok": true, "device": {...}}``.
 
 TF32 is switched off for cuDNN convolutions and matmuls here, so the kernels
 and their plain versions compare in fp32 (bf16 convolutions are unaffected). Any failure exits non-zero before
@@ -1562,70 +1589,100 @@ def _variant_forward(model, kind: str, rgb, depth, use_kernels: bool = True):
     return model(*inputs, use_kernels=use_kernels), None
 
 
-def _variant_model(eval_argv: list, ckpt: Path, dtype: str):
+def _variant_model(eval_argv: list, ckpt: Path | None, dtype: str):
     """The eval CLI's model of ``eval_argv`` at ``dtype`` with the
-    checkpoint's weights, on the card."""
+    checkpoint's weights or, for ``ckpt=None``, the seeded weights of
+    ``serve.init_weights`` (seed 0, the same at every dtype and run), on
+    the card."""
     from dynmm_tpu_torch.cli import eval as eval_cli
     from dynmm_tpu_torch.cli.seg_build import build_model
     from dynmm_tpu_torch.nn.layers import pack_weights
+    from dynmm_tpu_torch.serve import init_weights
     from dynmm_tpu_torch.utils.weights import load_checkpoint_into
 
     args = eval_cli.build_parser().parse_args([*eval_argv, "--dtype", dtype])
     model = build_model(args, CLASSES)
-    load_checkpoint_into(model, str(ckpt))
+    if ckpt is None:
+        init_weights(model, torch.Generator().manual_seed(0))
+    else:
+        load_checkpoint_into(model, str(ckpt))
     model = model.cuda().to(memory_format=torch.channels_last).eval()
     pack_weights(model)
     return model
 
 
-def _variant_bf16(name: str, kind: str, models: dict, rgb, depth,
-                  card: str) -> dict:
-    """The bf16 variant against its bf16 plain versions and the fp32 net on
-    the same weights, and both nets' request ms in turns (B=8 and B=1) with
-    one traced request's device time and busy share each."""
+def _drifts(models: dict, kind: str, rgb, depth) -> dict:
+    """The bf16 net against the fp32 net on the same weights: the kernels'
+    and the bf16 plain path's drifts (max abs error over max |fp32| on the
+    samples whose gate choices agree: every one but a local gate's flips),
+    the flips, and the class-map agreement."""
+    from dynmm_tpu_torch.nn.layers import first_argmax
+
+    with torch.inference_mode():
+        lk, wk = _variant_forward(models["bf16"], kind, rgb, depth)
+        lp, _ = _variant_forward(models["bf16"], kind, rgb, depth, False)
+        l32, w32 = _variant_forward(models["fp32"], kind, rgb, depth)
+    agree = (torch.ones(rgb.shape[0], dtype=torch.bool, device=rgb.device)
+             if wk is None else (wk == w32).all(1))
+
+    def drift(x):
+        return ((x.float() - l32)[agree].abs().max()
+                / l32.abs().max()).item() if bool(agree.any()) \
+            else float("nan")
+
+    return {"fp32_drift": drift(lk), "plain_fp32_drift": drift(lp),
+            "gate_flips_vs_fp32": int((~agree).sum().item()),
+            "fp32_max_abs": l32.abs().max().item(),
+            "fp32_class_map_agreement":
+                (first_argmax(lk) == first_argmax(l32)).float().mean().item()}
+
+
+def _variant_bf16(name: str, kind: str, models: dict, seeded: dict, rgb,
+                  depth, card: str) -> dict:
+    """The bf16 variant against its bf16 plain versions on the trained
+    weights (``models``), and against the fp32 net on the variant's seeded
+    weights (``seeded``, the same for every run; the drift bound is held
+    there) and on the trained ones (printed and stored, not bounded: cuDNN's
+    nondeterministic backward moves the trained weights from run to run,
+    and the bf16 plain path drifts with the kernels); both nets' request ms
+    in turns (B=8 and B=1) with one traced request's device time and busy
+    share each."""
     from dynmm_tpu_torch.nn.layers import first_argmax
 
     with torch.inference_mode():
         lk, wk = _variant_forward(models["bf16"], kind, rgb, depth)
         lp, wp = _variant_forward(models["bf16"], kind, rgb, depth, False)
-        l32, w32 = _variant_forward(models["fp32"], kind, rgb, depth)
     plain_err = (lk.float() - lp.float()).abs().max().item()
     plain_rel = plain_err / lp.float().abs().max().item()
     sure = _sure_pixels(lp, plain_err)
     sure_same = bool((first_argmax(lk) == first_argmax(lp))[sure].all())
     same_gate = wk is None or bool(torch.equal(wk, wp))
-    # against fp32: the samples whose gate choices agree (every one but a
-    # local gate's flips)
-    agree = (torch.ones(rgb.shape[0], dtype=torch.bool, device=rgb.device)
-             if wk is None else (wk == w32).all(1))
-    flips = int((~agree).sum().item())
-    drift = ((lk.float() - l32)[agree].abs().max() / l32.abs().max()).item() \
-        if bool(agree.any()) else float("nan")
-    # the bf16 plain path's drift: beside the kernels' it tells the bf16
-    # net's own distance from fp32 on these weights from a kernel fault
-    plain_drift = ((lp.float() - l32)[agree].abs().max()
-                   / l32.abs().max()).item() if bool(agree.any()) \
-        else float("nan")
-    agree32 = (first_argmax(lk) == first_argmax(l32)).float().mean().item()
+    initial = _drifts(seeded, kind, rgb, depth)
+    trained = _drifts(models, kind, rgb, depth)
+    drift = initial["fp32_drift"]
     ok = (lk.dtype == torch.bfloat16 and bool(torch.isfinite(lk).all())
           and same_gate and plain_rel <= BF16_PLAIN_TOL and sure_same
-          and bool(agree.any()) and drift < BF16_DRIFT_TOL)
+          and initial["gate_flips_vs_fp32"] < rgb.shape[0]
+          and drift < BF16_DRIFT_TOL)
     row = {"kernels_vs_plain_max_abs_err": plain_err,
            "kernels_vs_plain_rel_err": plain_rel,
            "sure_pixel_share": sure.float().mean().item(),
            "sure_pixels_equal": sure_same, "same_gate_as_plain": same_gate,
-           "gate_flips_vs_fp32": flips, "fp32_drift": drift,
-           "plain_fp32_drift": plain_drift,
-           "fp32_max_abs": l32.abs().max().item(),
-           "fp32_class_map_agreement": agree32}
+           "seeded": initial, "trained": trained}
+    flips, agree32 = (trained["gate_flips_vs_fp32"],
+                      trained["fp32_class_map_agreement"])
     print(f"    bf16: kernels vs plain {plain_rel:.3g} of max |plain|, class "
           f"maps equal on the {row['sure_pixel_share'] * 100:.4f} % of "
           f"pixels with margin > 2x{plain_err:.3g}: {sure_same}; gate "
-          f"choices as plain: {same_gate}; vs fp32: {flips} of "
-          f"{rgb.shape[0]} samples with other gate choices, drift "
-          f"{drift:.3g} of max |fp32| ({row['fp32_max_abs']:.4g}) on the "
-          f"others (the plain path's {plain_drift:.3g}), class maps agree "
-          f"on {agree32 * 100:.4f} %", flush=True)
+          f"choices as plain: {same_gate}; vs fp32 on the seeded weights: "
+          f"{initial['gate_flips_vs_fp32']} of {rgb.shape[0]} samples with "
+          f"other gate choices, drift {drift:.3g} of max |fp32| "
+          f"({initial['fp32_max_abs']:.4g}) on the others (the plain path's "
+          f"{initial['plain_fp32_drift']:.3g}; bound {BF16_DRIFT_TOL}); on "
+          f"the trained weights (not bounded): {flips} flips, drift "
+          f"{trained['fp32_drift']:.3g}, the plain path's "
+          f"{trained['plain_fp32_drift']:.3g}, class maps agree on "
+          f"{agree32 * 100:.4f} %", flush=True)
     if not ok:
         raise RuntimeError(f"{name} bf16: disagreement {row}")
     times = []
@@ -1724,14 +1781,17 @@ def check_variants(report: dict) -> dict:
                 _add(total, got)
             models = {"fp32": _variant_model(eval_argv, ckpt, "float32"),
                       "bf16": _variant_model(eval_argv, ckpt, "bfloat16")}
+            seeded = {"fp32": _variant_model(eval_argv, None, "float32"),
+                      "bf16": _variant_model(eval_argv, None, "bfloat16")}
             # the trained weights: kernel eval path against the plain one
             with torch.inference_mode():
                 (lk, wk), (lp, wp) = (
                     _variant_forward(models["fp32"], kind, rgb, depth, uk)
                     for uk in (True, False))
             print(f"  {name}:", flush=True)
-            bf16_row = _variant_bf16(name, kind, models, rgb, depth, card)
-            del models
+            bf16_row = _variant_bf16(name, kind, models, seeded, rgb, depth,
+                                     card)
+            del models, seeded
         finally:
             probe.close()
             shutil.rmtree(root, ignore_errors=True)
@@ -3158,6 +3218,264 @@ def check_int8(report: dict) -> dict:
     return launches
 
 
+EXPORT_REPS = 5  # requests timed per artifact, eager and replay in turns
+
+
+def _nonzero(counter) -> dict:
+    return {k: v for k, v in counter.items() if v}
+
+
+def _in_turns(fns: dict, reps: int = EXPORT_REPS) -> dict:
+    """Median host ms (ending in ``torch.cuda.synchronize``) of each of
+    ``fns``, called in turns ``reps`` times after one warm-up round."""
+    got = {k: [] for k in fns}
+    for rep in range(reps + 1):
+        for k in (list(fns) if rep % 2 else list(fns)[::-1]):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fns[k]()
+            torch.cuda.synchronize()
+            if rep:
+                got[k].append((time.perf_counter() - t0) * 1e3)
+    return {k: sorted(v)[len(v) // 2] for k, v in got.items()}
+
+
+def check_export(report: dict) -> dict:
+    """Phase 14: the served forward as a ``torch.export`` artifact
+    (``utils/serve_export.py``) of the recipe flagship in every form:
+    exported, saved, reloaded from the file and replayed on the inputs of
+    the eager forward; logits and gate weights equal with error 0, the
+    replay's launches those of the eager forward (which are those its paths
+    give), so the artifact runs the hand-written kernels through their
+    ``dynmm::`` ops. The ``batchmax`` and int8 ``dense`` forms are the
+    artifacts ``cli.predict --export_path`` writes on phase 8's layout (the
+    module it exports held for the eager side), whose replays also write
+    PNGs byte-equal to ``cli.predict``'s own; the other forms are exported
+    in process. Returns the replays' launches."""
+    import shutil
+
+    import numpy as np
+
+    from dynmm_tpu_torch.cli import predict as predict_cli
+    from dynmm_tpu_torch.data import png
+    from dynmm_tpu_torch.data.nyuv2 import (NYUv2Dataset, class_colors,
+                                            make_recipe_eval_batch)
+    from dynmm_tpu_torch.data.seg_preprocessing import (SegLoader,
+                                                        SegPreprocessor)
+    from dynmm_tpu_torch.kernels import LAUNCHES, reset_launches
+    from dynmm_tpu_torch.nn.layers import first_argmax
+    from dynmm_tpu_torch.nn.quant import INT8_CONVS
+    from dynmm_tpu_torch.serve import (ServingForward, build_flagship,
+                                       capacity_schedule)
+    from dynmm_tpu_torch.utils.checkpoint import save_checkpoint
+    from dynmm_tpu_torch.utils.device import card_line
+    from dynmm_tpu_torch.utils.serve_export import (export_serving_fn,
+                                                    load_serving_fn,
+                                                    save_serving_artifact)
+    from dynmm_tpu_torch.utils.weights import (flax_from_state_dict,
+                                               load_recipe_gate)
+
+    card = card_line()
+    root = ROOT / "build" / "chip_smoke_export"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    cuda = lambda a: torch.from_numpy(np.ascontiguousarray(a)).cuda()
+    rgb, depth = map(cuda, make_recipe_eval_batch(BATCH, HEIGHT, WIDTH))
+    singles = [(rgb[i:i + 1].contiguous(), depth[i:i + 1].contiguous())
+               for i in range(BATCH)]
+    models = {}
+    for net, dtype in (("fp32", None), ("bf16", torch.bfloat16)):
+        models[net] = build_flagship(HEIGHT, WIDTH, CLASSES, seed=0,
+                                     dtype=dtype)
+        load_recipe_gate(models[net])
+    caps = capacity_schedule(models["fp32"], [(rgb, depth)], BATCH)
+    artifacts: dict = {}  # form: (module, fn, export s, load s, bytes)
+
+    # cli.predict --export_path on phase 8's layout: the reloaded artifact
+    # writes the PNGs cli.predict writes for the same checkpoint and mode
+    clis = []
+    real_export = predict_cli.export_serving_fn
+    exported: dict = {}
+
+    def held(module, *inputs, **kw):  # the CLI's export, its module held
+        t0 = time.perf_counter()
+        payload = real_export(module, *inputs, **kw)
+        exported.update(module=module, export_s=time.perf_counter() - t0)
+        return payload
+
+    predict_cli.export_serving_fn = held
+    try:
+        _write_layout(root)
+        v = flax_from_state_dict(models["fp32"].state_dict())
+        ckpt = str(root / "flagship.msgpack")
+        save_checkpoint(ckpt, {"params": v["params"],
+                               "model_state": {"batch_stats":
+                                               v["batch_stats"]}}, epoch=0)
+        base = ["--dataset", "nyuv2", "--dataset_dir", str(root), "--height",
+                str(HEIGHT), "--width", str(WIDTH), "--batch_size",
+                str(BATCH), "--ckpt_path", ckpt]
+        ds = NYUv2Dataset(str(root), "test")
+        pre = SegPreprocessor(ds.depth_mean, ds.depth_std, HEIGHT, WIDTH,
+                              phase="test")
+        batch = next(iter(SegLoader(ds, pre, batch_size=BATCH, prefetch=0)))
+        colors = class_colors(CLASSES + 1)
+        for form, extra in (("batchmax", []),
+                            ("int8 dense", ["--quant", "int8",
+                                            "--serve_mode", "dense"])):
+            out_dir = root / f"preds_{len(clis)}"
+            _cli_run(predict_cli.main, [*base, *extra, "--num", str(BATCH),
+                                        "--out_dir", str(out_dir)])
+            art = root / f"cli_{len(clis)}.pt2"
+            t0 = time.perf_counter()
+            res, lines = _cli_run(predict_cli.main, [
+                *base, *extra, "--export_path", str(art)])
+            cli_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            fn = load_serving_fn(str(art))
+            artifacts[form] = (exported.pop("module"), fn,
+                               exported.pop("export_s"),
+                               time.perf_counter() - t0, res["bytes"])
+            logits, _ = fn(cuda(batch["image"]), cuda(batch["depth"]))
+            maps = first_argmax(logits).cpu().numpy()
+            equal = 0
+            for i, img in enumerate(maps):
+                mine = root / f"replay_{i:05d}.png"
+                png.write(str(mine), colors[img + 1])
+                equal += (mine.read_bytes()
+                          == (out_dir / f"pred_{i:05d}.png").read_bytes())
+            row = {"run": form, "cli_s": cli_s,
+                   "export_s": artifacts[form][2],
+                   "artifact_bytes": res["bytes"], "pngs_byte_equal": equal,
+                   "pngs": len(maps)}
+            clis.append(row)
+            said = next(ln for ln in lines if ln.startswith("exported"))
+            print(f"  cli.predict {' '.join(extra) or '(batchmax)'} "
+                  f"--export_path: {cli_s:.2f} s (export {row['export_s']:.2f}"
+                  f" s), {res['bytes']} bytes; the replay's PNGs byte-equal "
+                  f"to the CLI's: {equal} of {len(maps)} [{said}]",
+                  flush=True)
+            if equal != len(maps):
+                raise RuntimeError(f"export CLI {form}: {row}")
+    finally:
+        predict_cli.export_serving_fn = real_export
+
+    forms = [  # (name, net, serving options, requests)
+        ("dense", "fp32", {"mode": "dense"}, [(rgb, depth)]),
+        ("batchmax", "fp32", {"mode": "batchmax"}, [(rgb, depth)]),
+        ("compact", "fp32", {"mode": "compact"}, [(rgb, depth)]),
+        ("compact schedule", "fp32", {"mode": "compact", "caps": caps},
+         [(rgb, depth)]),
+        ("switch", "fp32", {"mode": "switch"}, singles),
+        ("low_res", "fp32", {"mode": "dense", "low_res": True},
+         [(rgb, depth)]),
+        ("bf16 dense", "bf16", {"mode": "dense"}, [(rgb, depth)]),
+        ("int8 dense", "int8", {"mode": "dense"}, [(rgb, depth)]),
+    ]
+    total: dict = {}
+    rows = []
+    for name, net, opts, requests in forms:
+        by = "cli.predict" if name in artifacts else "in process"
+        if name not in artifacts:
+            module = ServingForward(models[net], **opts)
+            path = root / f"{name.replace(' ', '_')}.pt2"
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            payload = export_serving_fn(module, *requests[0])
+            export_s = time.perf_counter() - t0
+            save_serving_artifact(str(path), payload)
+            t0 = time.perf_counter()
+            fn = load_serving_fn(str(path))
+            artifacts[name] = (module, fn, export_s,
+                               time.perf_counter() - t0, len(payload))
+            del payload
+        module, fn, export_s, load_s, nbytes = artifacts.pop(name)
+        program_convs = sum(1 for n in fn.program.graph.nodes
+                            if str(n.target) == "aten._int_mm.default")
+        paths = []
+        for images in requests:
+            reset_launches()
+            convs = INT8_CONVS["cuda"]
+            with torch.inference_mode():
+                want = module(*images)
+            torch.cuda.synchronize()
+            eager = _nonzero(LAUNCHES)
+            convs = INT8_CONVS["cuda"] - convs
+            reset_launches()
+            got = fn(*images)
+            torch.cuda.synchronize()
+            replay = _nonzero(LAUNCHES)
+            _add(total, replay)
+            req_paths = want[1].argmax(1).tolist()
+            paths += req_paths
+            ran = ([True] * 4 if opts["mode"] == "dense" else
+                   stages_run(opts["mode"], req_paths, opts))
+            low_res = opts.get("low_res", False)
+            expected = (int8_launches(ran, low_res) if net == "int8" else
+                        path_launches(ran, low_res, bf16=net == "bf16"))
+            same = all(torch.equal(g, w) for g, w in zip(got, want))
+            if not same or replay != eager or eager != expected:
+                raise RuntimeError(
+                    f"export {name}: artifact equal to eager {same}; launches "
+                    f"replay {replay}, eager {eager}, expected {expected}")
+            if net == "int8" and (convs != program_convs or convs
+                                  != int8_conv_count(module.model, ran)):
+                raise RuntimeError(f"export {name}: {program_convs} int8 "
+                                   f"convs in the program, {convs} eager")
+        r0 = requests[0]
+        with torch.inference_mode():
+            ms = _in_turns({"eager": lambda: module(*r0),
+                            "artifact": lambda: fn(*r0)})
+        row = {"form": name, "exported_by": by, "batch": r0[0].shape[0],
+               "paths": paths, "export_s": export_s, "load_s": load_s,
+               "artifact_bytes": nbytes, "eager_ms": ms["eager"],
+               "artifact_ms": ms["artifact"],
+               "launches_per_replay": replay, "int8_convs": program_convs}
+        rows.append(row)
+        print(f"  {name:16s} B={row['batch']} paths {paths}: exported "
+              f"({by}) in {export_s:.2f} s, {nbytes} bytes, loaded in "
+              f"{load_s:.2f} s; artifact = eager (error 0), launches "
+              f"{replay}; request ms eager {ms['eager']:.2f}, artifact "
+              f"{ms['artifact']:.2f} (median of {EXPORT_REPS}, in turns) "
+              f"[{card}]", flush=True)
+        del module, fn
+
+    # one artifact for the card and the CPU, B=1: the CPU program runs the
+    # plain versions; the class maps agree wherever the margin is sure
+    module = ServingForward(models["fp32"], "dense")
+    t0 = time.perf_counter()
+    payload = export_serving_fn(module, *singles[0],
+                                platforms=("cuda", "cpu"))
+    export_s = time.perf_counter() - t0
+    path = root / "dense_cuda_cpu.pt2"
+    save_serving_artifact(str(path), payload)
+    on_card = load_serving_fn(str(path))
+    on_cpu = load_serving_fn(str(path), device="cpu")
+    lk, wk = on_card(*singles[0])
+    t0 = time.perf_counter()
+    lc, wc = on_cpu(*(x.cpu() for x in singles[0]))
+    cpu_s = time.perf_counter() - t0
+    err = (lk.cpu() - lc).abs().max().item()
+    sure = _sure_pixels(lc, err)
+    sure_same = bool((first_argmax(lk).cpu() == first_argmax(lc))[sure].all())
+    xplat = {"export_s": export_s, "artifact_bytes": len(payload),
+             "platforms": list(on_card.platforms), "max_abs_err": err,
+             "sure_pixel_share": sure.float().mean().item(),
+             "sure_pixels_equal": sure_same, "cpu_replay_s": cpu_s,
+             "same_gate": bool(torch.equal(wk.cpu(), wc))}
+    shutil.rmtree(root, ignore_errors=True)
+    print(f"  dense B=1 for cuda,cpu: exported in {export_s:.2f} s, "
+          f"{len(payload)} bytes; the CPU replay ({cpu_s:.2f} s) against "
+          f"the card's: max abs err {err:.3g}, class maps equal on the "
+          f"{xplat['sure_pixel_share'] * 100:.4f} % of pixels with margin > "
+          f"2x{err:.3g}: {sure_same}; gate choices identical: "
+          f"{xplat['same_gate']}", flush=True)
+    if not (sure_same and xplat["same_gate"]):
+        raise RuntimeError(f"export cuda,cpu: the CPU replay disagrees "
+                           f"{xplat}")
+    report["export"] = {"forms": rows, "cuda_cpu": xplat, "clis": clis}
+    return total
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this check runs on the card",
@@ -3219,13 +3537,16 @@ def main() -> int:
         (13, f"the int8 flagship at {HEIGHT}x{WIDTH} with the recipe gate, "
              "fp32 and bf16 compute: calibration, every serving mode, "
              "cli.eval and cli.predict --quant int8", check_int8),
+        (14, f"export: the {HEIGHT}x{WIDTH} recipe flagship's serving forward "
+             "as torch.export artifacts, replayed; cli.predict --export_path",
+         check_export),
     ]
     for n, title, check in phases:
         print(f"[{n}] {title}", flush=True)
         t0 = time.perf_counter()
         runs.append(check(report) or {})
         print(f"  phase {n}: {time.perf_counter() - t0:.1f} s", flush=True)
-    print("[14] kernels", flush=True)
+    print("[15] kernels", flush=True)
     for k in kernels:
         k["launches"] = sum(run.get(k["name"], 0) for run in runs)
         if k["launches"] == 0:

@@ -25,8 +25,13 @@ and the stems cast them). ``--quant int8`` serves the int8 net (fp32 or,
 with ``--dtype bfloat16``, bf16 between the convs): its scales calibrated
 with the hard dense forward on the first ``--calib_batches`` batches of the
 serving feed (``--calib_estimator``, ``--calib_percentile``), then its
-weights packed. ``--export_path`` / ``--export_platforms``
-(``torch.export``) raise, naming ROADMAP A6-export.
+weights packed. ``--export_path`` writes the serving forward of these
+options, traced at ``--batch_size`` (the packed feed's shape with
+``--packed_stem``; compact's capacity-factor caps from that batch), as one
+artifact (``utils/serve_export.py``; replay it with ``load_serving_fn``,
+which returns ``(logits, weight)``) and exits; ``--export_platforms
+cuda,cpu`` puts a program for each device in it (default: the device the
+CLI runs on).
 """
 
 from __future__ import annotations
@@ -49,9 +54,11 @@ from dynmm_tpu_torch.data.seg_preprocessing import (SegLoader, SegPreprocessor,
                                                     pack_stem_batch)
 from dynmm_tpu_torch.models.skip_gate import capacity_ladders, flop_table
 from dynmm_tpu_torch.nn.layers import pack_weights
-from dynmm_tpu_torch.serve import SERVE_MODES, serve
+from dynmm_tpu_torch.serve import SERVE_MODES, ServingForward, serve
 from dynmm_tpu_torch.utils.device import resolve_device
 from dynmm_tpu_torch.utils.quantize import quantize_int8
+from dynmm_tpu_torch.utils.serve_export import (PLATFORMS, export_serving_fn,
+                                                save_serving_artifact)
 from dynmm_tpu_torch.utils.torch_import import load_any_checkpoint
 
 
@@ -65,10 +72,15 @@ def build_parser() -> ArgumentParserRGBDSegmentation:
     parser.add_argument("--out_dir", default="./preds")
     parser.add_argument("--num", type=int, default=0,
                         help="limit sample count")
-    parser.add_argument("--export_path", default="",
-                        help="not ported (torch.export, ROADMAP A6-export)")
-    parser.add_argument("--export_platforms", default="",
-                        help="not ported (torch.export, ROADMAP A6-export)")
+    parser.add_argument(
+        "--export_path", default="",
+        help="serialize the serving forward (weights baked in) to this path "
+             "as a torch.export artifact and exit")
+    parser.add_argument(
+        "--export_platforms", default="",
+        help="comma-separated platforms of --export_path's artifact, among "
+             f"{','.join(PLATFORMS)} (one program each); default: the "
+             "device the CLI runs on")
     parser.add_argument(
         "--serve_mode", default="batchmax", choices=SERVE_MODES,
         help="execution strategy: batchmax = batch-adaptive depth skipping; "
@@ -92,17 +104,18 @@ def build_parser() -> ArgumentParserRGBDSegmentation:
 
 def main(argv=None) -> dict:
     """Run the predictions; returns {"n": written, "ratios": path
-    distribution, "fps": frames/s}."""
+    distribution, "fps": frames/s}, or with ``--export_path``
+    {"artifact": path, "bytes": size}."""
     parser = build_parser()
     args = parser.parse_args(argv)
     if args.capacity_factor > 0 and args.serve_mode != "compact":
         parser.error("--capacity_factor applies to --serve_mode compact")
     args.dynamic = True
     args.global_gate = True
-    if args.export_path or args.export_platforms:
-        raise NotImplementedError(
-            "not ported yet: --export_path/--export_platforms (a serialized "
-            "serving forward through torch.export, ROADMAP A6-export)")
+    platforms = tuple(p for p in args.export_platforms.split(",") if p)
+    if any(p not in PLATFORMS for p in platforms):
+        parser.error(f"--export_platforms takes {', '.join(PLATFORMS)} "
+                     f"(comma-separated), got {args.export_platforms!r}")
     check_supported(args)
 
     ds = make_dataset(args, args.split)
@@ -120,6 +133,11 @@ def main(argv=None) -> dict:
     if args.serve_mode in ("switch", "switch_host") and args.batch_size != 1:
         parser.error(f"--serve_mode {args.serve_mode} requires --batch_size 1 "
                      "(forward_switch routes the whole batch by sample 0)")
+    if args.serve_mode == "switch_host" and args.export_path:
+        parser.error("--serve_mode switch_host is a two-phase host-dispatch "
+                     "pipeline (gate program + 5 path programs) and cannot "
+                     "be exported as one artifact; export with --serve_mode "
+                     "switch instead")
     device = resolve_device(args.device)
     model = model.to(device, memory_format=torch.channels_last).eval()
     # the kernels' weight layouts computed where they are served (as
@@ -151,6 +169,10 @@ def main(argv=None) -> dict:
         print(f"capacity-factor serving: estimated ratios "
               f"{np.round(ratios, 3)}, strict schedule "
               f"{capacity_ladders(ratios, args.batch_size, capacity_factor=args.capacity_factor)}")
+
+    if args.export_path:
+        return _export(args, model, device, ratios, low_res, post is not None,
+                       platforms or (device.type,))
 
     colors = class_colors(n_classes + 1)
     os.makedirs(args.out_dir, exist_ok=True)
@@ -190,6 +212,29 @@ def main(argv=None) -> dict:
     print(f"model throughput: {fps:.2f} frames/sec "
           "(incl. host sync and the class map's copy to the host)")
     return {"n": n_done, "ratios": dist, "fps": fps}
+
+
+def _export(args, model, device, ratios, low_res: bool, packed: bool,
+            platforms: tuple) -> dict:
+    """Write ``--export_path``'s artifact: the serving forward of the
+    options at ``--batch_size``."""
+    h, w, c = args.height, args.width, 1
+    if packed:  # the packed artifact takes the packed feed
+        h, w, c = h // 2, w // 2, 4
+    rgb = torch.zeros((args.batch_size, h, w, 3 * c), device=device)
+    depth = torch.zeros((args.batch_size, h, w, c), device=device)
+    kw = {}
+    if ratios is not None:  # caps from the trace-time batch
+        kw = dict(caps=capacity_ladders(ratios, args.batch_size,
+                                        capacity_factor=args.capacity_factor),
+                  strict_caps=True)
+    fwd = ServingForward(model, args.serve_mode, low_res=low_res, **kw)
+    payload = export_serving_fn(fwd, rgb, depth, platforms=platforms)
+    save_serving_artifact(args.export_path, payload)
+    print(f"exported serving artifact ({len(payload)} bytes, "
+          f"mode={args.serve_mode}, rgb={tuple(rgb.shape)}) to "
+          f"{args.export_path}")
+    return {"artifact": args.export_path, "bytes": len(payload)}
 
 
 if __name__ == "__main__":

@@ -12,8 +12,12 @@ Every C entry takes its pointers and the stream as ``void*`` and returns
 ``cudaGetLastError()``; ``check`` raises when that is not 0. Nothing here
 runs at import: the tests import every module on machines without ``nvcc``.
 
-``LAUNCHES`` counts kernel launches by wrapper name. A wrapper adds one where
-it launches its kernel and nowhere else (its CPU path does not count).
+``LAUNCHES`` counts kernel launches by wrapper name. A wrapper's launch
+function (``launch_<name>``: the checks and the launch, which the eager
+wrapper calls for CUDA tensors and which is also the CUDA implementation of
+its ``torch.library`` op, ``ops.py``) adds one where it launches its kernel
+and nowhere else (the CPU path does not count), so an exported program's
+replay counts as the eager forward does.
 
 Maps are fp32 or, for the kernels that have a bf16 form, bf16 (``MAPS``);
 parameters stay fp32 unless a kernel says otherwise. Each form has its own

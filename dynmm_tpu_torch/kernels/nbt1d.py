@@ -72,8 +72,17 @@ def nbt1d_pair(x: torch.Tensor, wr: torch.Tensor, br: torch.Tensor,
     On the card one call is two launches of one implicit-GEMM conv kernel
     (3×1 into a scratch h, then 1×3), in 3xTF32 on the tensor cores; it
     counts as one ``nbt1d_pair`` launch."""
-    if not _build.on_card(x, wr, br, wc, bc, s, t, identity):
-        return nbt1d_pair_plain(x, wr, br, wc, bc, s, t, identity)
+    args = (x, wr, br, wc, bc, s, t, identity)
+    if torch.compiler.is_exporting():
+        return torch.ops.dynmm.nbt1d_pair(*args)
+    if not _build.on_card(*args):
+        return nbt1d_pair_plain(*args)
+    return launch_nbt1d_pair(*args)
+
+
+def launch_nbt1d_pair(x, wr, br, wc, bc, s, t, identity=None):
+    """``nbt1d_pair`` on the card: the checks, the scratch map and the two
+    launches."""
     n, h, w, c = x.shape
     _require_fp32(x, "nbt1d_pair")
     _build.require(x, "x")
@@ -88,7 +97,8 @@ def nbt1d_pair(x: torch.Tensor, wr: torch.Tensor, br: torch.Tensor,
     _build.check(fn(_build.ptr(x), _build.ptr(identity), _build.ptr(wr),
                     _build.ptr(br), _build.ptr(wc), _build.ptr(bc),
                     _build.ptr(s), _build.ptr(t), _build.ptr(scratch),
-                    _build.ptr(out), n, h, w, c, _build.stream()), "nbt1d_pair")
+                    _build.ptr(out), n, h, w, c, _build.stream()),
+                 "nbt1d_pair")
     _build.LAUNCHES["nbt1d_pair"] += 1
     return out
 
@@ -108,8 +118,18 @@ def nbt1d_fused(x: torch.Tensor, w1, b1, w2, b2, s1, t1, w3, b3, w4, b4,
     params = (w1, b1, w2, b2, s1, t1, w3, b3, w4, b4, s2, t2)
     if x.dim() == 3:
         return nbt1d_fused(x[None], *params, band_rows=band_rows)[0]
+    if torch.compiler.is_exporting():
+        return torch.ops.dynmm.nbt1d_fused(x, *params, band_rows)
     if not _build.on_card(x, *params):
         return nbt1d_fused_plain(x, *params)
+    return launch_nbt1d_fused(x, *params, band_rows)
+
+
+def launch_nbt1d_fused(x, w1, b1, w2, b2, s1, t1, w3, b3, w4, b4, s2, t2,
+                       band_rows: int = 0) -> torch.Tensor:
+    """``nbt1d_fused`` of an (N, H, W, C) map on the card: the checks and
+    the launch."""
+    params = (w1, b1, w2, b2, s1, t1, w3, b3, w4, b4, s2, t2)
     n, h, w, c = x.shape
     _require_fp32(x, "nbt1d_fused")
     _build.require(x, "x")

@@ -12,9 +12,11 @@ Maps are NHWC (B, H, W, C), fp32 or bf16 (each kernel has a bf16 form);
 SE weights stay fp32 and take the JAX layout ``w1 (C, C/16)``,
 ``w2 (C/16, C)``; the SE cell takes C ≤ ``SE_MAX_C`` (2048, ResNet50's
 widest fusion cell). Each wrapper takes its plain version for CPU tensors
-and launches its kernel for CUDA tensors. Grids are sized from the card's
-SM count; maps move in 16-byte accesses where C and their alignment
-allow, in narrower ones otherwise (``_access_width``).
+and launches its kernel for CUDA tensors (``launch_<name>``); while
+``torch.export`` traces, it calls its ``dynmm::`` op (``ops.py``). Grids
+are sized from the card's SM count; maps move in 16-byte accesses where C
+and their alignment allow, in narrower ones otherwise
+(``_access_width``).
 
 At bf16 the plain versions round where the kernels round, which is where
 the Pallas functions round: the sums are fp32; the SE cell rounds each
@@ -49,8 +51,17 @@ def channel_sums(rgb: torch.Tensor, depth: torch.Tensor):
     maps (the stem cell's pass 1): ``(sums_rgb, sums_depth)``, each (B, C).
     One launch on the card: the last block of each (sample, map) adds the
     blocks' partial sums."""
+    if torch.compiler.is_exporting():
+        return torch.ops.dynmm.channel_sums(rgb, depth).unbind(0)
     if not _build.on_card(rgb, depth):
         return channel_sums_plain(rgb, depth)
+    return launch_channel_sums(rgb, depth).unbind(0)
+
+
+def launch_channel_sums(rgb: torch.Tensor, depth: torch.Tensor
+                        ) -> torch.Tensor:
+    """``channel_sums`` on the card: the checks and the launch; the two
+    sums stacked, (2, B, C)."""
     bsz, c = rgb.shape[0], rgb.shape[-1]
     hw = rgb.numel() // (bsz * c)
     _build.require(rgb, "rgb", dtypes=_build.MAPS)
@@ -70,7 +81,7 @@ def channel_sums(rgb: torch.Tensor, depth: torch.Tensor):
                     bsz, hw, c, splits, width, _build.stream()),
                  "channel_sums")
     _build.count("channel_sums", rgb)
-    return sums.unbind(0)
+    return sums
 
 
 # ----------------------------------------------------------------- SE MLP
@@ -233,11 +244,19 @@ def se_fuse_mixed(rgb, depth, w_rgb, wr1, br1, wr2, br2, wd1, bd1, wd2, bd2):
     the card below C = SE_SPLIT_C: the squeeze, whose last block per sample
     computes both scale vectors once, and the mix; from SE_SPLIT_C up a
     third between them runs the MLPs of every sample."""
-    args = (wr1, br1, wr2, br2, wd1, bd1, wd2, bd2)
-    if not _build.on_card(rgb, depth, w_rgb, *args):
-        return se_fuse_mixed_plain(rgb, depth, w_rgb, *args)
-    out = _launch_se(rgb, depth, w_rgb.float().contiguous(), args[:4],
-                     args[4:])
+    args = (rgb, depth, w_rgb, wr1, br1, wr2, br2, wd1, bd1, wd2, bd2)
+    if torch.compiler.is_exporting():
+        return torch.ops.dynmm.se_fuse_mixed(*args)
+    if not _build.on_card(*args):
+        return se_fuse_mixed_plain(*args)
+    return launch_se_fuse_mixed(*args)
+
+
+def launch_se_fuse_mixed(rgb, depth, w_rgb, wr1, br1, wr2, br2, wd1, bd1,
+                         wd2, bd2):
+    """``se_fuse_mixed`` on the card: the checks and the launches."""
+    out = _launch_se(rgb, depth, w_rgb.float().contiguous(),
+                     (wr1, br1, wr2, br2), (wd1, bd1, wd2, bd2))
     _build.count("se_fuse_mixed", rgb)
     return out
 
@@ -252,10 +271,18 @@ def se_reference(x, w1, b1, w2, b2):
 def fused_se(x, w1, b1, w2, b2):
     """Single-map SE with the JAX signature: x (HW, C) or (B, HW, C); on
     the card the same launches as ``se_fuse_mixed`` with w = 0."""
+    if x.dim() == 2:
+        return fused_se(x[None], w1, b1, w2, b2)[0]
+    if torch.compiler.is_exporting():
+        return torch.ops.dynmm.fused_se(x, w1, b1, w2, b2)
     if not _build.on_card(x, w1, b1, w2, b2):
         return se_reference(x, w1, b1, w2, b2)
-    squeeze = x.dim() == 2
-    xb = x[None] if squeeze else x
-    out = _launch_se(xb, None, None, (w1, b1, w2, b2), None)
+    return launch_fused_se(x, w1, b1, w2, b2)
+
+
+def launch_fused_se(x, w1, b1, w2, b2):
+    """``fused_se`` of a (B, HW, C) map on the card: the checks and the
+    launches."""
+    out = _launch_se(x, None, None, (w1, b1, w2, b2), None)
     _build.count("fused_se", x)
-    return out[0] if squeeze else out
+    return out

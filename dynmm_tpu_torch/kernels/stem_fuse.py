@@ -41,8 +41,15 @@ def stem_fuse_pool(rgb: torch.Tensor, depth: torch.Tensor,
     """(maxpool(rgb·s_r + depth·s_d), maxpool(depth)) for (B, H, W, C) maps
     and (B, C) scale vectors, all of one dtype (fp32 or bf16); pooled maps
     are (B, ⌈H/2⌉, ⌈W/2⌉, C)."""
+    if torch.compiler.is_exporting():
+        return torch.ops.dynmm.stem_fuse_pool(rgb, depth, s_r, s_d)
     if not _build.on_card(rgb, depth, s_r, s_d):
         return stem_fuse_pool_plain(rgb, depth, s_r, s_d)
+    return launch_stem_fuse_pool(rgb, depth, s_r, s_d)
+
+
+def launch_stem_fuse_pool(rgb, depth, s_r, s_d):
+    """``stem_fuse_pool`` on the card: the checks and the launch."""
     b, h, w, c = rgb.shape
     same = (rgb.dtype,)
     _build.require(rgb, "rgb", dtypes=_build.MAPS)

@@ -43,24 +43,32 @@ def learned_upsample(x: torch.Tensor, kernel: torch.Tensor,
                      bias: torch.Tensor) -> torch.Tensor:
     """x (H, W, C) or (N, H, W, C); kernel (3, 3, C); bias (C,), all fp32
     or all bf16 → (..., 2H, 2W, C) of x's dtype."""
-    squeeze = x.dim() == 3
-    xb = x[None] if squeeze else x
-    if not _build.on_card(xb, kernel, bias):
-        out = learned_upsample_plain(xb, kernel, bias)
-        return out[0] if squeeze else out
-    n, h, w, c = xb.shape
-    _build.require(xb, "x", dtypes=_build.MAPS)
-    _build.require(kernel, "kernel", (3, 3, c), dtypes=(xb.dtype,))
-    _build.require(bias, "bias", (c,), dtypes=(xb.dtype,))
+    if x.dim() == 3:
+        return learned_upsample(x[None], kernel, bias)[0]
+    if torch.compiler.is_exporting():
+        return torch.ops.dynmm.learned_upsample(x, kernel, bias)
+    if not _build.on_card(x, kernel, bias):
+        return learned_upsample_plain(x, kernel, bias)
+    return launch_learned_upsample(x, kernel, bias)
+
+
+def launch_learned_upsample(x: torch.Tensor, kernel: torch.Tensor,
+                            bias: torch.Tensor) -> torch.Tensor:
+    """``learned_upsample`` of an (N, H, W, C) map on the card: the checks
+    and the launch."""
+    n, h, w, c = x.shape
+    _build.require(x, "x", dtypes=_build.MAPS)
+    _build.require(kernel, "kernel", (3, 3, c), dtypes=(x.dtype,))
+    _build.require(bias, "bias", (c,), dtypes=(x.dtype,))
     if 4 * h * w * c >= 2 ** 31:
         raise ValueError("learned_upsample indexes a sample in 32 bits: "
                          f"4·H·W·C = {4 * h * w * c} elements is too many")
-    out = torch.empty((n, 2 * h, 2 * w, c), device=xb.device, dtype=xb.dtype)
+    out = torch.empty((n, 2 * h, 2 * w, c), device=x.device, dtype=x.dtype)
     fn = _build.function("upsample",
-                         _build.symbol("dynmm_learned_upsample", xb), 4, 5)
-    _build.check(fn(_build.ptr(xb), _build.ptr(kernel), _build.ptr(bias),
-                    _build.ptr(out), n, h, w, c, _build.sm_count(xb),
+                         _build.symbol("dynmm_learned_upsample", x), 4, 5)
+    _build.check(fn(_build.ptr(x), _build.ptr(kernel), _build.ptr(bias),
+                    _build.ptr(out), n, h, w, c, _build.sm_count(x),
                     _build.stream()),
                  "learned_upsample")
-    _build.count("learned_upsample", xb)
-    return out[0] if squeeze else out
+    _build.count("learned_upsample", x)
+    return out

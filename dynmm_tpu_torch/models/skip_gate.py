@@ -23,7 +23,11 @@ The JAX package picks the executed branch inside the compiled graph with
 ``lax.cond``/``lax.switch``. Eager PyTorch uses Python ``if``s on values
 read to the host once per request: one ``.tolist()``/``int()`` of the gate's
 choices right after the gate, which waits for the stems and the gate to
-finish on the card. A skipped depth stage launches nothing.
+finish on the card. A skipped depth stage launches nothing. While
+``torch.export`` traces (``torch.compiler.is_exporting()``), the choices
+stay on the device and each stage is a ``torch.cond``, as in JAX
+(``_depth_stage``, ``_ladder``); a Python-int ``force_path`` stays a
+static path.
 
 Kernel sites: the stem cell (``channel_sums`` + ``stem_fuse_pool``; with
 plain ``add`` fusion ``stem_fuse_pool`` alone, unit scales), every
@@ -289,24 +293,43 @@ class SkipGateESANet(_DualEncoderParts):
             weight = torch.zeros_like(weight)
             weight[:, force_path] = 1.0
             k_max = int(force_path)
+        elif torch.compiler.is_exporting():
+            k_max = weight.argmax(dim=-1).max()
         else:
             k_max = int(weight.argmax(dim=-1).max())
+
+        def mixed(i):
+            def fuse(r, d):
+                d = getattr(self.encoder_depth, f"layer{i}")(d, use_kernels)
+                return self.fuse_mixed(i, r, d, self._rgb_weight(weight, i),
+                                       use_kernels), d
+            return fuse
+
         fused = rgb
         skips = []
         for i in (1, 2, 3, 4):
             r = getattr(self.encoder_rgb, f"layer{i}")(fused, use_kernels)
-            if k_max >= i:
-                depth = getattr(self.encoder_depth, f"layer{i}")(depth,
-                                                                 use_kernels)
-                fused = self.fuse_mixed(i, r, depth,
-                                        self._rgb_weight(weight, i),
-                                        use_kernels)
-            else:  # no later stage reads depth again (K is monotone)
-                fused = r
+            # no later stage reads the depth of a skipped one (K is monotone)
+            fused, depth = self._depth_stage(k_max >= i, i, r, depth,
+                                             mixed(i))
             if i < 4:
                 skips.append(self.skip(i, fused))
         return self._out(fused, skips, weight, return_weight, low_res,
                          use_kernels)
+
+    def _depth_stage(self, run, i: int, r, depth, fuse):
+        """(fused, depth) after depth stage ``i``: ``fuse(r, depth)`` where
+        ``run`` holds, else ``r`` unfused. ``run`` is a Python bool (read
+        on the host once a request) or, while ``torch.export`` traces, a
+        0-dim bool tensor: then a ``torch.cond`` whose skipped branch
+        threads a zero depth map of the stage's output shape, as the JAX
+        package's ``lax.cond``s do."""
+        if not torch.is_tensor(run):
+            return fuse(r, depth) if run else (r, depth)
+        # a branch returns no operand as it is (dynamo refuses the alias)
+        return torch.cond(run, fuse,
+                          lambda r, d: (r.clone(), self._zero_depth(i, r)),
+                          (r, depth))
 
     # ------------------------------- per-sample bucket-compacted routing
     def forward_routed_compact(self, rgb, depth, temp: float = 1.0,
@@ -338,33 +361,63 @@ class SkipGateESANet(_DualEncoderParts):
                                    baseline=baseline)
         bs = rgb.shape[0]
         k = weight.argmax(dim=-1)
-        paths = k.tolist()
-        counts = [sum(p >= i for p in paths) for i in range(1, 5)]
+        if torch.compiler.is_exporting():
+            counts = (k[:, None] >= torch.arange(1, 5, device=k.device)
+                      ).sum(dim=0)
+        else:
+            paths = k.tolist()
+            counts = [sum(p >= i for p in paths) for i in range(1, 5)]
         order = torch.argsort(-k, stable=True)  # participants first
         depth_buf = nchw(permute_rows(nhwc(depth), order))
         ladders = _stage_ladders(caps, bs, strict_caps)
+
+        def stage(i):
+            """Depth stage ``i`` on a prefix of ``cap`` rows, its output
+            padded back to the batch with zero rows."""
+            def at_cap(cap):
+                def run(r, d):
+                    if cap == 0:  # n_i == 0 (or a strict 0 rung): rgb unfused
+                        # a cond branch returns no operand as it is
+                        out = r.clone() if torch.compiler.is_exporting() else r
+                        return out, self._zero_depth(i, r)
+                    d_p = getattr(self.encoder_depth, f"layer{i}")(
+                        d[:cap], use_kernels)
+                    fused = self._fuse_mixed_scatter(
+                        i, r, d_p, self._rgb_weight(weight, i), order,
+                        use_kernels)
+                    if cap < bs:
+                        d_p = torch.cat([d_p, self._zero_depth(i, r[cap:])])
+                    return fused, d_p
+                return run
+            return at_cap
+
         fused = rgb
         skips = []
         for i in (1, 2, 3, 4):
             r = getattr(self.encoder_rgb, f"layer{i}")(fused, use_kernels)
-            ladder = ladders[i - 1]
-            cap = next((c for c in ladder if counts[i - 1] <= c), ladder[-1])
-            if cap == 0:  # n_i == 0 (or a strict 0 rung): rgb unfused
-                fused = r
-                depth_buf = self._zero_depth(i, r)
-            else:
-                d_p = getattr(self.encoder_depth, f"layer{i}")(
-                    depth_buf[:cap], use_kernels)
-                fused = self._fuse_mixed_scatter(
-                    i, r, d_p, self._rgb_weight(weight, i), order, use_kernels)
-                depth_buf = d_p
-                if cap < bs:
-                    depth_buf = self._zero_depth(i, r)
-                    depth_buf[:cap] = d_p
+            fused, depth_buf = self._ladder(counts[i - 1], ladders[i - 1],
+                                            stage(i), r, depth_buf)
             if i < 4:
                 skips.append(self.skip(i, fused))
         return self._out(fused, skips, weight, return_weight, low_res,
                          use_kernels)
+
+    @staticmethod
+    def _ladder(n, ladder: list[int], at_cap, r, depth):
+        """``at_cap(cap)(r, depth)`` at the smallest rung ``cap`` of
+        ``ladder`` that holds ``n`` participants (the last rung when none
+        does). ``n`` is a Python int, or while ``torch.export`` traces a
+        0-dim tensor: then a chain of 2-way ``torch.cond``s picks the rung,
+        as the JAX package's ``lax.cond`` ladder does."""
+        if not torch.is_tensor(n):
+            return at_cap(next((c for c in ladder if n <= c), ladder[-1]))(
+                r, depth)
+        if len(ladder) == 1:
+            return at_cap(ladder[0])(r, depth)
+        return torch.cond(
+            n <= ladder[0], at_cap(ladder[0]),
+            lambda r, d: SkipGateESANet._ladder(n, ladder[1:], at_cap, r, d),
+            (r, depth))
 
     # ------------------------------------------------------ hard, real skips
     def forward_switch(self, rgb, depth, temp: float = 1.0,
@@ -384,18 +437,24 @@ class SkipGateESANet(_DualEncoderParts):
         rgb, depth = self._stems(rgb, depth, use_kernels)
         weight = self.gate_weights(rgb, depth, temp=temp, hard=True,
                                    baseline=baseline)
-        k = int(force_path) if force_path is not None else int(
-            weight[0].argmax())
+        if force_path is not None:
+            k = int(force_path)
+        elif torch.compiler.is_exporting():
+            k = weight[0].argmax()
+        else:
+            k = int(weight[0].argmax())
+
+        def unmixed(i):
+            def fuse(r, d):
+                d = getattr(self.encoder_depth, f"layer{i}")(d, use_kernels)
+                return self.fuse(i, r, d, use_kernels), d
+            return fuse
+
         fused = rgb
         skips = []
         for i in (1, 2, 3, 4):
             r = getattr(self.encoder_rgb, f"layer{i}")(fused, use_kernels)
-            if k >= i:
-                depth = getattr(self.encoder_depth, f"layer{i}")(depth,
-                                                                 use_kernels)
-                fused = self.fuse(i, r, depth, use_kernels)
-            else:
-                fused = r
+            fused, depth = self._depth_stage(k >= i, i, r, depth, unmixed(i))
             if i < 4:
                 skips.append(self.skip(i, fused))
         return self._out(fused, skips, weight, return_weight, low_res,

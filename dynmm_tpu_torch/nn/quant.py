@@ -27,7 +27,9 @@ over 127, into ``in_pct``) or ``"int8"``. The quant buffers (``in_scale``,
 ``in_pct``, the packed ``w_mat`` with ``w_scale``) are non-persistent: the
 state_dict is the float model's, as the flax ``params`` are;
 ``utils/weights.py`` carries them as the flax ``quant`` collection.
-``INT8_CONVS`` counts the int8 convs run, by device type.
+``INT8_CONVS`` counts the int8 convs run, by device type; a program that
+``torch.export`` traced counts none (its ``aten._int_mm`` nodes are its
+int8 convs).
 """
 
 from __future__ import annotations
@@ -122,7 +124,8 @@ def conv_int8_gemm(x_q: torch.Tensor, w_mat: torch.Tensor, n: int,
     """(acc (B·Ho·Wo, n) int32, (B, Ho, Wo)) of an NHWC int8 map and a
     ``gemm_weight`` matrix of ``n`` output channels; counts one int8 conv."""
     a, shape = im2col(x_q, kernel_size, stride, padding, dilation)
-    INT8_CONVS[x_q.device.type] += 1
+    if not torch.compiler.is_exporting():  # an exported graph holds no count
+        INT8_CONVS[x_q.device.type] += 1
     return int_mm(a, w_mat)[:, :n], shape
 
 

@@ -107,12 +107,8 @@ def serve(model: SkipGateESANet, rgb: torch.Tensor, depth: torch.Tensor,
     ``force_path`` applies to ``batchmax`` and the switch modes.
     ``low_res``: the class map is taken from the H/4 logits and repeated
     ×4 on both axes (predict.py's ``--output_res quarter``)."""
-    if mode not in SERVE_MODES:
-        raise ValueError(f"mode must be one of {SERVE_MODES}, got {mode!r}")
-    if force_path is not None and mode in ("dense", "compact"):
-        raise ValueError(f"force_path does not apply to mode {mode!r}")
-    if (caps is not None or strict_caps) and mode != "compact":
-        raise ValueError("caps and strict_caps apply to mode 'compact'")
+    fwd, kw = _strategy(model, mode, caps, strict_caps, force_path, low_res,
+                        use_kernels)
     dev = next(model.parameters()).device
     pack = 2 if rgb.dim() == 4 and rgb.shape[-1] == 12 else 1
     for name, x, c in (("rgb", rgb, 3), ("depth", depth, 1)):
@@ -122,19 +118,6 @@ def serve(model: SkipGateESANet, rgb: torch.Tensor, depth: torch.Tensor,
                              f"{x.dtype} {tuple(x.shape)}")
         if x.device != dev:
             raise ValueError(f"{name} is on {x.device}, the model on {dev}")
-    kw = dict(return_weight=True, low_res=low_res, use_kernels=use_kernels)
-    if mode == "dense":
-        fwd = model.forward
-        kw["hard"] = True
-    elif mode == "batchmax":
-        fwd = model.forward_switch_batched
-        kw["force_path"] = force_path
-    elif mode == "compact":
-        fwd = model.forward_routed_compact
-        kw.update(caps=caps, strict_caps=strict_caps)
-    else:
-        fwd = model.forward_switch
-        kw["force_path"] = force_path
     with torch.inference_mode():
         logits, weight = fwd(rgb.contiguous(), depth.contiguous(), **kw)
         class_map = first_argmax(logits, dim=-1)
@@ -143,6 +126,53 @@ def serve(model: SkipGateESANet, rgb: torch.Tensor, depth: torch.Tensor,
             class_map = class_map.repeat_interleave(scale, dim=1
                                                     ).repeat_interleave(scale, dim=2)
         return class_map, weight
+
+
+def _strategy(model: SkipGateESANet, mode: str, caps=None,
+              strict_caps: bool = False, force_path: int | None = None,
+              low_res: bool = False, use_kernels: bool = True):
+    """(the model's forward of ``mode``, its keyword arguments): returns
+    ``(logits, weight)`` when called on (rgb, depth)."""
+    if mode not in SERVE_MODES:
+        raise ValueError(f"mode must be one of {SERVE_MODES}, got {mode!r}")
+    if force_path is not None and mode in ("dense", "compact"):
+        raise ValueError(f"force_path does not apply to mode {mode!r}")
+    if (caps is not None or strict_caps) and mode != "compact":
+        raise ValueError("caps and strict_caps apply to mode 'compact'")
+    kw = dict(return_weight=True, low_res=low_res, use_kernels=use_kernels)
+    if mode == "dense":
+        return model.forward, dict(kw, hard=True)
+    if mode == "batchmax":
+        return model.forward_switch_batched, dict(kw, force_path=force_path)
+    if mode == "compact":
+        return model.forward_routed_compact, dict(kw, caps=caps,
+                                                  strict_caps=strict_caps)
+    return model.forward_switch, dict(kw, force_path=force_path)
+
+
+class ServingForward(nn.Module):
+    """``serve``'s hard-gate forward as a module: ``forward(rgb, depth)`` →
+    ``(logits, weight)``, NHWC logits (H/4 with ``low_res``) before the
+    class map; the arguments are ``serve``'s. This is what
+    ``utils/serve_export.py`` traces: the routed modes' host reads become
+    ``torch.cond``s there (``models/skip_gate.py``). ``switch_host``, a
+    host-side dispatch, has no single-program form and raises."""
+
+    def __init__(self, model: SkipGateESANet, mode: str = "batchmax",
+                 caps=None, strict_caps: bool = False,
+                 force_path: int | None = None, low_res: bool = False):
+        super().__init__()
+        if mode == "switch_host":
+            raise ValueError("switch_host dispatches on the host between a "
+                             "gate program and five path programs; export "
+                             "mode 'switch' instead")
+        _strategy(model, mode, caps, strict_caps, force_path)  # the checks
+        self.model = model
+        self.options = (mode, caps, strict_caps, force_path, low_res)
+
+    def forward(self, rgb: torch.Tensor, depth: torch.Tensor):
+        fwd, kw = _strategy(self.model, *self.options)
+        return fwd(rgb, depth, **kw)
 
 
 def capacity_schedule(model: SkipGateESANet, calib_batches, batch_size: int,

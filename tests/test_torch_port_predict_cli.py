@@ -164,11 +164,9 @@ def _predict_int8(layout, tmp_path, monkeypatch, extra):
 # bf16 and int8 serve every model predict builds (the global-gate net), so
 # their cases are a model that still raises there: swish (ROADMAP A7)
 @pytest.mark.parametrize("flags, item", [
-    (["--export_path", "x.pt2"], "A6-export"),
-    (["--export_platforms", "cuda"], "A6-export"),
     (["--quant", "int8", "--activation", "swish"], "A7"),
     (["--dtype", "bfloat16", "--activation", "swish"], "A7")],
-    ids=["export", "export-platforms", "int8", "bf16"])
+    ids=["int8", "bf16"])
 def test_unported_predict_flags_raise(layout, tmp_path, flags, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
         port_predict.main([*layout["args"], "--ckpt_path", layout["ckpt"],
@@ -179,8 +177,12 @@ def test_unported_predict_flags_raise(layout, tmp_path, flags, item):
 @pytest.mark.parametrize("flags, message", [
     (["--serve_mode", "switch"], "--serve_mode switch requires --batch_size 1"),
     (["--capacity_factor", "1.25"],
-     "--capacity_factor applies to --serve_mode compact")],
-    ids=["switch-batch", "capacity-mode"])
+     "--capacity_factor applies to --serve_mode compact"),
+    (["--serve_mode", "switch_host", "--batch_size", "1", "--export_path",
+      "x.pt2"], "cannot be exported as one artifact"),
+    (["--export_platforms", "tpu"], "--export_platforms takes cuda, cpu")],
+    ids=["switch-batch", "capacity-mode", "export-switch-host",
+         "export-platforms"])
 def test_parser_errors_as_jax(layout, tmp_path, capsys, flags, message):
     with pytest.raises(SystemExit) as e:
         port_predict.main([*layout["args"], "--ckpt_path", layout["ckpt"],
@@ -188,3 +190,4 @@ def test_parser_errors_as_jax(layout, tmp_path, capsys, flags, message):
                            *flags])
     assert e.value.code == 2
     assert message in capsys.readouterr().err
+
