@@ -218,8 +218,31 @@ Run from the root of a checkout on a machine with one NVIDIA GPU:
    ``cuda,cpu`` artifact (dense, B=1) replays on the CPU through the
    plain versions: class maps equal to the card's wherever the CPU's
    top-two margin exceeds twice the max logit error.
-15. Prints the kernels' JSON line (launches summed over phases 3-6 and
-   8-14; phase 14's are its replays'), the card line, and last
+15. Swish and hswish: the 480×640 flagship with ``activation="swish"``
+   and ``"hswish"`` (the recipe gate, seeded weights), and the swish net in
+   bf16 and int8 (calibrated as in phase 13: ``quant_sanity`` counts the
+   relu net's 177 convs). The TPU kernels of the SE cell and the NBt1D
+   block fuse relu, so these nets run those cells in PyTorch ops: every
+   forward launches ``channel_sums`` 1, ``stem_fuse_pool`` 1 and
+   ``learned_upsample`` 5 (3 at ``low_res``) and nothing else
+   (``act_launches``). Serves the swish net ``dense`` at B=8 and B=1,
+   ``batchmax``, ``compact`` and ``low_res`` at B=8 and ``switch`` at B=1
+   for each path, the hswish net ``dense`` and ``batchmax`` at B=8 (a gate
+   override hands out fixed per-sample paths), counts at 0 before, each
+   forward's launches those of the rule; each routed request against the
+   dense forward on the same paths with error 0. Kernel path against
+   ``use_kernels=False`` (live gate): gate choices identical, logits within
+   1e-3 relative, class maps equal on ≥ 99.9 %. The bf16 swish net against
+   its plain path (phase 12's bounds) and the fp32 swish net (drift
+   < 5e-2); the int8 swish net against the fp32 swish net (the JAX
+   bounds). ``cli.train --activation swish`` for 2 steps of B=8 (step ms
+   and peak memory beside fp32 relu's), then ``cli.eval`` and
+   ``cli.predict`` on its checkpoint on phase 8's layout (the PNGs equal to
+   ``serve()``'s maps); one dense B=8 export of the swish net replayed with
+   error 0 and the same launches; request ms of the relu, swish and hswish
+   flagships in turns at B=8 and B=1. Prints its seconds by part.
+16. Prints the kernels' JSON line (launches summed over phases 3-6 and
+   8-15; phase 14's are its replays'), the card line, and last
    ``{"ok": true, "device": {...}}``.
 
 TF32 is switched off for cuDNN convolutions and matmuls here, so the kernels
@@ -3476,6 +3499,379 @@ def check_export(report: dict) -> dict:
     return total
 
 
+# the per-sample paths of phase 15's routed requests
+ACT_PATHS = [0, 4, 2, 1, 3, 0, 1, 2]
+
+
+def act_launches(low_res: bool = False, bf16: bool = False) -> dict:
+    """Launches of one forward of a swish or hswish flagship, whatever its
+    paths: the stem cell (``channel_sums``, ``stem_fuse_pool``) and the
+    learned upsamples (3 at ``low_res``). The TPU kernels of the SE cell and
+    the NBt1D block fuse relu, so these nets run those cells in PyTorch
+    ops."""
+    counts = {"channel_sums": 1, "stem_fuse_pool": 1,
+              "learned_upsample": 3 if low_res else 5}
+    return {f"{k}.bf16": v for k, v in counts.items()} if bf16 else counts
+
+
+def check_activation(report: dict) -> dict:
+    """Phase 15: the swish and hswish flagships (480×640, recipe gate):
+    served in every mode with the launches of the routing rule, routed =
+    dense (error 0), the kernel path against the plain one, the bf16 and
+    int8 swish nets, ``cli.train`` / ``cli.eval`` / ``cli.predict
+    --activation swish``, one export, and request ms beside relu's."""
+    import shutil
+
+    import numpy as np
+
+    from dynmm_tpu_torch.cli import eval as eval_cli
+    from dynmm_tpu_torch.cli import predict as predict_cli
+    from dynmm_tpu_torch.cli import train as train_cli
+    from dynmm_tpu_torch.data import png
+    from dynmm_tpu_torch.data.nyuv2 import (NYUv2Dataset, class_colors,
+                                            make_recipe_eval_batch)
+    from dynmm_tpu_torch.data.seg_preprocessing import (SegLoader,
+                                                        SegPreprocessor)
+    from dynmm_tpu_torch.kernels import LAUNCHES, reset_launches
+    from dynmm_tpu_torch.nn.layers import first_argmax, pack_weights
+    from dynmm_tpu_torch.nn.quant import INT8_CONVS
+    from dynmm_tpu_torch.serve import ServingForward, build_flagship, serve
+    from dynmm_tpu_torch.utils.device import card_line
+    from dynmm_tpu_torch.utils.quantize import (calibrate, pack_int8,
+                                                quant_sanity)
+    from dynmm_tpu_torch.utils.serve_export import (export_serving_fn,
+                                                    load_serving_fn,
+                                                    save_serving_artifact)
+    from dynmm_tpu_torch.utils.torch_import import load_any_checkpoint
+    from dynmm_tpu_torch.utils.weights import load_recipe_gate
+
+    card = card_line()
+    section: dict = {"card": card, "seconds": {}}
+    clock = [time.perf_counter()]
+
+    def lap(name: str) -> None:
+        now = time.perf_counter()
+        section["seconds"][name] = now - clock[0]
+        clock[0] = now
+
+    cuda = lambda a: torch.from_numpy(np.ascontiguousarray(a)).cuda()
+    big = tuple(map(cuda, make_recipe_eval_batch(BATCH, HEIGHT, WIDTH)))
+    one = tuple(x[:1].contiguous() for x in big)
+    nets = {}
+    for name, act, dtype, quant in (
+            ("relu", "relu", None, None), ("swish", "swish", None, None),
+            ("hswish", "hswish", None, None),
+            ("swish-bf16", "swish", torch.bfloat16, None),
+            ("swish-int8", "swish", None, "int8")):
+        nets[name] = build_flagship(HEIGHT, WIDTH, CLASSES, seed=0,
+                                    dtype=dtype, quant=quant, activation=act)
+        load_recipe_gate(nets[name])
+    calib = [tuple(map(cuda, make_recipe_eval_batch(BATCH, HEIGHT, WIDTH,
+                                                    seed=s)))
+             for s in INT8_CALIB_SEEDS]
+    calibrate(nets["swish-int8"], calib, hard=True)
+    n_quant = quant_sanity(nets["swish-int8"])
+    pack_int8(nets["swish-int8"])
+    torch.cuda.synchronize()
+    lap("build and calibrate")
+    print(f"  built the relu, swish, hswish, swish-bf16 and swish-int8 "
+          f"flagships; the int8 net calibrated {n_quant} convs "
+          f"(quant_sanity) [{section['seconds']['build and calibrate']:.1f}"
+          f" s]", flush=True)
+    if n_quant != INT8_CONVS_FLAGSHIP:
+        raise RuntimeError(f"swish-int8: quant_sanity {n_quant} != "
+                           f"{INT8_CONVS_FLAGSHIP}, the relu net's")
+
+    # serve: (label, net, mode, paths (None: the live gate), images, kwargs)
+    gates = {n: PathGate(nets[n]) for n in ("swish", "hswish")}
+    requests = [
+        ("dense", "swish", "dense", None, big, {}),
+        ("dense B=1", "swish", "dense", None, one, {}),
+        ("batchmax", "swish", "batchmax", ACT_PATHS, big, {}),
+        ("compact", "swish", "compact", ACT_PATHS, big, {}),
+        *((f"switch k={k}", "swish", "switch", [k], one, {})
+          for k in range(5)),
+        ("low_res", "swish", "batchmax", ACT_PATHS, big, {"low_res": True}),
+        ("dense", "hswish", "dense", None, big, {}),
+        ("batchmax", "hswish", "batchmax", ACT_PATHS, big, {}),
+    ]
+
+    def run(req, mode=None, use_kernels=True):
+        label, net, m, paths, images, kw = req
+        gates[net].paths = paths
+        return serve(nets[net], *images, mode=mode or m,
+                     use_kernels=use_kernels, **kw)
+
+    for req in requests:  # warm-up (cuDNN picks its algorithms)
+        run(req)
+        run(req, "dense")
+    torch.cuda.synchronize()
+    # the main path's run: counts at 0 just before, read just after
+    reset_launches()
+    served = []
+    for req in requests:
+        label, net, mode, paths, images, kw = req
+        before = dict(LAUNCHES)
+        class_map, weight = run(req)
+        torch.cuda.synchronize()
+        delta = {k: LAUNCHES[k] - before.get(k, 0) for k in LAUNCHES}
+        delta = {k: v for k, v in delta.items() if v}
+        expected = act_launches(kw.get("low_res", False))
+        if delta != expected:
+            raise RuntimeError(f"{net} {label}: launches {delta} != "
+                               f"{expected}")
+        served.append((class_map, weight))
+    total = _nonzero(LAUNCHES)
+    lap("serve")
+
+    # routed against dense on the same paths: error 0
+    methods = {"batchmax": "forward_switch_batched",
+               "compact": "forward_routed_compact",
+               "switch": "forward_switch"}
+    rows = []
+    for req, (class_map, weight) in zip(requests, served):
+        label, net, mode, paths, (rgb, depth), kw = req
+        model = nets[net]
+        gates[net].paths = paths
+        low_res = kw.get("low_res", False)
+        with torch.inference_mode():
+            dense = model(rgb, depth, hard=True, low_res=low_res)
+            routed = (dense if mode == "dense" else
+                      getattr(model, methods[mode])(rgb, depth, **kw))
+        err = (routed - dense).abs().max().item()
+        dense_map, dense_w = run(req, "dense")
+        same = (bool(torch.equal(class_map, dense_map))
+                and bool(torch.equal(weight, dense_w)))
+        rows.append({"net": net, "request": label, "mode": mode,
+                     "batch": rgb.shape[0], "paths": weight.argmax(1).tolist(),
+                     "routed_vs_dense_max_abs_err": err,
+                     "class_map_and_gate_equal": same,
+                     "launches": act_launches(low_res)})
+        print(f"  {net:6s} {label:10s} B={rgb.shape[0]} paths "
+              f"{rows[-1]['paths']}: launches {act_launches(low_res)}; "
+              f"routed vs dense max abs err {err:.3g}, class map and gate "
+              f"equal: {same}", flush=True)
+        if err != 0 or not same or not bool(torch.isfinite(routed).all()):
+            raise RuntimeError(f"{net} {label}: routed != dense")
+    section["served"] = rows
+    lap("routed vs dense")
+
+    # the kernel path against the plain one (live gate), fp32
+    plain_rows = []
+    for net, (rgb, depth) in (("swish", big), ("swish", one),
+                              ("hswish", big)):
+        gates[net].paths = None
+        with torch.inference_mode():
+            lk, wk = nets[net](rgb, depth, hard=True, return_weight=True)
+            lp, wp = nets[net](rgb, depth, hard=True, return_weight=True,
+                               use_kernels=False)
+        rel = _rel(lk, lp)
+        agree = (first_argmax(lk) == first_argmax(lp)).float().mean().item()
+        same_gate = bool(torch.equal(wk, wp))
+        plain_rows.append({"net": net, "batch": rgb.shape[0],
+                           "paths": wk.argmax(1).tolist(),
+                           "logits_rel_err": rel, "class_map_agreement": agree,
+                           "same_gate": same_gate})
+        print(f"  {net:6s} kernels vs plain B={rgb.shape[0]} paths "
+              f"{wk.argmax(1).tolist()}: logits rel err {rel:.3g}, class "
+              f"maps agree on {agree * 100:.4f} %, gate choices identical: "
+              f"{same_gate}", flush=True)
+        if rel > 1e-3 or agree < 0.999 or not same_gate:
+            raise RuntimeError(f"{net}: kernel path disagrees with the plain "
+                               "one")
+    section["kernels_vs_plain"] = plain_rows
+    for g in gates.values():
+        g.paths = None
+
+    # the bf16 and int8 swish nets, dense B=8, against their plain path
+    # (bf16) and the fp32 swish net
+    rgb, depth = big
+    with torch.inference_mode():
+        ref, w32 = nets["swish"](rgb, depth, hard=True, return_weight=True)
+    low = {}
+    for name, bf16 in (("swish-bf16", True), ("swish-int8", False)):
+        model = nets[name]
+        with torch.inference_mode():
+            reset_launches()
+            convs = INT8_CONVS["cuda"]
+            out, w = model(rgb, depth, hard=True, return_weight=True)
+            torch.cuda.synchronize()
+            got = _nonzero(LAUNCHES)
+            convs = INT8_CONVS["cuda"] - convs
+            plain, wp = model(rgb, depth, hard=True, return_weight=True,
+                              use_kernels=False)
+        _add(total, got)
+        row = {"launches": got, "paths": w.argmax(1).tolist(),
+               "same_gate": bool(torch.equal(w, w32) and torch.equal(w, wp))}
+        if bf16:
+            err = (out.float() - plain.float()).abs().max().item()
+            sure = _sure_pixels(plain, err)
+            row.update(
+                plain_rel_err=err / plain.float().abs().max().item(),
+                sure_pixel_share=sure.float().mean().item(),
+                sure_pixels_equal=bool((first_argmax(out) == first_argmax(
+                    plain))[sure].all()),
+                fp32_drift=_rel(out.float(), ref))
+            ok = (row["plain_rel_err"] <= BF16_PLAIN_TOL
+                  and row["sure_pixels_equal"]
+                  and row["fp32_drift"] < BF16_DRIFT_TOL)
+        else:
+            row.update(int8_convs=convs, fp32_rel_l2=_rel_l2(out, ref),
+                       fp32_class_map_agreement=(first_argmax(out)
+                                                 == first_argmax(ref))
+                       .float().mean().item())
+            ok = (convs == INT8_CONVS_FLAGSHIP
+                  and row["fp32_rel_l2"] < INT8_FP32_L2_TOL
+                  and row["fp32_class_map_agreement"] > INT8_FP32_AGREE)
+        ok = ok and got == act_launches(bf16=bf16) and row["same_gate"]
+        low[name] = row
+        print(f"  {name}: dense B={BATCH} paths {row['paths']}, "
+              + ", ".join(f"{k} {v:.4g}" if isinstance(v, float) else
+                          f"{k} {v}" for k, v in row.items()
+                          if k != "paths"), flush=True)
+        if not ok:
+            raise RuntimeError(f"{name}: {row}")
+    section["low_precision"] = low
+    lap("bf16 and int8")
+
+    # cli.train (2 steps of B=8, synthetic), then cli.eval and cli.predict
+    # --activation swish on its checkpoint, on phase 8's prepared layout
+    root = ROOT / "build" / "chip_smoke_activation"
+    shutil.rmtree(root, ignore_errors=True)
+    probe = StepProbe()
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        _, lines = _cli_run(train_cli.main, [
+            *_synthetic_argv(root / "train", HEIGHT, WIDTH), "--dynamic",
+            "--global-gate", "--loss-ratio", "1e-4", "--activation",
+            "swish"])
+        peak = torch.cuda.max_memory_allocated()
+        probe.check("swish cli.train", 2)
+        got = _nonzero(LAUNCHES)
+        _add(total, got)
+        steps = probe.steps
+        (ckpt,) = root.glob("train/synthetic/checkpoints_*/ckpt_latest.msgpack")
+        relu = report.get("train")  # phase 6's fit of the relu flagship
+        relu = ("phase 6 not run" if relu is None else
+                f"{relu['step_ms_median']:.2f} ms, "
+                f"{relu['peak_memory_bytes'] / 2 ** 30:.2f} GiB")
+        print(f"  swish cli.train: steps {[round(s['ms'], 2) for s in steps]}"
+              f" ms, losses {[round(s['loss'], 4) for s in steps]}; peak "
+              f"memory {peak / 2 ** 30:.2f} GiB (relu, phase 6: {relu}); "
+              f"validation launches {got} [{card}]", flush=True)
+        for ln in lines:
+            if ln.startswith(("Epoch", "Test mIoU")):
+                print(f"    {ln}", flush=True)
+        section["train"] = {"steps": steps, "peak_memory_bytes": peak,
+                            "validation_launches": got}
+        lap("cli.train")
+
+        _write_layout(root)
+        base = ["--dataset", "nyuv2", "--dataset_dir", str(root), "--height",
+                str(HEIGHT), "--width", str(WIDTH), "--batch_size", str(BATCH),
+                "--activation", "swish", "--ckpt_path", str(ckpt)]
+        n_b = CLI_SAMPLES // BATCH
+        reset_launches()
+        miou, _ = _cli_run(eval_cli.main, [*base, "--dynamic",
+                                           "--global-gate", "--hard"])
+        got = _nonzero(LAUNCHES)
+        _add(total, got)
+        if got != _add({}, act_launches(), n_b) or not math.isfinite(
+                float(miou[0])):
+            raise RuntimeError(f"swish cli.eval: launches {got}, mIoU {miou}")
+        out_dir = root / "preds"
+        reset_launches()
+        res, _ = _cli_run(predict_cli.main, [*base, "--out_dir",
+                                             str(out_dir)])
+        got_p = _nonzero(LAUNCHES)
+        _add(total, got_p)
+        # the written maps against serve()'s (batchmax) on the same weights
+        model = build_flagship(HEIGHT, WIDTH, CLASSES, seed=0,
+                               activation="swish")
+        load_any_checkpoint(model, str(ckpt))
+        pack_weights(model)
+        ds = NYUv2Dataset(str(root), "test")
+        pre = SegPreprocessor(ds.depth_mean, ds.depth_std, HEIGHT, WIDTH,
+                              phase="test")
+        colors = class_colors(CLASSES + 1)
+        maps = []
+        for b in SegLoader(ds, pre, batch_size=BATCH, prefetch=0):
+            cm, _ = serve(model, cuda(b["image"]), cuda(b["depth"]))
+            maps.extend(cm.cpu().numpy())
+        err = max(int(np.abs(png.read(str(out_dir / f"pred_{i:05d}.png"))
+                             .astype(np.int32) - colors[maps[i] + 1]).max())
+                  for i in range(res["n"]))
+        print(f"  swish cli.eval --hard: mIoU {miou.tolist()}, launches "
+              f"{got}; cli.predict: {res['n']} maps, {res['fps']:.2f} "
+              f"frames/s, launches {got_p}, PNGs vs serve() max abs err "
+              f"{err} [{card}]", flush=True)
+        section["clis"] = {"eval_miou": miou.tolist(), "eval_launches": got,
+                           "predict_fps": res["fps"], "predict_n": res["n"],
+                           "predict_launches": got_p, "png_max_abs_err": err}
+        if (err != 0 or res["n"] != CLI_SAMPLES
+                or got_p != _add({}, act_launches(), n_b)):
+            raise RuntimeError(f"swish cli.predict: {section['clis']}")
+        del model
+        lap("cli.eval and cli.predict")
+
+        # one dense B=8 export of the swish net, replayed
+        del nets["swish"].gate_weights  # the PathGate: back to the live gate
+        module = ServingForward(nets["swish"], "dense")
+        t0 = time.perf_counter()
+        payload = export_serving_fn(module, *big)
+        export_s = time.perf_counter() - t0
+        path = root / "swish_dense.pt2"
+        save_serving_artifact(str(path), payload)
+        fn = load_serving_fn(str(path))
+        ops = {str(n.target).split(".")[1] for n in fn.program.graph.nodes
+               if str(n.target).startswith("dynmm.")}
+        reset_launches()
+        with torch.inference_mode():
+            want = module(*big)
+        torch.cuda.synchronize()
+        eager = _nonzero(LAUNCHES)
+        reset_launches()
+        got = fn(*big)
+        torch.cuda.synchronize()
+        replay = _nonzero(LAUNCHES)
+        _add(total, replay)
+        same = all(torch.equal(g, w) for g, w in zip(got, want))
+        section["export"] = {"export_s": export_s, "bytes": len(payload),
+                             "replay_equal": same, "launches": replay,
+                             "dynmm_ops": sorted(ops)}
+        print(f"  swish dense B={BATCH} exported in {export_s:.2f} s, "
+              f"{len(payload)} bytes, dynmm ops {sorted(ops)}; replay = "
+              f"eager: {same}, launches {replay} (eager {eager}) [{card}]",
+              flush=True)
+        if (not same or replay != eager or eager != act_launches()
+                or ops != set(act_launches())):
+            raise RuntimeError(f"swish export: {section['export']}")
+        del payload, fn
+    finally:
+        probe.close()
+        shutil.rmtree(root, ignore_errors=True)
+    lap("export")
+
+    # request ms of the relu and the swish flagship in turns (live gate)
+    timing = {}
+    for label, images in ((f"B={BATCH}", big), ("B=1", one)):
+        with torch.inference_mode():
+            ms = _in_turns({n: (lambda n=n: serve(nets[n], *images,
+                                                  mode="dense"))
+                            for n in ("relu", "swish", "hswish")})
+        timing[label] = ms
+        print(f"  dense {label} request ms (median of {EXPORT_REPS}, in "
+              f"turns): " + ", ".join(f"{k} {v:.2f}" for k, v in ms.items())
+              + f" [{card}]", flush=True)
+    section["request_ms"] = timing
+    lap("request ms")
+    print("  phase 15 seconds by part: " + ", ".join(
+        f"{k} {v:.1f}" for k, v in section["seconds"].items()), flush=True)
+    report["activation"] = section
+    return total
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this check runs on the card",
@@ -3540,13 +3936,16 @@ def main() -> int:
         (14, f"export: the {HEIGHT}x{WIDTH} recipe flagship's serving forward "
              "as torch.export artifacts, replayed; cli.predict --export_path",
          check_export),
+        (15, f"the swish and hswish flagships at {HEIGHT}x{WIDTH}: every "
+             "serving mode, bf16, int8, cli.train/eval/predict --activation "
+             "swish, export", check_activation),
     ]
     for n, title, check in phases:
         print(f"[{n}] {title}", flush=True)
         t0 = time.perf_counter()
         runs.append(check(report) or {})
         print(f"  phase {n}: {time.perf_counter() - t0:.1f} s", flush=True)
-    print("[15] kernels", flush=True)
+    print("[16] kernels", flush=True)
     for k in kernels:
         k["launches"] = sum(run.get(k["name"], 0) for run in runs)
         if k["launches"] == 0:

@@ -1,7 +1,8 @@
 """Train and evaluate modality-level DynMM on CMU-MOSEI (the twin of
 ``examples/affect/affect_dyn.py``; the reference's
-``ModalityDynMM/affect/affect_dyn.py``), with the same flags plus
-``--device``:
+``ModalityDynMM/affect/affect_dyn.py``), with the same flags plus two of
+the port's own, which the JAX twin lacks: ``--device`` and
+``--no-pretrain`` (train the router without grafting the experts):
 
     python -m dynmm_tpu_torch.cli.affect_dyn --synthetic --freeze --reg 0.01
 

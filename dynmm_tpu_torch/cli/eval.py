@@ -27,9 +27,9 @@ global-gate net or the static ESANet, each fp32 or bf16): the scales
 calibrated on the first ``--calib_batches`` clean batches
 (``--calib_estimator absmax`` or ``percentile`` at
 ``--calib_percentile``), then the weights packed, before the
-capacity-factor calibration. Flags of features the port does not have yet
-raise (``cli/seg_build.py::check_supported``: ``--activation
-swish|hswish`` ROADMAP A7).
+capacity-factor calibration. ``--activation swish|hswish`` scores any of
+them on that activation. Flags of features the port does not have yet
+raise (``cli/seg_build.py::check_supported``).
 """
 
 from __future__ import annotations

@@ -8,8 +8,8 @@ coloured segmentation maps plus a routing and throughput report.
         [--capacity_factor 1.25] [--output_res quarter] [--packed_stem]
 
 It serves the global-gate SkipGateESANet (``--encoder resnet18|resnet34|
-resnet50``), as ``predict.py``. It runs on the card; ``--device cpu`` runs
-on the CPU. Requests go through
+resnet50``, ``--activation relu|swish|hswish``), as ``predict.py``. It
+runs on the card; ``--device cpu`` runs on the CPU. Requests go through
 ``serve.py::serve`` with the mode of ``--serve_mode`` (the switch modes at
 ``--batch_size 1``); ``--capacity_factor`` (compact only) serves the strict
 schedule of branch ratios estimated with ``gate_only`` over

@@ -8,7 +8,9 @@ SkipGateESANet (``--dynamic --global-gate``), the local-gate SkipESANet
 ESANetOneModality (``--modality rgb|depth``, SE under
 ``--fuse_depth_in_rgb_encoder SE-add``), on BasicBlock or NonBottleneck1D
 resnet18/resnet34 or Bottleneck resnet50 encoders, SE-add or add fusion,
-PPM, APPM or no context module, with the 2×2 packed stem under
+PPM, APPM or no context module, relu, swish or hswish (``--activation``;
+the cells whose TPU kernels fuse relu run in PyTorch ops on a swish or
+hswish net: ``models/esanet.py``), with the 2×2 packed stem under
 ``--packed_stem``, and reads every ``--dataset``: the prepared on-disk
 layouts (``data/nyuv2.py``, ``data/other_datasets.py``) and ``synthetic``.
 ``check_supported`` raises ``NotImplementedError`` on every flag of a
@@ -40,10 +42,6 @@ def check_supported(args, training: bool = False) -> None:
     """Raise on flags of features not ported yet (``training``: for
     ``cli.train``)."""
     missing = []
-    activation = getattr(args, "activation", "relu")
-    if activation.lower() != "relu":
-        missing.append(f"--activation {activation} (the kernels fuse relu; "
-                       "swish/hswish variants, ROADMAP A7)")
     if args.mesh_data > 1 or args.mesh_model > 1:
         missing.append("--mesh-data/--mesh-model above 1 (mesh training, "
                        "ROADMAP A9)")

@@ -19,8 +19,9 @@ kernels. ``--dataset`` reads the prepared on-disk layouts
 packed 2×2 in the loader's prefetch thread. Every model of the JAX CLI
 trains: ``--dynamic --global-gate`` (SkipGateESANet), ``--dynamic``
 (local-gate SkipESANet, ``--block-rule``), the static ESANet and
-``--modality rgb|depth`` (ESANetOneModality); ``--freeze`` applies to the
-dynamic models only. Flags of features the port does not have yet raise
+``--modality rgb|depth`` (ESANetOneModality), each on relu, swish or
+hswish (``--activation``); ``--freeze`` applies to the dynamic models
+only. Flags of features the port does not have yet raise
 (``cli/seg_build.py::check_supported``).
 """
 
@@ -97,6 +98,10 @@ def main(argv=None) -> None:
         grad_accum=args.grad_accum, modality=args.modality, debug=args.debug,
         packed_stem=args.packed_stem)
     trainer = SegTrainer(model, cfg, class_weights, device=args.device)
+    # train.py draws a sample batch for its init here, which moves the
+    # loader's shuffle and augmentation stream: drawn too, the same flags
+    # train on the same batches
+    train_loader.draw_sample()
     state = trainer.init_state()
 
     start_epoch, best_miou, best_miou_epoch = 0, 0.0, 0

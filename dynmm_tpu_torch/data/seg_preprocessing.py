@@ -68,14 +68,25 @@ def _hsv_to_rgb(hsv: np.ndarray) -> np.ndarray:
 
 
 def _resize(img: np.ndarray, width: int, height: int, nearest: bool) -> np.ndarray:
-    """cv2-semantics resize through the native library: float32 bilinear or
-    nearest, integer maps (labels) nearest, in their own dtype."""
+    """cv2-semantics resize: float32 bilinear or nearest and int32 nearest
+    through the native library (source ``floor(dst · src/dst)``); other
+    integer maps (uint8 labels) nearest by cv2's own rule, which the JAX
+    package takes for them (``cv2.resize``: ``floor(dst · (1 / (dst/src)))``
+    in double, one source row or column apart from the native rule where
+    ``dst · src/dst`` rounds just below an integer)."""
     if img.dtype == np.float32 or (img.dtype == np.int32 and nearest):
         return native.resize(img, height, width, nearest)
     if nearest and np.issubdtype(img.dtype, np.integer):
-        out = native.resize(img.astype(np.int32), height, width, True)
-        return out.astype(img.dtype)
+        return img[_cv2_nearest(img.shape[0], height)][
+            :, _cv2_nearest(img.shape[1], width)]
     raise TypeError(f"no resize for {img.dtype} (nearest={nearest})")
+
+
+def _cv2_nearest(n_in: int, n_out: int) -> np.ndarray:
+    """cv2 ``INTER_NEAREST``'s source index of each output index."""
+    scale = 1.0 / (n_out / n_in)
+    idx = np.floor(np.arange(n_out) * scale).astype(np.int64)
+    return np.minimum(idx, n_in - 1)
 
 
 @dataclasses.dataclass
@@ -273,13 +284,29 @@ class SegLoader:
         batch = self._stack(samples)
         return self.post(batch) if self.post is not None else batch
 
-    def __iter__(self):
-        n = len(self.dataset)
-        order = np.arange(n)
+    def _pass(self) -> list:
+        """A new pass's batches of sample indices (the shuffle drawn)."""
+        order = np.arange(len(self.dataset))
         if self.shuffle:
             self._rng.shuffle(order)
         bs = self.batch_size
-        batches = [order[b * bs : (b + 1) * bs] for b in range(len(self))]
+        return [order[b * bs : (b + 1) * bs] for b in range(len(self))]
+
+    def draw_sample(self) -> dict:
+        """``next(iter(loader))`` without a thread left behind: the first
+        batch of a new pass, the loader's stream moved as that abandoned
+        pass moves it, which is how ``train.py`` draws the sample batch of
+        its init. The pass's prefetch thread makes batches until its queue
+        is full (the batch handed over, ``prefetch`` queued, one waiting to
+        be queued) or the pass ends; they are made here and dropped."""
+        batches = self._pass()
+        n = 1 if self.prefetch <= 0 or len(batches) <= 1 else min(
+            len(batches), self.prefetch + 2)
+        made = [self._make_batch(idx) for idx in batches[:n]]
+        return made[0]
+
+    def __iter__(self):
+        batches = self._pass()
         if self.prefetch <= 0 or len(batches) <= 1:
             for idx in batches:
                 yield self._make_batch(idx)

@@ -30,6 +30,7 @@ rounding point is the identity.
 from __future__ import annotations
 
 import math
+from typing import Callable
 
 import torch
 
@@ -85,18 +86,23 @@ def launch_channel_sums(rgb: torch.Tensor, depth: torch.Tensor
 
 
 # ----------------------------------------------------------------- SE MLP
-def se_scale(mean: torch.Tensor, w1, b1, w2, b2) -> torch.Tensor:
-    """sigmoid(relu(mean @ w1 + b1) @ w2 + b2) on (B, C)."""
-    return torch.sigmoid(torch.relu(mean @ w1 + b1) @ w2 + b2)
+def se_scale(mean: torch.Tensor, w1, b1, w2, b2,
+             act: Callable = torch.relu) -> torch.Tensor:
+    """sigmoid(act(mean @ w1 + b1) @ w2 + b2) on (B, C); ``act`` is relu
+    in the kernels (the TPU kernels' MLP), the net's activation in a swish
+    or hswish cell."""
+    return torch.sigmoid(act(mean @ w1 + b1) @ w2 + b2)
 
 
 def map_scale(x: torch.Tensor, w1, b1, w2, b2, dims=(1, 2),
-              keepdim: bool = False) -> torch.Tensor:
+              keepdim: bool = False, act: Callable = torch.relu
+              ) -> torch.Tensor:
     """The SE scale of a map, in the map's dtype: the mean over ``dims``
-    in at least fp32, rounded to the map's dtype, then the MLP (``se_scale``)
-    on the weights' dtype, its output rounded to the map's dtype."""
+    in at least fp32, rounded to the map's dtype, then the MLP (``se_scale``
+    with ``act``) on the weights' dtype, its output rounded to the map's
+    dtype."""
     mean = wide(wide(x).mean(dim=dims, keepdim=keepdim).to(x.dtype))
-    return se_scale(mean, w1, b1, w2, b2).to(x.dtype)
+    return se_scale(mean, w1, b1, w2, b2, act).to(x.dtype)
 
 
 def se_fuse_mixed_plain(rgb, depth, w_rgb, wr1, br1, wr2, br2,

@@ -5,7 +5,8 @@ Port of ``dynmm_tpu/kernels/stem_fuse.py``. The stem cell of the main path
 
 1. ``channel_sums`` of both stem maps in one launch (``kernels/se.py``);
 2. the tiny SE MLP on (B, 64) in PyTorch ops (``se_gate_from_sums``), as the
-   JAX cell leaves it to XLA;
+   JAX cell leaves it to XLA, on the net's activation (relu, swish or
+   hswish);
 3. ``stem_fuse_pool``: one launch that scale-adds the maps and max-pools
    (3×3, stride 2, pad 1, −inf padding) both the fused map and raw depth,
    writing only the two pooled maps.
@@ -19,6 +20,8 @@ Pallas function's per-op bf16 arithmetic); the max-pools are exact.
 """
 
 from __future__ import annotations
+
+from typing import Callable
 
 import torch
 import torch.nn.functional as F
@@ -70,24 +73,30 @@ def launch_stem_fuse_pool(rgb, depth, s_r, s_d):
     return out_f, out_d
 
 
-def se_gate_from_sums(sums, hw: int, w1, b1, w2, b2):
-    """sigmoid(relu(mean @ w1 + b1) @ w2 + b2) — the SE MLP on (B, C)."""
-    return se_scale(sums / float(hw), w1, b1, w2, b2)
+def se_gate_from_sums(sums, hw: int, w1, b1, w2, b2,
+                      act: Callable = torch.relu):
+    """sigmoid(act(mean @ w1 + b1) @ w2 + b2) — the SE MLP on (B, C);
+    ``act`` the net's activation (relu: the TPU kernel's)."""
+    return se_scale(sums / float(hw), w1, b1, w2, b2, act)
 
 
 def stem_se_fusion_pool(rgb, depth, wr1, br1, wr2, br2, wd1, bd1, wd2, bd2,
+                        act: Callable = torch.relu,
                         use_kernels: bool = True):
     """The whole stem cell (JAX signature): SE-recalibrated add + both
-    max-pools. The SE scales are computed in fp32 from the fp32 sums and
-    rounded to the maps' dtype. ``use_kernels=False`` runs the plain
-    versions wherever the tensors lie."""
+    max-pools. The SE scales are computed in fp32 from the fp32 sums, with
+    the MLP on ``act``, and rounded to the maps' dtype; neither kernel
+    computes an activation, so every net's stem takes them.
+    ``use_kernels=False`` runs the plain versions wherever the tensors
+    lie."""
     b, h, w, _ = rgb.shape
     sums = channel_sums if use_kernels else channel_sums_plain
     pool = stem_fuse_pool if use_kernels else stem_fuse_pool_plain
     sums_r, sums_d = sums(rgb, depth)
-    s_r = se_gate_from_sums(sums_r, h * w, wr1, br1, wr2, br2).to(rgb.dtype)
-    s_d = se_gate_from_sums(sums_d, h * w, wd1, bd1, wd2, bd2).to(rgb.dtype)
-    return pool(rgb, depth, s_r.contiguous(), s_d.contiguous())
+    s_r = se_gate_from_sums(sums_r, h * w, wr1, br1, wr2, br2, act)
+    s_d = se_gate_from_sums(sums_d, h * w, wd1, bd1, wd2, bd2, act)
+    return pool(rgb, depth, s_r.to(rgb.dtype).contiguous(),
+                s_d.to(rgb.dtype).contiguous())
 
 
 def stem_add_pool(rgb, depth, use_kernels: bool = True):

@@ -13,6 +13,13 @@ adds after); ``encoder_decoder_fusion`` other than ``add`` builds no skip
 projections and the decoder ignores the skips; the context module is PPM,
 APPM or none. ``ESANet`` is the static baseline: depth always fused.
 
+``ESANetConfig.activation`` is relu, swish (alias silu) or hswish in any
+casing, normalised when the config is made. The TPU kernels of the SE cell
+and the NBt1D block fuse relu, so a swish or hswish net runs those cells
+in PyTorch ops (the SE MLP with the net's activation) and NBt1D blocks on
+their cuDNN convs; its stem keeps ``channel_sums`` and ``stem_fuse_pool``
+and its decoder ``learned_upsample``, which compute no activation.
+
 ``ESANetConfig.dtype`` is the compute dtype (parameters stay fp32): None or
 fp32, or bf16 in eval for every model of the family (the global-gate
 SkipGateESANet, the static ESANet, the local-gate SkipESANet and
@@ -43,7 +50,8 @@ from dynmm_tpu_torch.models.context import get_context_module
 from dynmm_tpu_torch.models.resnet import NonBottleneck1D, ResNet, make_resnet
 from dynmm_tpu_torch.nn.layers import (Conv2d, ConvBNAct,
                                        SqueezeAndExciteFusionAdd, Upsample,
-                                       nchw, nhwc, set_compute_dtype)
+                                       activation_name, nchw, nhwc,
+                                       set_compute_dtype)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -68,6 +76,11 @@ class ESANetConfig:
     # for the encoder stages' convs, the decoder's ConvBNActs, NBt1D blocks
     # and conv_out, and the skip projections
     quant: str | None = None
+
+    def __post_init__(self):
+        # one name a net: "ReLU" is relu, "silu" is swish (the JAX table)
+        object.__setattr__(self, "activation",
+                           activation_name(self.activation))
 
 
 def compute_in(module: nn.Module, cfg: ESANetConfig) -> None:

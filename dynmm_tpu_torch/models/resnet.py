@@ -4,10 +4,12 @@
 
 ``ResNet.stem`` is the raw 7×7/2 conv + BN + act (the caller max-pools);
 ``layer1..layer4`` run the four stages. In eval every stride-1
-NonBottleneck1D block without a downsample runs on packed weights (BN folded
-from the running statistics) through ``nbt1d_block``: one ``nbt1d_fused``
-launch up to ``NBT1D_FUSED_MAX_C`` (64) channels, two ``nbt1d_pair``
-launches above; the stride-2 block0s stay plain torch convs. ``BasicBlock``
+NonBottleneck1D block without a downsample of a relu net runs on packed
+weights (BN folded from the running statistics) through ``nbt1d_block``:
+one ``nbt1d_fused`` launch up to ``NBT1D_FUSED_MAX_C`` (64) channels, two
+``nbt1d_pair`` launches above; the stride-2 block0s stay plain torch convs.
+The NBt1D kernels fuse relu, as the TPU kernels do, so a swish or hswish
+net's blocks run their unfused cuDNN convs. ``BasicBlock``
 and ``Bottleneck`` are plain cuDNN convs and BN (eps 1e-5) in every mode:
 no TPU kernel covers them. In training every block runs its unfused convs
 with BN on batch statistics, as the JAX model does (the kernels are
@@ -38,8 +40,8 @@ import torch.nn.functional as F
 
 from dynmm_tpu_torch.kernels.nbt1d import fold_bn, nbt1d_block
 from dynmm_tpu_torch.nn.layers import (BatchNorm2d, Conv2d, Packed,
-                                       get_activation, max_pool_3x3_s2, nchw,
-                                       nhwc)
+                                       activation_name, get_activation,
+                                       max_pool_3x3_s2, nchw, nhwc)
 
 RESNET_LAYERS = {"resnet18": (2, 2, 2, 2), "resnet34": (3, 4, 6, 3),
                  "resnet50": (3, 4, 6, 3)}
@@ -73,8 +75,10 @@ class NonBottleneck1D(Packed):
                            if has_downsample else None)
         self.act = get_activation(activation)
         # the kernel's block: stride 1, identity skip, no dilation, relu
+        # (the TPU kernels fuse relu; a swish or hswish block runs its convs)
         self.fusable = (stride == 1 and not has_downsample and d == 1
-                        and in_planes == planes and activation == "relu")
+                        and in_planes == planes
+                        and activation_name(activation) == "relu")
         self.repack()
 
     @property

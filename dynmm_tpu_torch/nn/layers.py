@@ -23,6 +23,14 @@ and writes bf16, as flax's BN at ``dtype=bf16``. Every module computes in
 the dtype of the map it is given: the stems cast the fp32 images to the
 model's dtype, and the global gate casts back to fp32.
 
+Activations (``get_activation``): relu, swish (alias silu) and hswish;
+a bf16 map takes the JAX package's formulas op by op, so it rounds where
+XLA rounds it. The SE kernels compute a relu MLP, as the TPU kernels do:
+a swish or hswish SE cell computes its recalibration in PyTorch ops
+(``SqueezeAndExcitation.scaled``, ``SqueezeAndExciteFusionAdd.fuse_mixed``),
+and its stem cell keeps ``channel_sums`` and ``stem_fuse_pool`` around an
+MLP on its activation.
+
 int8 (``Conv2d(quant=...)``, ``nn/quant.py``): a quantized conv quantizes
 its input with its calibrated scale and convolves int8 with int8, exact in
 int32, then dequantizes in fp32 and casts to the map's dtype; every other
@@ -62,33 +70,61 @@ def nchw(x: torch.Tensor) -> torch.Tensor:
 
 
 def swish(x):
-    return x * torch.sigmoid(x)
+    """``x · sigmoid(x)``. A bf16 map takes the JAX formula op by op, each
+    step rounded to bf16, as XLA computes it (its bf16 logistic rounds
+    ``exp``, the ``1 +`` and the division; ``F.silu`` rounds once and
+    lands one bf16 step away on a third of the inputs). Wider maps take
+    ``F.silu``: one pass, and only ``x`` kept for the gradient, where the
+    formula's two ops keep ``sigmoid(x)`` too; it is the formula within an
+    fp32 rounding."""
+    if x.dtype == torch.bfloat16:
+        return x * (1.0 / (1.0 + torch.exp(-x)))
+    return F.silu(x)
 
 
 def hswish(x):
-    return x * F.relu6(x + 3.0) / 6.0
+    """``x · relu6(x + 3) / 6``: op by op for a bf16 map, as XLA computes
+    it (``F.hardswish`` rounds once), ``F.hardswish`` otherwise (one pass;
+    the formula within an fp32 rounding)."""
+    if x.dtype == torch.bfloat16:
+        return x * F.relu6(x + 3.0) / 6.0
+    return F.hardswish(x)
 
 
-_ACTIVATIONS: dict[str, tuple[Callable, type[nn.Module]]] = {
-    "relu": (torch.relu, nn.ReLU),
-    "swish": (swish, nn.SiLU),
-    "silu": (swish, nn.SiLU),
-    "hswish": (hswish, nn.Hardswish),
+# the JAX package's table
+_ACTIVATIONS: dict[str, Callable] = {
+    "relu": torch.relu,
+    "swish": swish,
+    "silu": swish,
+    "hswish": hswish,
 }
+
+
+def activation_name(name: str) -> str:
+    """The activation's name as the port keys it: lower case, with
+    ``silu`` as ``swish`` (the JAX table's alias); raises on a name the
+    JAX package does not know."""
+    key = name.lower()
+    if key not in _ACTIVATIONS:
+        raise NotImplementedError(
+            f"Only relu, swish and hswish are supported. Got {name}")
+    return "swish" if key == "silu" else key
 
 
 def get_activation(name: str) -> Callable:
     """Activation function by the reference's names."""
-    try:
-        return _ACTIVATIONS[name.lower()][0]
-    except KeyError:
-        raise NotImplementedError(
-            f"Only relu, swish and hswish are supported. Got {name}")
+    return _ACTIVATIONS[activation_name(name)]
 
 
-def activation_module(name: str) -> nn.Module:
-    get_activation(name)
-    return _ACTIVATIONS[name.lower()][1]()
+class Activation(nn.Module):
+    """``get_activation(name)`` as a module (the SE MLPs' ``fc[1]``)."""
+
+    def __init__(self, name: str):
+        super().__init__()
+        self.fn = get_activation(name)
+
+    def forward(self, x):
+        return self.fn(x)
 
 
 def _after_load(module: nn.Module, _keys) -> None:
@@ -311,17 +347,21 @@ def max_pool_3x3_s2(x: torch.Tensor) -> torch.Tensor:
 
 class SqueezeAndExcitation(Packed):
     """global pool → 1×1 reduce → act → 1×1 expand → sigmoid → scale.
-    ``weights()`` are the MLP in the JAX layout, w1 (C, C/r), w2 (C/r, C)."""
+    ``weights()`` are the MLP in the JAX layout, w1 (C, C/r), w2 (C/r, C).
+
+    The single-map SE kernel (``fused_se``) computes a relu MLP, as the
+    TPU kernel does; a swish or hswish cell computes ``x · se(x)`` in
+    PyTorch ops (``scaled``), decided when the module is built."""
 
     def __init__(self, channels: int, reduction: int = 16,
                  activation: str = "relu"):
         super().__init__()
         cr = channels // reduction
         self.fc = nn.Sequential(
-            nn.Conv2d(channels, cr, 1), activation_module(activation),
+            nn.Conv2d(channels, cr, 1), Activation(activation),
             nn.Conv2d(cr, channels, 1), nn.Sigmoid())
         self.act = get_activation(activation)
-        self.relu = activation.lower() == "relu"
+        self.relu = activation_name(activation) == "relu"
         self.repack()
 
     def _mlp(self):
@@ -345,22 +385,30 @@ class SqueezeAndExcitation(Packed):
         return torch.sigmoid(
             self.act(x_nhwc.mean(dim=(1, 2)) @ w1 + b1) @ w2 + b2)
 
+    def map_scale(self, x: torch.Tensor) -> torch.Tensor:
+        """The (B, C) scale of an NCHW map in the map's dtype, rounded as
+        the fused cells round it (``kernels/se.py::map_scale``), on this
+        cell's activation."""
+        return map_scale(x, *self.weights(), dims=(2, 3), act=self.act)
+
+    def scaled(self, x: torch.Tensor) -> torch.Tensor:
+        """``x · se(x)`` (NCHW) in PyTorch ops, rounded as the fused cells
+        round it."""
+        return x * self.map_scale(x)[:, :, None, None]
+
     def forward(self, x):
         if x.dtype == self.fc[0].weight.dtype:
             return x * self.fc(x.mean(dim=(2, 3), keepdim=True))
         # a map of the model's compute dtype: the fused cells' rounding
-        if not self.relu:
-            raise NotImplementedError(
-                "the fused SE cells take relu SE MLPs; swish/hswish wait")
-        return x * map_scale(x, *self.weights(), dims=(2, 3))[:, :, None, None]
+        return self.scaled(x)
 
     def recalibrate(self, x, use_kernels: bool = True):
         """``x · se(x)`` (NCHW) as the single-map ``fused_se`` cell (its
         plain version ``se_reference`` without ``use_kernels``), fp32 or
-        bf16; at bf16 it rounds as ``map_scale`` does."""
+        bf16; at bf16 it rounds as ``map_scale`` does. A swish or hswish
+        cell takes ``scaled`` either way."""
         if not self.relu:
-            raise NotImplementedError(
-                "the fused SE cells take relu SE MLPs; swish/hswish wait")
+            return self.scaled(x)
         b, c, h, w = x.shape
         fn = fused_se if use_kernels else se_reference
         y = fn(nhwc(x).reshape(b, h * w, c), *self.weights())
@@ -385,7 +433,7 @@ class SqueezeAndExcitationWeight(nn.Module):
         super().__init__()
         cr = channels // reduction
         self.fc = nn.Sequential(
-            Conv2d(channels, cr, 1), activation_module(activation),
+            Conv2d(channels, cr, 1), Activation(activation),
             Conv2d(cr, channels, 1), nn.Sigmoid())
 
     def from_means(self, means: torch.Tensor,
@@ -442,43 +490,52 @@ class SqueezeAndExciteReweigh(nn.Module):
 
 
 class SqueezeAndExciteFusionAdd(nn.Module):
-    """ESANet fusion cell: per-modality SE recalibration, then add."""
+    """ESANet fusion cell: per-modality SE recalibration, then add.
+
+    A relu cell runs the ``se_fuse_mixed`` kernel cell (the stem: the
+    ``channel_sums`` + ``stem_fuse_pool`` cell). The TPU SE kernel fuses a
+    relu MLP, so a swish or hswish cell runs ``fuse_mixed`` in PyTorch ops,
+    the JAX module's algebra; its stem keeps both kernels, which have no
+    activation, and computes its MLP with the cell's activation."""
 
     def __init__(self, channels: int, activation: str = "relu"):
         super().__init__()
         self.se_rgb = SqueezeAndExcitation(channels, activation=activation)
         self.se_depth = SqueezeAndExcitation(channels, activation=activation)
-        self.relu = activation.lower() == "relu"
+        self.relu = self.se_rgb.relu
 
     def forward(self, rgb, depth, use_kernels: bool = True):
         """``se(rgb) + se(depth)`` (NCHW), the unmixed fusion of
-        ``forward_switch``. With ``use_kernels`` it is the ``se_fuse_mixed``
-        cell at w = 0, which is exactly that sum."""
+        ``forward_switch``. With ``use_kernels`` it is ``fuse_mixed`` at
+        w = 0, which is exactly that sum."""
         if not use_kernels:
             return self.se_rgb(rgb) + self.se_depth(depth)
         return self.fuse_mixed(rgb, depth, rgb.new_zeros(rgb.shape[0]))
 
-    def _require_relu(self):
-        if not self.relu:
-            raise NotImplementedError(
-                "the fused SE cells take relu SE MLPs; swish/hswish wait")
-
     def fuse_mixed(self, rgb, depth, w_rgb, use_kernels: bool = True):
         """``w·rgb + (1−w)·(se(rgb) + se(depth))`` with the per-sample mix
         folded into the SE scale vectors (NCHW in and out; ``w_rgb`` (B,)),
-        as the ``se_fuse_mixed`` kernel cell."""
-        self._require_relu()
+        as the ``se_fuse_mixed`` kernel cell; a swish or hswish cell in
+        PyTorch ops, rounding where the kernel cell rounds."""
+        if not self.relu:
+            s_r = self.se_rgb.map_scale(rgb)
+            s_d = self.se_depth.map_scale(depth)
+            w = w_rgb[:, None].to(s_r.dtype)
+            s_r = w + (1.0 - w) * s_r
+            s_d = (1.0 - w) * s_d
+            return rgb * s_r[:, :, None, None] + depth * s_d[:, :, None, None]
         args = (*self.se_rgb.weights(), *self.se_depth.weights())
         fuse = se_fuse_mixed if use_kernels else se_fuse_mixed_plain
         return nchw(fuse(nhwc(rgb), nhwc(depth), w_rgb.contiguous(), *args))
 
     def fuse_and_pool(self, rgb, depth, use_kernels: bool = True):
         """Stem tail: (pool(se_fusion_add(rgb, depth)), pool(depth)), NCHW,
-        as the ``channel_sums`` + ``stem_fuse_pool`` kernel cell."""
-        self._require_relu()
+        as the ``channel_sums`` + ``stem_fuse_pool`` kernel cell, its SE
+        MLP on the cell's activation."""
         fused, dpool = stem_se_fusion_pool(
             nhwc(rgb), nhwc(depth), *self.se_rgb.weights(),
-            *self.se_depth.weights(), use_kernels=use_kernels)
+            *self.se_depth.weights(), act=self.se_rgb.act,
+            use_kernels=use_kernels)
         return nchw(fused), nchw(dpool)
 
 

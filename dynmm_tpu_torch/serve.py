@@ -69,7 +69,8 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> None:
 def build_flagship(height: int = 480, width: int = 640, num_classes: int = 40,
                    device=None, seed: int = 0, encoder: str = "resnet34",
                    dtype: torch.dtype | None = None,
-                   quant: str | None = None) -> SkipGateESANet:
+                   quant: str | None = None,
+                   activation: str = "relu") -> SkipGateESANet:
     """The flagship with seeded random weights, in eval, on ``device``
     (``None`` = the card; raises without one unless ``device="cpu"``).
     ``encoder="resnet50"``: the same net on Bottleneck ResNet50 encoders
@@ -77,12 +78,13 @@ def build_flagship(height: int = 480, width: int = 640, num_classes: int = 40,
     the compute dtype (None: fp32); the seeded weights do not depend on
     it. ``quant="int8"``: the net with quantized convs (``nn/quant.py``),
     which ``utils/quantize.py::quantize_int8`` calibrates and packs before
-    it serves."""
+    it serves. ``activation``: relu, swish or hswish (the swish and hswish
+    nets run their SE cells and NBt1D blocks in PyTorch ops)."""
     dev = resolve_device(device)
     model = SkipGateESANet(ESANetConfig(
         height=height, width=width, num_classes=num_classes,
         encoder_rgb=encoder, encoder_depth=encoder, dtype=dtype,
-        quant=quant))
+        quant=quant, activation=activation))
     init_weights(model, torch.Generator().manual_seed(seed))
     return model.to(dev, memory_format=torch.channels_last).eval()
 

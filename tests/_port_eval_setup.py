@@ -190,7 +190,8 @@ def bf16_class_maps(argv: list[str], variables: dict,
     model = build_model(args, 40)
     load_any_checkpoint(model, args.ckpt_path)
     model = model.to(memory_format=torch.channels_last).eval()
-    jm = jax_model(static=static, dtype=jnp.bfloat16)
+    jm = jax_model(static=static, dtype=jnp.bfloat16,
+                   activation=args.activation)
     apply = jax.jit(lambda v, r, d: jm.apply(v, r, d, train=False, **kw))
     port, ref = [], []
     for b in loader:
@@ -245,10 +246,12 @@ def int8_class_maps(argv: list[str], variables: dict,
                                    for b in calib], **kw)
     dtype = jnp.bfloat16 if args.dtype == "bfloat16" else None
     qcoll = jax_quantize.calibrate(
-        jax_model(static=static, quant="calib"), variables,
+        jax_model(static=static, quant="calib",
+                  activation=args.activation), variables,
         [tuple(map(jnp.asarray, b)) for b in calib], train=False, **kw)
     packed = jax_quantize.pack_weights({**variables, "quant": qcoll})
-    jm = jax_model(static=static, quant="int8", dtype=dtype)
+    jm = jax_model(static=static, quant="int8", dtype=dtype,
+                   activation=args.activation)
     apply = jax.jit(lambda v, r, d: jm.apply(v, r, d, train=False,
                                              low_res=True, **kw))
     port, ref = [], []

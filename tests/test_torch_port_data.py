@@ -2,11 +2,14 @@
 
 ``SyntheticSegDataset``, ``SegPreprocessor`` (both phases), ``SegLoader``
 and ``make_recipe_eval_batch`` must give identical arrays from the same
-seeds (the port resizes through its copy of the native library where the
-JAX package falls back to cv2 for uint8 labels: same cv2 semantics).
+seeds (the port resizes through its copy of the native library, and
+uint8 labels by cv2's nearest rule, which the JAX package takes through
+cv2 for them).
 ``ConfusionMatrix``, ``confusion_update_counts`` and
 ``compute_class_weights`` must give identical numbers. Tolerance: exact,
 except the class weights (float64 arithmetic in the same order: exact too)."""
+
+import time
 
 import jax.numpy as jnp
 import numpy as np
@@ -87,6 +90,46 @@ def test_loader_batches_identical(phase):
         assert len(batches) == 3
         for a, b in batches:
             _assert_tree_equal(a, b)
+
+
+def test_uint8_label_resize_matches_jax():
+    """uint8 labels at ratios where cv2's nearest rule and the native one
+    pick other rows (164 → 20: ``15 · 8.2`` rounds below 123 in double)."""
+    from dynmm_tpu_torch.data.seg_preprocessing import _resize
+
+    rng = np.random.default_rng(7)
+    for h, w in ((164, 139), (116, 81), (46, 194), (480, 640)):
+        label = rng.integers(0, 41, (h, w)).astype(np.uint8)
+        for r in (8, 16, 32):
+            ours = _resize(label, w // r, h // r, True)
+            ref = jax_pre._resize(label, w // r, h // r, True)
+            assert ours.dtype == ref.dtype == np.uint8
+            np.testing.assert_array_equal(ours, ref)
+
+
+def test_draw_sample_moves_the_stream_as_an_abandoned_pass():
+    """``draw_sample`` leaves the loader where ``next(iter(loader))`` of
+    the JAX loader leaves it once its prefetch thread has stopped (the
+    sample batch ``train.py`` draws for its init): the same sample, then
+    the same batches in the next pass. Six batches, so the thread stops on
+    its full queue before the pass ends."""
+    ours = nyuv2.SyntheticSegDataset(n=12, height=H, width=W, split="train")
+    ref = jax_nyuv2.SyntheticSegDataset(n=12, height=H, width=W,
+                                        split="train")
+    kw = dict(batch_size=2, shuffle=True, drop_last=True, seed=3)
+    l_ours = SegLoader(ours, SegPreprocessor(ours.depth_mean, ours.depth_std,
+                                             H, W), **kw)
+    l_ref = jax_pre.SegLoader(ref, jax_pre.SegPreprocessor(
+        ref.depth_mean, ref.depth_std, H, W), **kw)
+    _assert_tree_equal(l_ours.draw_sample(), next(iter(l_ref)))
+    state = None
+    for _ in range(100):  # until the JAX pass's thread has stopped drawing
+        time.sleep(0.1)
+        if state == l_ref._rng.bit_generator.state:
+            break
+        state = l_ref._rng.bit_generator.state
+    for a, b in zip(l_ours, l_ref):
+        _assert_tree_equal(a, b)
 
 
 def test_recipe_eval_batch_identical():

@@ -11,8 +11,9 @@ the files' size): hard, the noise runs, quarter resolution, capacity factor
 Also the ``.pth`` import (``utils/torch_import.py``) against the JAX
 importer: a state_dict with an extra key, a missing gate key and BN
 counters loads into the same parameters with the same unconsumed key, in
-the library and through the CLI; whole-module pickles load; the flags the
-port does not have yet raise naming their ROADMAP item.
+the library and through the CLI; whole-module pickles load; the nets the
+JAX factory refuses to quantize raise as there. ``--activation swish``
+scores the swish nets against the JAX CLI's (fp32 and bf16).
 
 ``--dtype bfloat16`` scores the net in bf16 against the JAX CLI at bf16:
 the two packages round at other points, so the class maps are held equal
@@ -325,23 +326,49 @@ def test_eval_int8_matches_jax(layout, monkeypatch, calib):
     _compare(jax_out, port_out)
 
 
-# the int8 cases: the nets --quant int8 does not take, the local-gate net
-# (the JAX factory's refusal) and the one-modality net (no quantized conv);
-# bf16 scores every net, so its case is bf16 with swish on the static net
+# the nets --quant int8 does not take, which the JAX factory refuses too:
+# the local-gate net and the one-modality net (no quantized conv)
 @pytest.mark.parametrize("flags, drop, match", [
     (["--quant", "int8"], ("--global-gate",),
      "--quant supports global-gate / static models only"),
     (["--quant", "int8", "--modality", "rgb"],
-     ("--dynamic", "--global-gate"), "only, not ESANetOneModality"),
-    (["--dtype", "bfloat16", "--activation", "swish"],
-     ("--dynamic", "--global-gate"), "ROADMAP A7"),
-    (["--activation", "swish"], (), "ROADMAP A7")],
-    ids=["int8", "int8-one-modality", "bf16", "swish"])
+     ("--dynamic", "--global-gate"), "only, not ESANetOneModality")],
+    ids=["int8", "int8-one-modality"])
 def test_unported_eval_flags_raise(layout, flags, drop, match):
     args = [a for a in layout["args"] if a not in drop]
     with pytest.raises(NotImplementedError, match=match):
         port_eval.main([*args, "--ckpt_path", layout["ckpt"], "--device",
                         "cpu", *flags])
+
+
+@pytest.mark.parametrize("net", ["bf16", "swish"])
+def test_eval_swish_matches_jax(layout, request, monkeypatch, net):
+    """The swish nets of the relu checkpoints (an activation has no
+    weights), scored by both CLIs on the same flags: ``swish``, the fp32
+    global-gate net, its mIoU within 0.05 points and its branch-ratio line
+    equal (``_compare``); ``bf16``, the bf16 static net, by the margin rule
+    of ``test_eval_static_bf16_matches_jax``."""
+    if net == "swish":
+        argv = [*layout["args"], "--ckpt_path", layout["ckpt"],
+                "--activation", "swish"]
+        _compare(run_jax_cli("eval", argv, monkeypatch),
+                 run_port_cli(port_eval, argv))
+        return
+    static = request.getfixturevalue("static")
+    argv = [*static["args"], "--dtype", "bfloat16", "--activation", "swish"]
+    jax_out = run_jax_cli("eval", argv, monkeypatch)
+    port_out = run_port_cli(port_eval, argv)
+    j, p = run_mious(jax_out), run_mious(port_out)
+    maps = bf16_class_maps(argv, static["variables"], label_size=True,
+                           static=True)
+    print(f"static swish bf16 eval mIoU: JAX {j}, port {p}; class maps "
+          f"equal on the {maps['sure'].mean() * 100:.2f} % of pixels with "
+          f"margin > 2x{maps['err']:.3g}")
+    assert len(j) == len(p) == 1
+    assert maps["err"] < 5e-2 * maps["scale"]
+    assert maps["sure"].mean() > 0.25
+    np.testing.assert_array_equal(maps["port"][maps["sure"]],
+                                  maps["jax"][maps["sure"]])
 
 
 @pytest.mark.parametrize("mode", ["noise", "quarter", "capacity", "packed"])

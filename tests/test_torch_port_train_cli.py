@@ -4,14 +4,18 @@ with the header the JAX trainer wrote for the recipe run, confusion-matrix
 pickles, the rolling and best checkpoints, ``finished.txt``); the best
 checkpoint loads into the JAX model and gives the port's eval logits
 (within 1e-4 of their largest magnitude, identical gate choices);
-``--last_ckpt`` resumes at the next epoch; flags of features not ported
-raise (those ported since parse and build their models); ``--finetune`` reads a reference-style
+``--last_ckpt`` resumes at the next epoch; ``--activation swish`` trains
+as JAX's ``train.py`` does on the same flags and weights; flags of
+features not ported raise (those ported since parse and build their
+models); ``--finetune`` reads a reference-style
 ``.pth``; ``--he_init`` re-draws the same kernels as the JAX package's."""
 
 import csv
 import json
 import os
 import pickle
+import re
+import shutil
 import subprocess
 import sys
 from pathlib import Path
@@ -23,12 +27,14 @@ import numpy as np
 import pytest
 import torch
 
+from _port_eval_setup import run_jax_cli, run_port_cli
 from _port_train_setup import compile_fast
 from _port_train_setup import one_torch_thread  # noqa: F401 (autouse)
 from dynmm_tpu.models.esanet import ESANetConfig as JaxConfig
 from dynmm_tpu.models.skip_gate import SkipGateESANet as JaxSkipGate
 from dynmm_tpu.utils import checkpoint as jax_ckpt
 from dynmm_tpu.utils.init import apply_he_init as jax_he_init
+from dynmm_tpu_torch.cli import train as train_cli
 from dynmm_tpu_torch.cli.seg_build import build_config, build_model
 from dynmm_tpu_torch.cli.train import parse_args
 from dynmm_tpu_torch.data.nyuv2 import make_recipe_eval_batch
@@ -136,12 +142,44 @@ def test_last_ckpt_resumes_at_the_next_epoch(run_dir, tmp_path):
 
 
 @pytest.mark.parametrize("flags", [
-    ["--activation", "swish"], ["--mesh-data", "2"], ["--dtype", "bfloat16"],
-    ["--quant", "int8"]],
+    ["--mesh-data", "2"], ["--dtype", "bfloat16"], ["--quant", "int8"]],
     ids=lambda f: f[0].lstrip("-"))
 def test_unported_flags_raise(flags):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         parse_args([*TINY, *flags])
+
+
+def _epoch_lines(text: str) -> list[list[str]]:
+    """The fields of each epoch's train-loss and test-mIoU lines."""
+    return [re.split(r" \| |: | ", ln) for ln in text.splitlines()
+            if ln.startswith(("Epoch ", "Test mIoU"))]
+
+
+def test_swish_train_matches_jax(run_dir, tmp_path, monkeypatch):
+    """``--activation swish`` through both train CLIs on the same flags,
+    from the same weights (``--finetune`` of the relu run's checkpoint: an
+    activation has no weights), one step (``--synthetic_n 2``): the
+    epoch's train-loss line, and the test-mIoU line after the step, as the
+    JAX CLI's, the numbers within the last printed digit (fp32 sums in
+    other orders), the temperature and lr fields equal."""
+    flags = ["--activation", "swish", "--epochs", "1", "--synthetic_n", "2",
+             "--finetune", str(run_dir / "ckpt_latest.msgpack")]
+    argv = [a for a in TINY if a not in ("--device", "cpu")] + flags
+    jax_out = run_jax_cli("train", [*argv, "--results_dir",
+                                    str(tmp_path / "jax")], monkeypatch)
+    port_out = run_port_cli(train_cli, [*argv, "--results_dir",
+                                        str(tmp_path / "port")])
+    shutil.rmtree(tmp_path)  # both runs' checkpoints
+    got, want = _epoch_lines(port_out), _epoch_lines(jax_out)
+    print("port:", got, "\nJAX: ", want)
+    assert len(got) == len(want) == 2
+    for g, w in zip(got, want):
+        assert len(g) == len(w)
+        for a, b in zip(g, w):
+            try:
+                assert float(a) == pytest.approx(float(b), rel=0, abs=2e-4)
+            except ValueError:
+                assert a == b
 
 
 @pytest.mark.parametrize("flags", [
