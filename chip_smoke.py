@@ -72,7 +72,8 @@ Run from the root of a checkout on a machine with one NVIDIA GPU:
    into a fresh model giving equal eval logits (error 0), and one step
    resumed from that checkpoint against one more step of the trained state
    (every parameter and BN statistic within 1e-5 relative). Prints the ms
-   per train step (median after the first) and the peak memory.
+   per train step (median after the first) and the peak memory, and keeps
+   the rolling checkpoint's payload for phase 17.
 7. Modality-level DynMM (no kernel of the port runs here; the six launch
    counters must not move). Serves the MM-IMDB router at B=4096 (text 300,
    image 4096) and the CMU-MOSEI router at B=1024, T=50, lengths full (the
@@ -241,8 +242,28 @@ Run from the root of a checkout on a machine with one NVIDIA GPU:
    ``serve()``'s maps); one dense B=8 export of the swish net replayed with
    error 0 and the same launches; request ms of the relu, swish and hswish
    flagships in turns at B=8 and B=1. Prints its seconds by part.
-16. Prints the kernels' JSON line (launches summed over phases 3-6 and
-   8-15; phase 14's are its replays'), the card line, and last
+17. (Runs after phase 15, before phase 16's lines.) bf16 training: train-mode
+   BN of bf16 maps at the flagship's BN shapes, forward and backward: the
+   port's ``BatchNorm2d`` (``F.batch_norm`` on a channels-last bf16 map)
+   bit-equal to ``_WideBatchNorm`` (the JAX BN's order, the port's form on
+   the CPU and for contiguous maps) in output, gradients and running
+   statistics, both layouts. Then phase 6 at ``dtype=torch.bfloat16``: ``SegTrainer.fit`` on the
+   480×640 flagship (seeded weights, SGD, lr 0.01, loss ratio 1e-4, soft
+   gate) for 2 epochs of 2 steps of B=8, validating each epoch: finite
+   losses, no kernel launch in a train step, ``EXPECTED_BF16`` in each
+   validation forward; on the trained weights the bf16 kernel eval path
+   against the bf16 plain one (phase 12's limits); the rolling checkpoint
+   in a fresh bf16 trainer bit-equal to the file (weights, BN statistics,
+   optimizer state), then one step against one more step of the trained
+   state (max rel err ≤ 1e-3, and below the same step from a fresh
+   optimizer). Phase 6's fp32 checkpoint, written again by the port's
+   writer, loads its optax-layout ``opt_state`` into an fp32 trainer on
+   the card (momentum buffers on the card, bit-equal to the file) and
+   takes a finite step. Prints ms per bf16 train step (median after the
+   first, and of 5 more steps back to back on one batch after the resume)
+   and peak memory beside phase 6's fp32 figures, and its seconds.
+16. Prints the kernels' JSON line (launches summed over phases 3-6, 8-15
+   and 17; phase 14's are its replays'), the card line, and last
    ``{"ok": true, "device": {...}}``.
 
 TF32 is switched off for cuDNN convolutions and matmuls here, so the kernels
@@ -1296,27 +1317,23 @@ def check_r50(report: dict) -> dict:
     return launches
 
 
-def check_train(report: dict) -> dict:
-    import shutil
-    import statistics
+TRAIN_EPOCHS, TRAIN_STEPS = 2, 2  # phases 6 and 17: epochs of steps of B=8
 
+
+def _train_data():
+    """Phases 6 and 17's data and settings: (train loader, valid loader,
+    class weights, config). Synthetic 480×640 batches, half of them
+    depth-needed; the recipe's stage B
+    (bench_assets/gate_recipe_logs/stage_b_argsv.txt), its first epochs:
+    epoch_hard 60 keeps the gate soft."""
     from dynmm_tpu_torch.cli.seg_build import compute_class_weights
-    from dynmm_tpu_torch.core.schedules import ExpDecayTemp
     from dynmm_tpu_torch.data.nyuv2 import SyntheticSegDataset
     from dynmm_tpu_torch.data.seg_preprocessing import SegLoader, SegPreprocessor
-    from dynmm_tpu_torch.kernels import LAUNCHES, reset_launches
-    from dynmm_tpu_torch.models.esanet import ESANetConfig
-    from dynmm_tpu_torch.models.skip_gate import SkipGateESANet
-    from dynmm_tpu_torch.nn.layers import pack_weights
-    from dynmm_tpu_torch.serve import build_flagship
-    from dynmm_tpu_torch.train.seg import (DOWN_RATES, SegTrainConfig,
-                                           SegTrainer)
-    from dynmm_tpu_torch.utils.checkpoint import load_ckpt
-    from dynmm_tpu_torch.utils.weights import load_checkpoint_into
+    from dynmm_tpu_torch.train.seg import SegTrainConfig
 
-    epochs, steps = 2, 2
-    train_ds = SyntheticSegDataset(n=steps * BATCH, height=HEIGHT, width=WIDTH,
-                                   split="train", mixed_modality_frac=0.5)
+    train_ds = SyntheticSegDataset(n=TRAIN_STEPS * BATCH, height=HEIGHT,
+                                   width=WIDTH, split="train",
+                                   mixed_modality_frac=0.5)
     test_ds = SyntheticSegDataset(n=BATCH, height=HEIGHT, width=WIDTH,
                                   split="test", mixed_modality_frac=0.5)
     pre = lambda phase: SegPreprocessor(train_ds.depth_mean, train_ds.depth_std,
@@ -1326,15 +1343,26 @@ def check_train(report: dict) -> dict:
     valid_loader = SegLoader(test_ds, pre("test"), batch_size=BATCH)
     class_weights = compute_class_weights(train_ds, CLASSES,
                                           "median_frequency")
-    # the recipe's stage B (bench_assets/gate_recipe_logs/stage_b_argsv.txt),
-    # its first epochs: epoch_hard 60 keeps the gate soft
-    cfg = SegTrainConfig(epochs=epochs, lr=0.01, optimizer="SGD",
+    cfg = SegTrainConfig(epochs=TRAIN_EPOCHS, lr=0.01, optimizer="SGD",
                          loss_ratio=1e-4, temp=1.0, end_temp=0.001,
                          epoch_hard=60, eval_every=1, batch_size=BATCH)
-    model = build_flagship(HEIGHT, WIDTH, CLASSES, seed=3)
+    return train_loader, valid_loader, class_weights, cfg
+
+
+def _fit_counted(model, data, ckpt_dir: Path) -> dict:
+    """``SegTrainer.fit`` of ``model`` on ``data`` (``_train_data``) into
+    ``ckpt_dir``, each train step timed (ending in a synchronize) with its
+    launches counted, each eval forward's launches recorded; the counts at 0
+    just before the fit, read just after. Returns the trainer, its state and
+    the fit's figures."""
+    import shutil
+
+    from dynmm_tpu_torch.kernels import LAUNCHES, reset_launches
+    from dynmm_tpu_torch.train.seg import SegTrainer
+
+    train_loader, valid_loader, class_weights, cfg = data
     trainer = SegTrainer(model, cfg, class_weights)
     state = trainer.init_state()
-
     steps_run, forwards = [], []
     train_step, model_forward = trainer.train_step, model.forward
 
@@ -1360,7 +1388,6 @@ def check_train(report: dict) -> dict:
 
     trainer.train_step = timed_step
     model.forward = counted_forward
-    ckpt_dir = ROOT / "build" / "chip_smoke_train"
     shutil.rmtree(ckpt_dir, ignore_errors=True)
     torch.cuda.reset_peak_memory_stats()
     # the train path's run: counts at 0 just before, read just after
@@ -1373,6 +1400,50 @@ def check_train(report: dict) -> dict:
     launches = dict(LAUNCHES)
     peak = torch.cuda.max_memory_allocated()
     trainer.train_step, model.forward = train_step, model_forward
+    return {"trainer": trainer, "state": state, "steps": steps_run,
+            "forwards": forwards, "fit_s": fit_s, "peak": peak,
+            "launches": launches, "best_miou": best_miou}
+
+
+def _step_args(data) -> tuple:
+    """One more train step's arguments after the fit: the first train
+    batch on the card, the next epoch's temperature, soft, not ini."""
+    from dynmm_tpu_torch.core.schedules import ExpDecayTemp
+    from dynmm_tpu_torch.train.seg import DOWN_RATES
+
+    train_loader, _, _, cfg = data
+    tb = next(iter(train_loader))
+    return (torch.from_numpy(tb["image"]).cuda(),
+            torch.from_numpy(tb["depth"]).cuda(),
+            [torch.from_numpy(tb["label"]).cuda()]
+            + [torch.from_numpy(tb["label_down"][r]).cuda()
+               for r in DOWN_RATES],
+            ExpDecayTemp(cfg.temp, cfg.end_temp, cfg.epoch_hard)(TRAIN_EPOCHS),
+            False, False)
+
+
+def check_train(report: dict) -> dict:
+    import shutil
+    import statistics
+
+    from dynmm_tpu_torch.models.esanet import ESANetConfig
+    from dynmm_tpu_torch.models.skip_gate import SkipGateESANet
+    from dynmm_tpu_torch.nn.layers import pack_weights
+    from dynmm_tpu_torch.serve import build_flagship
+    from dynmm_tpu_torch.train.seg import SegTrainer
+    from dynmm_tpu_torch.utils.checkpoint import load_checkpoint, load_ckpt
+    from dynmm_tpu_torch.utils.weights import load_checkpoint_into
+
+    epochs, steps = TRAIN_EPOCHS, TRAIN_STEPS
+    data = _train_data()
+    _, valid_loader, class_weights, cfg = data
+    model = build_flagship(HEIGHT, WIDTH, CLASSES, seed=3)
+    ckpt_dir = ROOT / "build" / "chip_smoke_train"
+    fit = _fit_counted(model, data, ckpt_dir)
+    trainer, state, steps_run, forwards = (fit[k] for k in (
+        "trainer", "state", "steps", "forwards"))
+    fit_s, peak, launches, best_miou = (fit[k] for k in (
+        "fit_s", "peak", "launches", "best_miou"))
 
     if len(steps_run) != epochs * steps:
         raise RuntimeError(f"{len(steps_run)} train steps, expected "
@@ -1429,13 +1500,7 @@ def check_train(report: dict) -> dict:
 
     # one step resumed from the rolling checkpoint against one more step of
     # the trained state, on the same batch
-    tb = next(iter(train_loader))
-    args = (torch.from_numpy(tb["image"]).cuda(),
-            torch.from_numpy(tb["depth"]).cuda(),
-            [torch.from_numpy(tb["label"]).cuda()]
-            + [torch.from_numpy(tb["label_down"][r]).cuda() for r in DOWN_RATES],
-            ExpDecayTemp(cfg.temp, cfg.end_temp, cfg.epoch_hard)(epochs),
-            False, False)
+    args = _step_args(data)
     trainer.train_step(state, *args, torch.Generator())
     after = {k: v.detach().clone() for k, v in model.state_dict().items()}
     del state, trainer, model
@@ -1451,6 +1516,7 @@ def check_train(report: dict) -> dict:
           f"BN statistic {resume_rel:.3g}", flush=True)
     if resume_rel > 1e-5:
         raise RuntimeError("resumed training diverges from the trained state")
+    PHASE6_CKPT.update(load_checkpoint(latest))  # for phase 17
     shutil.rmtree(ckpt_dir, ignore_errors=True)
     report["train"] = {"steps": steps_run, "step_ms_median": step_ms,
                        "peak_memory_bytes": peak, "fit_s": fit_s,
@@ -1459,6 +1525,289 @@ def check_train(report: dict) -> dict:
                        "trained_kernels_vs_plain_rel_err": plain_rel,
                        "checkpoint_reload_max_abs_err": ckpt_err,
                        "resume_max_rel_err": resume_rel}
+    return launches
+
+
+# train-mode BN maps of the flagship at B=8: the stem, the four encoder
+# stages, the PPM's 1×1 and 5×5 bins
+BN_CHECK_SHAPES = [(BATCH, 64, HEIGHT // 2, WIDTH // 2),
+                   (BATCH, 64, HEIGHT // 4, WIDTH // 4),
+                   (BATCH, 128, HEIGHT // 8, WIDTH // 8),
+                   (BATCH, 256, HEIGHT // 16, WIDTH // 16),
+                   (BATCH, 512, HEIGHT // 32, WIDTH // 32),
+                   (BATCH, 256, 1, 1), (BATCH, 256, 5, 5)]
+# one step resumed from the bf16 rolling checkpoint against one more step of
+# the trained state, max rel err over every parameter and BN statistic
+# (5.1e-8 on the card): cuDNN's backward may sum in another order from run
+# to run, and a bf16 step amplifies a flipped rounding
+# (tests/test_torch_port_bf16_train.py); the same step from a fresh
+# optimizer lies ~0.14 away
+TRAIN_BF16_RESUME_TOL = 1e-3
+STEADY_STEPS = 5  # phase 17's bf16 steps timed back to back after the fit
+# phase 6's rolling checkpoint (fp32, SGD), read back before phase 6
+# deletes it: phase 17 loads its optax-layout opt_state on the card
+PHASE6_CKPT: dict = {}
+
+
+def _bn_in_bf16(card: str) -> dict:
+    """Train-mode BN of a bf16 map with fp32 parameters and running
+    buffers, forward and backward on a seeded cotangent: the port's
+    ``BatchNorm2d`` (on the card ``F.batch_norm`` on a channels-last bf16
+    map, ``_WideBatchNorm`` on a contiguous one) against ``_WideBatchNorm``
+    (the JAX BN's order: fp32 on the cast map, each result rounded once),
+    at the flagship's BN shapes, the map and its gradient channels-last
+    (the model's layout) or contiguous. The output, the input, weight and
+    bias gradients and the running statistics must be bit-equal."""
+    from dynmm_tpu_torch.nn.layers import BatchNorm2d, _WideBatchNorm
+
+    g = torch.Generator(device="cuda").manual_seed(17)
+    parts = ("output", "input grad", "weight grad", "bias grad",
+             "running mean", "running var")
+    differing = {}
+    for shape in BN_CHECK_SHAPES:
+        c = shape[1]
+        x = (torch.randn(shape, device="cuda", generator=g) * 3 + 1).to(
+            torch.bfloat16)
+        cot = torch.randn(shape, device="cuda", generator=g).to(
+            torch.bfloat16)
+        weight = torch.rand(c, device="cuda", generator=g) + 0.5
+        bias = torch.randn(c, device="cuda", generator=g)
+        for layout in (torch.channels_last, torch.contiguous_format):
+            def run(fn):
+                xi = x.contiguous(memory_format=layout).requires_grad_()
+                bn = BatchNorm2d(c).cuda().train()
+                with torch.no_grad():
+                    bn.weight.copy_(weight)
+                    bn.bias.copy_(bias)
+                y = fn(bn, xi)
+                y.backward(cot.contiguous(memory_format=layout))
+                return (y.detach(), xi.grad, bn.weight.grad, bn.bias.grad,
+                        bn.running_mean, bn.running_var)
+
+            port = run(lambda bn, t: bn(t))
+            wide = run(lambda bn, t: _WideBatchNorm.apply(
+                t, bn.weight, bn.bias, bn.running_mean, bn.running_var,
+                bn.momentum, bn.eps))
+            key = f"{tuple(shape)} {str(layout).split('.')[-1]}"
+            differing[key] = {p: int((a != b).sum().item())
+                              for p, a, b in zip(parts, port, wide)
+                              if a.dtype != b.dtype or not torch.equal(a, b)}
+    bad = {k: v for k, v in differing.items() if v}
+    print(f"  train-mode BN of a bf16 map, the port's BatchNorm2d "
+          f"(F.batch_norm on a channels-last map, else _WideBatchNorm) "
+          f"against _WideBatchNorm (fp32 on the cast map): output, "
+          f"gradients and running statistics bit-equal at "
+          f"{len(differing)} shapes and layouts: {not bad} "
+          f"{dict(list(bad.items())[:3])} [{card}]", flush=True)
+    if bad:
+        raise RuntimeError("the port's bf16 BN on the card rounds otherwise "
+                           f"than the JAX BN's order: {bad}")
+    return {"cases": len(differing), "bit_equal": True}
+
+
+def _same_bits(got, want, path: str = "") -> list:
+    """The paths where two trees of arrays differ in dtype, shape or bits."""
+    import numpy as np
+
+    if isinstance(want, dict):
+        if not isinstance(got, dict) or sorted(got) != sorted(want):
+            return [path or "/"]
+        return [p for k in want for p in _same_bits(got[k], want[k],
+                                                    f"{path}/{k}")]
+    got, want = np.asarray(got), np.asarray(want)
+    if (got.dtype, got.shape) != (want.dtype, want.shape):
+        return [path]
+    bits = f"u{got.dtype.itemsize}"
+    return [] if np.array_equal(got.view(bits), want.view(bits)) else [path]
+
+
+def check_train_bf16(report: dict) -> dict:
+    """Phase 17: phase 6's fit of the flagship at ``dtype=torch.bfloat16``;
+    the bf16 checkpoint resumed; phase 6's fp32 checkpoint's optax-layout
+    optimizer state loaded on the card."""
+    import shutil
+    import statistics
+
+    from dynmm_tpu_torch.nn.layers import first_argmax, pack_weights
+    from dynmm_tpu_torch.serve import build_flagship
+    from dynmm_tpu_torch.train.seg import SegTrainer
+    from dynmm_tpu_torch.utils.checkpoint import (load_checkpoint, load_ckpt,
+                                                  save_checkpoint)
+    from dynmm_tpu_torch.utils.device import card_line
+    from dynmm_tpu_torch.utils.weights import load_checkpoint_into
+
+    card = card_line()
+    t_phase = time.perf_counter()
+    section = {"card": card, "batch_norm": _bn_in_bf16(card)}
+
+    epochs, steps = TRAIN_EPOCHS, TRAIN_STEPS
+    data = _train_data()
+    _, valid_loader, class_weights, cfg = data
+    bf16 = torch.bfloat16
+    model = build_flagship(HEIGHT, WIDTH, CLASSES, seed=3, dtype=bf16)
+    ckpt_dir = ROOT / "build" / "chip_smoke_train_bf16"
+    fit = _fit_counted(model, data, ckpt_dir)
+    trainer, state, steps_run, forwards = (fit[k] for k in (
+        "trainer", "state", "steps", "forwards"))
+    fit_s, peak, launches, best_miou = (fit[k] for k in (
+        "fit_s", "peak", "launches", "best_miou"))
+
+    if len(steps_run) != epochs * steps:
+        raise RuntimeError(f"{len(steps_run)} bf16 train steps, expected "
+                           f"{epochs * steps}")
+    if not all(math.isfinite(st["loss"]) for st in steps_run):
+        raise RuntimeError(f"non-finite bf16 train loss: {steps_run}")
+    if any(st["launches"] for st in steps_run):
+        raise RuntimeError(f"a port kernel launched during a bf16 train "
+                           f"step: {steps_run}")
+    if len(forwards) != epochs or any(f != EXPECTED_BF16 for f in forwards):
+        raise RuntimeError(f"bf16 validation forwards launched {forwards}, "
+                           f"expected {epochs} x {EXPECTED_BF16}")
+    step_ms = statistics.median(st["ms"] for st in steps_run[1:])
+    fp32 = report.get("train")
+    fp32_line = ("phase 6 not run" if fp32 is None else
+                 f"fp32, phase 6: {fp32['step_ms_median']:.2f} ms, "
+                 f"{fp32['peak_memory_bytes'] / 2 ** 30:.2f} GiB")
+    print(f"  {len(steps_run)} bf16 train steps of B={BATCH}: "
+          f"{[round(st['ms'], 2) for st in steps_run]} ms (median after the "
+          f"first {step_ms:.2f} ms), losses "
+          f"{[round(st['loss'], 4) for st in steps_run]}; fit {fit_s:.2f} s; "
+          f"peak memory {peak / 2 ** 30:.2f} GiB ({fp32_line}) [{card}]; best "
+          f"mIoU {best_miou:.4f}; no kernel launch in a train step, "
+          f"{EXPECTED_BF16} in each of {len(forwards)} validation forwards",
+          flush=True)
+
+    # the trained weights: the bf16 kernel eval path against the bf16 plain
+    # one, phase 12's limits
+    batch = next(iter(valid_loader))
+    rgb = torch.from_numpy(batch["image"]).cuda()
+    depth = torch.from_numpy(batch["depth"]).cuda()
+    model.eval()
+    pack_weights(model)
+    with torch.inference_mode():
+        logits_k, w_k = model(rgb, depth, hard=True, return_weight=True)
+        logits_p, w_p = model(rgb, depth, hard=True, return_weight=True,
+                              use_kernels=False)
+    plain_err = (logits_k.float() - logits_p.float()).abs().max().item()
+    plain_rel = plain_err / logits_p.float().abs().max().item()
+    sure = _sure_pixels(logits_p, plain_err)
+    sure_same = bool((first_argmax(logits_k) == first_argmax(logits_p))[
+        sure].all())
+    same_gate = bool(torch.equal(w_k, w_p))
+    print(f"  trained bf16 weights, kernels vs plain: {plain_rel:.3g} of max "
+          f"|plain| (bound {BF16_PLAIN_TOL}), class maps equal on the "
+          f"{sure.float().mean().item() * 100:.4f} % of pixels with margin > "
+          f"2x{plain_err:.3g}: {sure_same}, gate choices identical: "
+          f"{same_gate} (paths {w_k.argmax(1).tolist()})", flush=True)
+    if (plain_rel > BF16_PLAIN_TOL or not sure_same or not same_gate
+            or logits_k.dtype != bf16):
+        raise RuntimeError("trained bf16 weights: kernel path disagrees with "
+                           "plain")
+
+    # one more step of the trained state, on one batch
+    args = _step_args(data)
+    trainer.train_step(state, *args, torch.Generator())
+    after = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    del state, trainer, model
+
+    def rel_err(m) -> float:
+        return max(((v.float() - after[k].float()).abs().max()
+                    / after[k].float().abs().max().clamp_min(1e-30)).item()
+                   for k, v in m.state_dict().items())
+
+    # the rolling checkpoint into a fresh bf16 trainer: bit-equal, then the
+    # same step
+    latest = str(ckpt_dir / "ckpt_latest.msgpack")
+    written = load_checkpoint(latest)["state"]
+    model2 = build_flagship(HEIGHT, WIDTH, CLASSES, seed=4, dtype=bf16)
+    trainer2 = SegTrainer(model2, cfg, class_weights)
+    state2, epoch, _, _ = load_ckpt(latest, trainer2.init_state())
+    tree = state2.tree()
+    diff = _same_bits(tree, written)
+    print(f"  the bf16 rolling checkpoint (epoch {epoch}) in a fresh bf16 "
+          f"trainer: weights, BN statistics and optimizer state bit-equal to "
+          f"the file: {not diff} {diff[:3]}", flush=True)
+    if diff:
+        raise RuntimeError(f"bf16 resume differs from the file at {diff[:5]}")
+    trainer2.train_step(state2, *args, torch.Generator())
+    resume_rel = rel_err(model2)
+    # the fit's four steps straddle an epoch's validation: five more steps
+    # back to back on one batch give the step's time apart from that
+    more = []
+    for _ in range(STEADY_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trainer2.train_step(state2, *args, torch.Generator())
+        torch.cuda.synchronize()
+        more.append((time.perf_counter() - t0) * 1e3)
+    steady_ms = statistics.median(more)
+    print(f"  {STEADY_STEPS} more bf16 steps back to back: "
+          f"{[round(t, 2) for t in more]} ms, median {steady_ms:.2f} ms "
+          f"[{card}]", flush=True)
+    del state2, trainer2, model2
+    # the same step from the file's weights and a fresh optimizer
+    model3 = build_flagship(HEIGHT, WIDTH, CLASSES, seed=4, dtype=bf16)
+    trainer3 = SegTrainer(model3, cfg, class_weights)
+    state3 = trainer3.init_state()
+    load_checkpoint_into(model3, latest)
+    trainer3.train_step(state3, *args, torch.Generator())
+    fresh_rel = rel_err(model3)
+    del state3, trainer3, model3
+    print(f"  one bf16 step resumed from the checkpoint vs one more step of "
+          f"the trained state: max rel err over every parameter and BN "
+          f"statistic {resume_rel:.3g} (bound {TRAIN_BF16_RESUME_TOL}); from "
+          f"a fresh optimizer {fresh_rel:.3g}", flush=True)
+    if resume_rel > TRAIN_BF16_RESUME_TOL or resume_rel >= fresh_rel:
+        raise RuntimeError("resumed bf16 training diverges from the trained "
+                           "state")
+
+    # phase 6's fp32 checkpoint through the port's writer; its optax-layout
+    # opt_state loaded into a trainer on the card
+    if not PHASE6_CKPT:
+        raise RuntimeError("phase 6's checkpoint is not held: run phase 6 "
+                           "first")
+    path = str(ckpt_dir / "phase6_fp32.msgpack")
+    save_checkpoint(path, PHASE6_CKPT["state"], PHASE6_CKPT["epoch"])
+    written = load_checkpoint(path)["state"]
+    model4 = build_flagship(HEIGHT, WIDTH, CLASSES, seed=4)
+    trainer4 = SegTrainer(model4, cfg, class_weights)
+    state4, _, _, _ = load_ckpt(path, trainer4.init_state())
+    opt = state4.optimizer
+    on_card = [t.device.type for st in opt.opt.state.values()
+               for t in st.values() if torch.is_tensor(t)]
+    diff = _same_bits(opt.state_tree(), written["opt_state"])
+    layout = sorted(written["opt_state"])
+    print(f"  phase 6's fp32 checkpoint, opt_state keys {layout} (optax's "
+          f"inject_hyperparams state), in a fresh fp32 trainer: count "
+          f"{opt.count}, {len(on_card)} momentum buffers, all on the card: "
+          f"{set(on_card) == {'cuda'}}, bit-equal to the file: {not diff}",
+          flush=True)
+    if (diff or not on_card or set(on_card) != {"cuda"} or opt.count == 0
+            or layout != ["count", "hyperparams", "hyperparams_states",
+                          "inner_state"]):
+        raise RuntimeError("phase 6's optax opt_state did not load on the "
+                           "card")
+    loss = float(trainer4.train_step(state4, *args, torch.Generator())[0])
+    if not math.isfinite(loss):
+        raise RuntimeError("a step from phase 6's optimizer state is not "
+                           "finite")
+    del state4, trainer4, model4
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    seconds = time.perf_counter() - t_phase
+    section.update({
+        "steps": steps_run, "step_ms_median": step_ms,
+        "steady_steps_ms": more, "steady_step_ms_median": steady_ms,
+        "peak_memory_bytes": peak, "fit_s": fit_s, "best_miou": best_miou,
+        "fp32_step_ms_median": None if fp32 is None else fp32[
+            "step_ms_median"],
+        "fp32_peak_memory_bytes": None if fp32 is None else fp32[
+            "peak_memory_bytes"],
+        "validation_launches": forwards,
+        "trained_kernels_vs_plain_rel_err": plain_rel,
+        "resume_bit_equal": True, "resume_max_rel_err": resume_rel,
+        "fresh_optimizer_max_rel_err": fresh_rel,
+        "phase6_opt_state_on_card": True, "seconds": seconds})
+    report["train_bf16"] = section
     return launches
 
 
@@ -3939,6 +4288,9 @@ def main() -> int:
         (15, f"the swish and hswish flagships at {HEIGHT}x{WIDTH}: every "
              "serving mode, bf16, int8, cli.train/eval/predict --activation "
              "swish, export", check_activation),
+        (17, f"train the {HEIGHT}x{WIDTH} flagship in bf16: SegTrainer.fit, 2 "
+             f"epochs of 2 steps of B={BATCH}; resume; phase 6's optax "
+             "opt_state on the card", check_train_bf16),
     ]
     for n, title, check in phases:
         print(f"[{n}] {title}", flush=True)

@@ -15,8 +15,8 @@ hswish net: ``models/esanet.py``), with the 2×2 packed stem under
 layouts (``data/nyuv2.py``, ``data/other_datasets.py``) and ``synthetic``.
 ``check_supported`` raises ``NotImplementedError`` on every flag of a
 feature the port does not have yet, naming its ROADMAP item; none is
-silently ignored. ``--dtype bfloat16`` serves and scores every model in
-bf16; training takes fp32 only. ``--quant int8`` builds the global-gate
+silently ignored. ``--dtype bfloat16`` trains, serves and scores every
+model in bf16 (fp32 parameters). ``--quant int8`` builds the global-gate
 net or the static ESANet (each fp32 or bf16) with quantized convs for
 cli.eval and cli.predict, which calibrate it; the local-gate net and the
 one-modality net raise, and so does training.
@@ -45,9 +45,6 @@ def check_supported(args, training: bool = False) -> None:
     if args.mesh_data > 1 or args.mesh_model > 1:
         missing.append("--mesh-data/--mesh-model above 1 (mesh training, "
                        "ROADMAP A9)")
-    if args.dtype != "float32" and training:
-        missing.append(f"--dtype {args.dtype} in training (bf16 training, "
-                       "ROADMAP A3-train)")
     if args.quant != "none" and training:
         missing.append(f"--quant {args.quant} in training (a serving-time "
                        "knob: cli.eval and cli.predict calibrate a trained "

@@ -25,15 +25,36 @@ def hard_one_hot(y_soft: torch.Tensor, dim: int = -1) -> torch.Tensor:
     return torch.zeros_like(y_soft).scatter_(dim, index, 1.0)
 
 
+class _LowpSoftmax(torch.autograd.Function):
+    """``jax.nn.softmax`` below fp32, forward and backward rounded op by op
+    as XLA rounds them: ``e = exp(x − max)`` (the max held constant), its
+    sum ``s`` (an fp32 accumulation), ``e / s``; the backward is the
+    quotient's and ``exp``'s, ``(g / s − Σ(g · s⁻² · e)) · e``, with
+    ``s⁻² = 1 / (s · s)``."""
+
+    @staticmethod
+    def forward(ctx, x, dim):
+        e = torch.exp(x - x.amax(dim=dim, keepdim=True))
+        s = e.sum(dim=dim, keepdim=True)
+        ctx.save_for_backward(e, s)
+        ctx.dim = dim
+        return e / s
+
+    @staticmethod
+    def backward(ctx, g):
+        e, s = ctx.saved_tensors
+        gs = -(g * (1.0 / (s * s)) * e).sum(dim=ctx.dim, keepdim=True)
+        return (g / s + gs) * e, None
+
+
 def softmax(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
     """``F.softmax``; below fp32 (bf16) in ``jax.nn.softmax``'s order of
     operations, each rounding to ``x``'s dtype: exp(x − max), its sum (an
-    fp32 accumulation), the quotient. ``F.softmax`` rounds its output
-    alone, one bf16 step away from JAX's."""
+    fp32 accumulation), the quotient, and their gradients.
+    ``F.softmax`` rounds its output alone, one bf16 step away from JAX's."""
     if x.dtype in (torch.float32, torch.float64):
         return F.softmax(x, dim=dim)
-    e = torch.exp(x - x.amax(dim=dim, keepdim=True))
-    return e / e.sum(dim=dim, keepdim=True)
+    return _LowpSoftmax.apply(x, dim)
 
 
 def diff_softmax(logits: torch.Tensor, tau: float = 1.0, hard: bool = False,

@@ -86,12 +86,38 @@ def launch_channel_sums(rgb: torch.Tensor, depth: torch.Tensor
 
 
 # ----------------------------------------------------------------- SE MLP
+class _LowpSigmoid(torch.autograd.Function):
+    """``jax.nn.sigmoid`` at bf16: the forward op by op, each step rounded
+    as XLA computes it, the backward JAX's rule ``g · (s · (1 − s))``."""
+
+    @staticmethod
+    def forward(ctx, x):
+        s = 1.0 / (1.0 + torch.exp(-x))
+        ctx.save_for_backward(s)
+        return s
+
+    @staticmethod
+    def backward(ctx, g):
+        (s,) = ctx.saved_tensors
+        return g * (s * (1.0 - s))
+
+
+def sigmoid(x: torch.Tensor) -> torch.Tensor:
+    """``1 / (1 + exp(−x))``: for bf16 rounded where XLA rounds
+    ``jax.nn.sigmoid`` and its gradient (``torch.sigmoid`` rounds once);
+    ``torch.sigmoid`` for wider dtypes."""
+    if x.dtype == torch.bfloat16:
+        return _LowpSigmoid.apply(x)
+    return torch.sigmoid(x)
+
+
 def se_scale(mean: torch.Tensor, w1, b1, w2, b2,
              act: Callable = torch.relu) -> torch.Tensor:
     """sigmoid(act(mean @ w1 + b1) @ w2 + b2) on (B, C); ``act`` is relu
     in the kernels (the TPU kernels' MLP), the net's activation in a swish
-    or hswish cell."""
-    return torch.sigmoid(act(mean @ w1 + b1) @ w2 + b2)
+    or hswish cell. Computed in the dtype of the mean and the weights: fp32
+    in eval, bf16 in a bf16 train step (the JAX module's roundings)."""
+    return sigmoid(act(mean @ w1 + b1) @ w2 + b2)
 
 
 def map_scale(x: torch.Tensor, w1, b1, w2, b2, dims=(1, 2),
@@ -99,9 +125,10 @@ def map_scale(x: torch.Tensor, w1, b1, w2, b2, dims=(1, 2),
               ) -> torch.Tensor:
     """The SE scale of a map, in the map's dtype: the mean over ``dims``
     in at least fp32, rounded to the map's dtype, then the MLP (``se_scale``
-    with ``act``) on the weights' dtype, its output rounded to the map's
-    dtype."""
-    mean = wide(wide(x).mean(dim=dims, keepdim=keepdim).to(x.dtype))
+    with ``act``) on the weights' dtype (fp32 in eval, the map's in a bf16
+    train step), its output rounded to the map's dtype."""
+    mean = wide(x).mean(dim=dims, keepdim=keepdim).to(x.dtype)
+    mean = mean.to(torch.promote_types(mean.dtype, w1.dtype))
     return se_scale(mean, w1, b1, w2, b2, act).to(x.dtype)
 
 

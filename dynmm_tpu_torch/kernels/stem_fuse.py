@@ -76,8 +76,10 @@ def launch_stem_fuse_pool(rgb, depth, s_r, s_d):
 def se_gate_from_sums(sums, hw: int, w1, b1, w2, b2,
                       act: Callable = torch.relu):
     """sigmoid(act(mean @ w1 + b1) @ w2 + b2) — the SE MLP on (B, C);
-    ``act`` the net's activation (relu: the TPU kernel's)."""
-    return se_scale(sums / float(hw), w1, b1, w2, b2, act)
+    ``act`` the net's activation (relu: the TPU kernel's). The mean takes
+    the weights' dtype: fp32 in eval, bf16 in a bf16 train step (the JAX
+    module's rounded mean)."""
+    return se_scale((sums / float(hw)).to(w1.dtype), w1, b1, w2, b2, act)
 
 
 def stem_se_fusion_pool(rgb, depth, wr1, br1, wr2, br2, wd1, bd1, wd2, bd2,

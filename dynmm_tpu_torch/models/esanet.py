@@ -21,11 +21,11 @@ their cuDNN convs; its stem keeps ``channel_sums`` and ``stem_fuse_pool``
 and its decoder ``learned_upsample``, which compute no activation.
 
 ``ESANetConfig.dtype`` is the compute dtype (parameters stay fp32): None or
-fp32, or bf16 in eval for every model of the family (the global-gate
-SkipGateESANet, the static ESANet, the local-gate SkipESANet and
-ESANetOneModality), whose modules the constructor puts in bf16
-(``compute_in``, ``nn/layers.py::set_compute_dtype``). Training takes
-fp32 only (ROADMAP A3-train).
+fp32, or bf16 in eval and in training for every model of the family (the
+global-gate SkipGateESANet, the static ESANet, the local-gate SkipESANet
+and ESANetOneModality), whose modules the constructor puts in bf16
+(``compute_in``, ``nn/layers.py::set_compute_dtype``). A bf16 train step
+rounds where the JAX model at ``dtype=bfloat16`` does (``nn/layers.py``).
 
 ``ESANetConfig.quant`` (``nn/quant.py``): None, ``"calib"`` or ``"int8"``
 for the convs the JAX model quantizes: the encoder stages' (every block's,
@@ -114,7 +114,7 @@ class DecoderModule(nn.Module):
             NonBottleneck1D(channels_dec, channels_dec, activation=activation,
                             quant=quant)
             for _ in range(nr_blocks))
-        self.side_output = nn.Conv2d(channels_dec, num_classes, 1)
+        self.side_output = Conv2d(channels_dec, num_classes, 1)
         self.upsample = Upsample(upsampling_mode, channels_dec)
 
     def forward(self, x, skip, use_kernels: bool = True):

@@ -23,6 +23,17 @@ and writes bf16, as flax's BN at ``dtype=bf16``. Every module computes in
 the dtype of the map it is given: the stems cast the fp32 images to the
 model's dtype, and the global gate casts back to fp32.
 
+A bf16 model trains too, rounding where the JAX model at ``dtype=bf16``
+rounds (not ``torch.autocast``, which keeps BN and ``log_softmax`` outputs
+in fp32): each call casts the fp32 parameters to bf16 (a differentiable
+cast, so their gradients are fp32) where the copies serve eval; a conv's
+sum is rounded before its bias is added; BN computes its statistics in
+fp32 and writes bf16; the SE MLPs run on bf16 weights as the JAX module's
+do (in eval the port keeps the Pallas ``fused_se``'s fp32 MLP weights);
+bf16 sigmoids round as XLA rounds ``jax.nn.sigmoid``
+(``kernels/se.py::sigmoid``). ``pack_weights`` refreshes the eval copies
+from the trained parameters.
+
 Activations (``get_activation``): relu, swish (alias silu) and hswish;
 a bf16 map takes the JAX package's formulas op by op, so it rounds where
 XLA rounds it. The SE kernels compute a relu MLP, as the TPU kernels do:
@@ -48,7 +59,8 @@ import torch.nn.functional as F
 from dynmm_tpu_torch.core.gates import gumbel_softmax
 from dynmm_tpu_torch.kernels.se import (channel_sums, channel_sums_plain,
                                         fused_se, map_scale, se_fuse_mixed,
-                                        se_fuse_mixed_plain, se_reference)
+                                        se_fuse_mixed_plain, se_reference,
+                                        sigmoid)
 from dynmm_tpu_torch.kernels.stem_fuse import stem_se_fusion_pool
 from dynmm_tpu_torch.kernels.upsample import learned_upsample, learned_upsample_plain
 from dynmm_tpu_torch.nn.quant import (CALIB_PERCENTILES, QUANT_MODES,
@@ -165,8 +177,10 @@ class Conv2d(nn.Conv2d):
     convolves with copies of the weight and bias in that dtype, made by
     ``repack`` after construction, every ``load_state_dict`` and
     ``pack_weights``, as flax's ``nn.Conv(dtype=bf16)`` casts its fp32
-    parameters. In training, and for a map of the parameters' dtype, it is
-    ``nn.Conv2d``.
+    parameters. For a map of the parameters' dtype it is ``nn.Conv2d``; in
+    training a map of the compute dtype convolves with a per-call cast of
+    the parameters, the sum rounded before the bias is added (flax's
+    order).
 
     ``quant`` (``nn/quant.py``; the JAX ``QConv``, ungrouped convs only):
     ``"calib"`` records the input's running abs-max and percentile grid
@@ -225,14 +239,21 @@ class Conv2d(nn.Conv2d):
 
     def weights(self, dtype: torch.dtype):
         """(weight, bias) that convolve a map of ``dtype``: the parameters,
-        or in eval the copies in the model's compute dtype."""
-        if self.training or dtype == self.weight.dtype:
+        or the model's compute dtype: in eval the copies, in training a cast
+        of the parameters per call (differentiable: the gradients reach the
+        fp32 parameters in fp32), as flax casts them."""
+        if dtype == self.weight.dtype:
             return self.weight, self.bias
-        if self.weight_c is None or self.weight_c.dtype != dtype:
+        if self.compute_dtype != dtype or (
+                not self.training and (self.weight_c is None
+                                       or self.weight_c.dtype != dtype)):
             raise TypeError(
                 f"a {dtype} map reached a conv of a model in "
                 f"{self.compute_dtype or self.weight.dtype}; set the model's "
                 "compute dtype (set_compute_dtype)")
+        if self.training:
+            return self.weight.to(dtype), (None if self.bias is None
+                                           else self.bias.to(dtype))
         return self.weight_c, self.bias_c
 
     def forward(self, x):
@@ -240,7 +261,11 @@ class Conv2d(nn.Conv2d):
             return self.forward_int8(x)
         if self.quant == "calib":
             observe(self.in_scale, self.in_pct, x)
-        return self._conv_forward(x, *self.weights(x.dtype))
+        weight, bias = self.weights(x.dtype)
+        if self.training and bias is not None and x.dtype != self.weight.dtype:
+            # flax's order at a compute dtype: the sum rounded, then + bias
+            return self._conv_forward(x, weight, None) + bias[:, None, None]
+        return self._conv_forward(x, weight, bias)
 
     def forward_int8(self, x):
         """The int8 conv of an NCHW map: NCHW (channels_last) out, in the
@@ -288,10 +313,45 @@ def set_compute_dtype(model: nn.Module, dtype: torch.dtype | None) -> None:
     pack_weights(model)
 
 
+class _WideBatchNorm(torch.autograd.Function):
+    """Train-mode BN of a map below fp32 (bf16) as the JAX BN computes it:
+    the map cast to fp32, fp32 statistics (the running buffers updated in
+    place), the output rounded once to the map's dtype; the backward in
+    fp32 on the cast, the input gradient rounded once. It keeps the map in
+    its own dtype for the backward, not its fp32 cast. ``F.batch_norm``
+    on a bf16 map computes the same without the casts, bit for bit, on the
+    card for a channels-last map (the model's layout); on a contiguous map
+    there it rounds the weight and bias gradients otherwise, and on the
+    CPU every gradient (``chip_smoke.py`` phase 17,
+    ``tests/test_torch_port_bf16_train.py``)."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, running_mean, running_var, momentum,
+                eps):
+        out, mean, invstd = torch.native_batch_norm(
+            x.float(), weight, bias, running_mean, running_var, True,
+            momentum, eps)
+        ctx.save_for_backward(x, weight, mean, invstd)
+        ctx.eps = eps
+        return out.to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, weight, mean, invstd = ctx.saved_tensors
+        gx, gw, gb = torch.ops.aten.native_batch_norm_backward(
+            g.float(), x.float(), weight, None, None, mean, invstd, True,
+            ctx.eps, list(ctx.needs_input_grad[:3]))
+        return (None if gx is None else gx.to(x.dtype), gw, gb, None, None,
+                None, None)
+
+
 class BatchNorm2d(nn.Module):
     """BatchNorm with torch semantics (unbiased running variance) and the
     reference's names, without ``num_batches_tracked`` (the flax trees
-    carry none, so converted state_dicts load strictly)."""
+    carry none, so converted state_dicts load strictly). In training a
+    map below fp32 (bf16) takes ``_WideBatchNorm``, the JAX BN's order,
+    unless it is a channels-last map on the card, where ``F.batch_norm``
+    computes the same."""
 
     def __init__(self, channels: int, eps: float = BN_EPS,
                  momentum: float = BN_MOMENTUM):
@@ -303,6 +363,13 @@ class BatchNorm2d(nn.Module):
         self.register_buffer("running_var", torch.ones(channels))
 
     def forward(self, x):
+        if (self.training and x.dtype != self.weight.dtype
+                and x.dtype.itemsize < 4 and not (
+                    x.is_cuda and x.is_contiguous(
+                        memory_format=torch.channels_last))):
+            return _WideBatchNorm.apply(x, self.weight, self.bias,
+                                        self.running_mean, self.running_var,
+                                        self.momentum, self.eps)
         return F.batch_norm(x, self.running_mean, self.running_var,
                             self.weight, self.bias, self.training,
                             self.momentum, self.eps)
@@ -373,23 +440,23 @@ class SqueezeAndExcitation(Packed):
         self._set("w1", w1)
         self._set("w2", w2)
 
-    def weights(self):
-        """(w1, b1, w2, b2): the packed copies in eval, the parameters
-        themselves in training."""
-        w1, w2 = self._mlp() if self.training else (self.w1, self.w2)
-        return w1, self.fc[0].bias, w2, self.fc[2].bias
-
-    def scale(self, x_nhwc: torch.Tensor) -> torch.Tensor:
-        """The (B, C) sigmoid recalibration vector of an NHWC map."""
-        w1, b1, w2, b2 = self.weights()
-        return torch.sigmoid(
-            self.act(x_nhwc.mean(dim=(1, 2)) @ w1 + b1) @ w2 + b2)
+    def weights(self, dtype: torch.dtype):
+        """(w1, b1, w2, b2) for a map of ``dtype``: the packed fp32 copies
+        in eval, as the Pallas ``fused_se`` takes them whatever the map's
+        dtype; the parameters themselves in training, cast to the map's
+        dtype (bf16) as the JAX module casts them."""
+        if not self.training:
+            return self.w1, self.fc[0].bias, self.w2, self.fc[2].bias
+        w1, w2 = self._mlp()
+        return tuple(t.to(dtype) for t in (w1, self.fc[0].bias, w2,
+                                           self.fc[2].bias))
 
     def map_scale(self, x: torch.Tensor) -> torch.Tensor:
         """The (B, C) scale of an NCHW map in the map's dtype, rounded as
         the fused cells round it (``kernels/se.py::map_scale``), on this
         cell's activation."""
-        return map_scale(x, *self.weights(), dims=(2, 3), act=self.act)
+        return map_scale(x, *self.weights(x.dtype), dims=(2, 3),
+                         act=self.act)
 
     def scaled(self, x: torch.Tensor) -> torch.Tensor:
         """``x · se(x)`` (NCHW) in PyTorch ops, rounded as the fused cells
@@ -411,7 +478,7 @@ class SqueezeAndExcitation(Packed):
             return self.scaled(x)
         b, c, h, w = x.shape
         fn = fused_se if use_kernels else se_reference
-        y = fn(nhwc(x).reshape(b, h * w, c), *self.weights())
+        y = fn(nhwc(x).reshape(b, h * w, c), *self.weights(x.dtype))
         return nchw(y.reshape(b, h, w, c))
 
 
@@ -443,7 +510,7 @@ class SqueezeAndExcitationWeight(nn.Module):
         (w1, b1), (w2, b2) = (conv.weights(dtype)
                               for conv in (self.fc[0], self.fc[2]))
         h = self.fc[1](means.to(dtype) @ w1[:, :, 0, 0].t() + b1)
-        w = torch.sigmoid(h @ w2[:, :, 0, 0].t() + b2)
+        w = sigmoid(h @ w2[:, :, 0, 0].t() + b2)
         return (means * w.to(means.dtype)).mean(dim=1).to(dtype)
 
 
@@ -478,9 +545,11 @@ class SqueezeAndExciteReweigh(nn.Module):
             sums = channel_sums if use_kernels else channel_sums_plain
             hw = rgb.shape[2] * rgb.shape[3]
             s_r, s_d = sums(nhwc(rgb), nhwc(depth))
-            w = torch.sigmoid(self.se.from_means(
+            w = sigmoid(self.se.from_means(
                 torch.cat([s_r, s_d], 1) / hw, rgb.dtype))
             logits = torch.stack([w, 1.0 - w], dim=1)
+            # JAX divides by the temperature rounded to the logits' dtype
+            temp = float(torch.tensor(float(temp)).to(logits.dtype))
             w_norm = gumbel_softmax(logits / temp, generator, tau=1.0,
                                     hard=hard or test)
         if prev_weight is not None:
@@ -524,7 +593,8 @@ class SqueezeAndExciteFusionAdd(nn.Module):
             s_r = w + (1.0 - w) * s_r
             s_d = (1.0 - w) * s_d
             return rgb * s_r[:, :, None, None] + depth * s_d[:, :, None, None]
-        args = (*self.se_rgb.weights(), *self.se_depth.weights())
+        args = (*self.se_rgb.weights(rgb.dtype),
+                *self.se_depth.weights(rgb.dtype))
         fuse = se_fuse_mixed if use_kernels else se_fuse_mixed_plain
         return nchw(fuse(nhwc(rgb), nhwc(depth), w_rgb.contiguous(), *args))
 
@@ -533,8 +603,8 @@ class SqueezeAndExciteFusionAdd(nn.Module):
         as the ``channel_sums`` + ``stem_fuse_pool`` kernel cell, its SE
         MLP on the cell's activation."""
         fused, dpool = stem_se_fusion_pool(
-            nhwc(rgb), nhwc(depth), *self.se_rgb.weights(),
-            *self.se_depth.weights(), act=self.se_rgb.act,
+            nhwc(rgb), nhwc(depth), *self.se_rgb.weights(rgb.dtype),
+            *self.se_depth.weights(rgb.dtype), act=self.se_rgb.act,
             use_kernels=use_kernels)
         return nchw(fused), nchw(dpool)
 
@@ -629,7 +699,7 @@ class Upsample(Packed):
         h, w = x.shape[2] * 2, x.shape[3] * 2
         if self.mode == "learned-3x3-zeropad":
             up = learned_upsample if use_kernels else learned_upsample_plain
-            taps = self._taps() if self.training else self.taps
+            taps = self._taps().to(x.dtype) if self.training else self.taps
             bias = self.conv.weights(x.dtype)[1]
             return nchw(up(nhwc(x), taps, bias))
         if self.mode == "learned-3x3":

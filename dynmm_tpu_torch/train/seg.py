@@ -28,7 +28,11 @@ the eval core of ``eval.py``).
 
 The train step runs the model in ``train()`` mode: every cell takes its
 plain PyTorch version under autograd (the port's kernels, like the JAX
-package's, are inference-only). Validation runs ``eval()`` after
+package's, are inference-only). A model in bf16 (``ESANetConfig.dtype``)
+trains in bf16 with fp32 parameters, as the JAX trainer at ``--dtype
+bfloat16``; its checkpoints hold the fp32 parameters. The optimizer state
+is optax's layout (``SegOptimizer``), so a checkpoint resumes in either
+package. Validation runs ``eval()`` after
 ``pack_weights``, so on the card the eval forward launches the kernels on
 the trained weights. The engine trains every model of the family, on raw
 or 2×2 packed stem inputs (``packed_stem``): the global-gate
@@ -70,14 +74,18 @@ from dynmm_tpu_torch.utils.checkpoint import save_ckpt, save_ckpt_every_epoch
 from dynmm_tpu_torch.utils.device import resolve_device
 from dynmm_tpu_torch.utils.logger import CSVLogger
 from dynmm_tpu_torch.utils.weights import (flax_from_state_dict,
+                                           flax_params_tree,
                                            load_flax_variables,
                                            tensors_from_flax_tree)
 
 DOWN_RATES = (8, 16, 32)
+# the opt_state layout PRs before the optax one wrote (still read)
 OPT_STATE_FORMAT = "dynmm_tpu_torch"
-# opt_state tree key → torch.optim state key, per optimizer
-_MOMENTS = {"SGD": {"momentum": "momentum_buffer"},
+# optax state key → torch.optim state key, per optimizer
+_MOMENTS = {"SGD": {"trace": "momentum_buffer"},
             "Adam": {"mu": "exp_avg", "nu": "exp_avg_sq"}}
+# the same for the port's former layout
+_OLD_MOMENTS = {**_MOMENTS, "SGD": {"momentum": "momentum_buffer"}}
 
 
 @dataclasses.dataclass
@@ -160,25 +168,39 @@ class SegOptimizer:
     parameters whose name holds ``gate`` are trained; the others get
     ``requires_grad=False`` and no update, not even weight decay.
 
-    ``state_tree()`` is the checkpoint's ``opt_state``::
+    ``state_tree()`` is the checkpoint's ``opt_state`` in the layout the
+    JAX trainer writes, ``flax.serialization.to_state_dict`` of its optax
+    state (``dynmm_tpu/train/seg.py::make_seg_optimizer``), so either
+    package resumes the other's checkpoint::
 
-        {"format": "dynmm_tpu_torch", "optimizer": "SGD" | "Adam",
-         "count": updates applied, "mini_step": batches accumulated,
-         "momentum": tree (SGD, after the first update),
-         "mu": tree, "nu": tree (Adam, after the first update),
-         "acc_grads": tree (grad_accum > 1, while batches are accumulated)}
+        base = {count, hyperparams: {learning_rate}, hyperparams_states: {},
+                inner_state: {"0": {}, "1": {"0": X, "1": {}}}}
+        X    = {trace}                  (SGD: the momentum buffers)
+             | {count, mu, nu}          (Adam: exp_avg, exp_avg_sq, step)
+        grad_accum > 1: {mini_step, gradient_step, inner_opt_state: base,
+                         acc_grads, skip_state: {}}
+        freeze: {inner_states: {train: {inner_state: <the above>},
+                                freeze: {inner_state: {}}}}
 
-    each tree the trained parameters' flax params tree
-    (``utils/weights.py::flax_from_state_dict``).
+    ``trace``, ``mu``, ``nu`` and ``acc_grads`` are params trees
+    (``utils/weights.py::flax_params_tree``; zeros where the torch state is
+    not made yet), a frozen parameter's leaf an empty dict (optax's
+    ``MaskedNode``); the counters are int32, ``learning_rate`` the last
+    ``set_lr`` in the parameters' float dtype (float32; float64 for a
+    float64 model, as optax under x64). ``load_state_tree`` reads this
+    layout, and the port's former ``{"format": "dynmm_tpu_torch", ...}``
+    one; a layout that does not fit the config raises ``ValueError``.
     """
 
     def __init__(self, cfg: SegTrainConfig, model: nn.Module):
         self.cfg = cfg
         named = dict(model.named_parameters())
+        self.frozen: dict[str, torch.Tensor] = {}
         if cfg.freeze and cfg.dynamic:
             for name, p in named.items():
                 if "gate" not in name:
                     p.requires_grad_(False)
+            self.frozen = {n: p for n, p in named.items() if "gate" not in n}
             named = {n: p for n, p in named.items() if "gate" in n}
         self.named = named
         params = list(named.values())
@@ -229,48 +251,130 @@ class SegOptimizer:
         self.count += 1
 
     # ------------------------------------------------------------ checkpoint
-    def _buffers(self, key: str) -> dict[str, torch.Tensor]:
-        return {n: self.opt.state[p][key] for n, p in self.named.items()
-                if key in self.opt.state.get(p, {})}
+    def _tree(self, key: str | None = None) -> dict:
+        """The params tree of the torch state ``key`` of every trained
+        parameter (zeros where not made yet; None: ``acc``)."""
+        if key is None:
+            values = {n: self.acc.get(n, torch.zeros_like(p))
+                      for n, p in self.named.items()}
+        else:
+            values = {n: self.opt.state.get(p, {}).get(key,
+                                                       torch.zeros_like(p))
+                      for n, p in self.named.items()}
+        return flax_params_tree(values, self.frozen)
 
     def state_tree(self) -> dict:
-        out = {"format": OPT_STATE_FORMAT, "optimizer": self.cfg.optimizer,
-               "count": self.count, "mini_step": self.mini_step}
-        for tree_key, state_key in _MOMENTS[self.cfg.optimizer].items():
-            bufs = self._buffers(state_key)
-            if bufs:
-                out[tree_key] = flax_from_state_dict(bufs)["params"]
-        if self.acc:
-            out["acc_grads"] = flax_from_state_dict(self.acc)["params"]
+        count = np.asarray(self.count, np.int32)
+        p = next(iter(self.named.values()))
+        dtype = torch.empty((), dtype=p.dtype).numpy().dtype
+        inner: dict = {k: self._tree(v)
+                       for k, v in _MOMENTS[self.cfg.optimizer].items()}
+        if self.cfg.optimizer == "Adam":
+            inner = {"count": count, **inner}
+        out = {"count": count,
+               "hyperparams": {"learning_rate": np.asarray(
+                   self.opt.param_groups[0]["lr"], dtype)},
+               "hyperparams_states": {},
+               "inner_state": {"0": {}, "1": {"0": inner, "1": {}}}}
+        if self.cfg.grad_accum > 1:
+            out = {"mini_step": np.asarray(self.mini_step, np.int32),
+                   "gradient_step": count, "inner_opt_state": out,
+                   "acc_grads": self._tree(), "skip_state": {}}
+        if self.frozen:
+            out = {"inner_states": {"train": {"inner_state": out},
+                                    "freeze": {"inner_state": {}}}}
         return out
 
-    def load_state_tree(self, tree) -> bool:
-        """Restore ``state_tree()``; returns False (and leaves the optimizer
-        fresh) for an ``opt_state`` the port did not write."""
-        if not (isinstance(tree, dict)
-                and tree.get("format") == OPT_STATE_FORMAT):
-            return False
+    def load_state_tree(self, tree) -> None:
+        """Restore an ``opt_state`` of ``state_tree``'s layout (written by
+        either package) or of the port's former one. Raises ``ValueError``,
+        naming both layouts, on one that does not fit this config, as the
+        JAX trainer's ``load_ckpt`` does."""
+        if isinstance(tree, dict) and tree.get("format") == OPT_STATE_FORMAT:
+            self._load_former(tree)
+            return
+        want = self.state_tree()
+        where = _layout_mismatch(tree, want)
+        if where is not None:
+            raise ValueError(
+                f"checkpoint opt_state is {layout_name(tree)}, this trainer's "
+                f"optimizer is {layout_name(want)} (they differ at {where})")
+        if self.frozen:
+            tree = tree["inner_states"]["train"]["inner_state"]
+        mini_step, acc = 0, None
+        if self.cfg.grad_accum > 1:
+            mini_step, acc = int(tree["mini_step"]), tree["acc_grads"]
+            tree = tree["inner_opt_state"]
+        inner = tree["inner_state"]["1"]["0"]
+        self._restore(int(tree["count"]), mini_step, inner, acc,
+                      _MOMENTS[self.cfg.optimizer])
+        self.set_lr(float(tree["hyperparams"]["learning_rate"]))
+
+    def _load_former(self, tree: dict) -> None:
         if tree["optimizer"] != self.cfg.optimizer:
             raise ValueError(f"checkpoint optimizer {tree['optimizer']} "
                              f"!= {self.cfg.optimizer}")
-        self.count = int(tree["count"])
-        self.mini_step = int(tree["mini_step"])
+        self._restore(int(tree["count"]), int(tree["mini_step"]), tree,
+                      tree.get("acc_grads"), _OLD_MOMENTS[self.cfg.optimizer])
+
+    def _restore(self, count: int, mini_step: int, moments: dict, acc,
+                 keys: dict) -> None:
+        self.count, self.mini_step = count, mini_step
         self.opt.state.clear()
-        for tree_key, state_key in _MOMENTS[self.cfg.optimizer].items():
-            if tree_key not in tree:
+        for tree_key, state_key in keys.items():
+            if tree_key not in moments:
                 continue
-            for name, t in tensors_from_flax_tree(tree[tree_key],
+            for name, t in tensors_from_flax_tree(moments[tree_key],
                                                   self.named).items():
                 p = self.named[name]
                 self.opt.state[p][state_key] = t.to(p.device, p.dtype)
         if self.cfg.optimizer == "Adam":
             for st in self.opt.state.values():
                 st["step"] = torch.tensor(float(self.count))
-        self.acc = ({} if "acc_grads" not in tree else {
-            n: t.to(self.named[n].device)
-            for n, t in tensors_from_flax_tree(tree["acc_grads"],
-                                               self.named).items()})
-        return True
+        self.acc = ({} if acc is None else {
+            n: t.to(self.named[n].device, self.named[n].dtype)
+            for n, t in tensors_from_flax_tree(acc, self.named).items()})
+
+
+def layout_name(tree) -> str:
+    """A readable name of an optax ``opt_state`` tree's layout."""
+    if not isinstance(tree, dict):
+        return f"a {type(tree).__name__}"
+    if tree.get("format") == OPT_STATE_FORMAT:
+        return f"the port's former layout ({tree.get('optimizer')})"
+    if "inner_states" in tree:
+        branches = tree["inner_states"]
+        parts = [f"{k}: {layout_name(v.get('inner_state'))}"
+                 if v.get("inner_state") else k for k, v in branches.items()]
+        return f"multi_transform({', '.join(parts)})"
+    if "inner_opt_state" in tree:
+        return f"MultiSteps({layout_name(tree['inner_opt_state'])})"
+    if "hyperparams" in tree:
+        inner = tree.get("inner_state", {}).get("1", {}).get("0", {})
+        if "trace" in inner:
+            return "SGD"
+        if "mu" in inner:
+            return "Adam"
+        return "inject_hyperparams(?)"
+    return f"an optax state with keys {sorted(tree)}"
+
+
+def _layout_mismatch(got, want, path: str = "") -> str | None:
+    """The first path where ``got`` differs from ``want`` in keys or leaf
+    shapes, or None."""
+    if isinstance(want, dict):
+        if not isinstance(got, dict):
+            return path or "/"
+        if set(got) != set(want):
+            return f"{path or '/'} (keys {sorted(got)} vs {sorted(want)})"
+        for k in want:
+            where = _layout_mismatch(got[k], want[k], f"{path}/{k}")
+            if where is not None:
+                return where
+        return None
+    if isinstance(got, dict) or np.shape(got) != np.shape(want):
+        return path
+    return None
 
 
 def make_seg_optimizer(cfg: SegTrainConfig, model: nn.Module) -> SegOptimizer:
@@ -295,17 +399,15 @@ class TrainState:
                 "model_state": {"batch_stats": v["batch_stats"]},
                 "opt_state": self.optimizer.state_tree()}
 
-    def load_tree(self, tree: dict) -> bool:
-        """Load weights and, when the port wrote it, the optimizer state;
-        returns whether the optimizer state was restored."""
+    def load_tree(self, tree: dict) -> None:
+        """Load the optimizer state (first: a layout that does not fit
+        raises before anything changes) and the weights."""
+        if "opt_state" not in tree:
+            raise ValueError("checkpoint state holds no opt_state")
+        self.optimizer.load_state_tree(tree["opt_state"])
         load_flax_variables(self.model, {
             "params": tree["params"],
             "batch_stats": tree.get("model_state", {}).get("batch_stats")})
-        restored = self.optimizer.load_state_tree(tree.get("opt_state"))
-        if not restored:
-            print("checkpoint optimizer state is not the port's (a JAX "
-                  "checkpoint): weights loaded, optimizer starts fresh")
-        return restored
 
 
 class SegTrainer:

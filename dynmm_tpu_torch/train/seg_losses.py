@@ -17,12 +17,28 @@ import torch
 import torch.nn.functional as F
 
 
+def log_softmax(x: torch.Tensor) -> torch.Tensor:
+    """``log_softmax`` over the last axis. bf16 logits take
+    ``jax.nn.log_softmax``'s formula op by op, each step rounded to bf16
+    as XLA computes it (``F.log_softmax`` rounds once); wider logits take
+    ``F.log_softmax``."""
+    if x.dtype != torch.bfloat16:
+        return F.log_softmax(x, dim=-1)
+    shifted = x - x.amax(dim=-1, keepdim=True).detach()
+    return shifted - torch.log(torch.exp(shifted).sum(dim=-1, keepdim=True))
+
+
 def _nll_and_valid(logits: torch.Tensor, targets: torch.Tensor):
-    """Per-pixel NLL of the clipped target (B, H, W) and the non-void mask."""
+    """Per-pixel NLL of the clipped target (B, H, W) and the non-void mask;
+    the NLL in the logits' dtype."""
     t = targets.long() - 1
     valid = t >= 0
     tc = t.clamp(0, logits.shape[-1] - 1)
-    nll = F.cross_entropy(logits.permute(0, 3, 1, 2), tc, reduction="none")
+    if logits.dtype == torch.bfloat16:
+        nll = -log_softmax(logits).gather(-1, tc[..., None])[..., 0]
+    else:
+        nll = F.cross_entropy(logits.permute(0, 3, 1, 2), tc,
+                              reduction="none")
     return nll, valid, tc
 
 

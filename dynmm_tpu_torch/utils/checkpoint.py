@@ -8,9 +8,9 @@ One flax msgpack file per checkpoint (``utils/msgpack.py``) holding
 
 ``params`` and ``batch_stats`` are the flax trees (``utils/weights.py``), so
 a checkpoint written by either package loads into the other. ``opt_state``
-is the writer's own: the port's layout is documented in
-``train/seg.py::SegOptimizer``; a JAX checkpoint's optax state is not read
-(its weights load and the optimizer starts fresh).
+is optax's layout in both (``train/seg.py::SegOptimizer``): either package
+resumes the other's optimizer, and a layout that does not fit the
+trainer's config raises ``ValueError``.
 
 ``state`` is a nested dict of numpy arrays, or any object with a ``tree()``
 method that returns one (``train/seg.py::TrainState``); ``load_ckpt`` with a

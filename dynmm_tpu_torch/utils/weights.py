@@ -161,6 +161,19 @@ def tensors_from_flax_tree(tree: dict, like: dict[str, torch.Tensor]
     return out
 
 
+def flax_params_tree(values: dict[str, torch.Tensor],
+                     masked: dict[str, torch.Tensor] | None = None) -> dict:
+    """The flax params tree of ``values`` (``{torch_name: tensor}`` shaped
+    like the parameters, e.g. optimizer moments; numpy copies), with an
+    empty dict at the path of each name in ``masked``: optax's
+    ``MaskedNode``, the leaf of a parameter a masked transform (``freeze``)
+    leaves out."""
+    tree = flax_from_state_dict(values)["params"]
+    for name, t in (masked or {}).items():
+        _set_path(tree, flax_leaf(name, t.dim())[0], {})
+    return tree
+
+
 def flax_from_state_dict(sd: dict[str, torch.Tensor]) -> dict:
     """The inverse of ``state_dict_from_flax``: a state_dict in the
     reference's torch names (or any ``{name: tensor}`` shaped like the

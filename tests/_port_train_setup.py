@@ -88,13 +88,13 @@ def port_model(variables: dict, dtype=torch.float32) -> SkipGateESANet:
 
 
 def batches(n: int = 3, phase: str = "train", seed: int = 0, h: int = H,
-            w: int = W) -> list[dict]:
-    """``n`` preprocessed synthetic batches of ``B`` at h×w (labels
+            w: int = W, b: int = B) -> list[dict]:
+    """``n`` preprocessed synthetic batches of ``b`` at h×w (labels
     0..CLASSES)."""
-    ds = SyntheticSegDataset(n=n * B, height=h, width=w, n_classes=CLASSES,
+    ds = SyntheticSegDataset(n=n * b, height=h, width=w, n_classes=CLASSES,
                              seed=seed, split=phase, mixed_modality_frac=0.5)
     pre = SegPreprocessor(ds.depth_mean, ds.depth_std, h, w, phase=phase)
-    return list(SegLoader(ds, pre, batch_size=B, shuffle=phase == "train",
+    return list(SegLoader(ds, pre, batch_size=b, shuffle=phase == "train",
                           drop_last=phase == "train", seed=seed, prefetch=0))
 
 

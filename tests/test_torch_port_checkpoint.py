@@ -4,10 +4,14 @@
   bytes it writes equal flax's, each reads what the other wrote, for every
   extension type (ndarray, numpy scalar, complex), the dtypes and int/float
   widths, str against bin, nesting and flax's chunked arrays.
-* A checkpoint the JAX package writes (``save_ckpt``, with an optax state)
-  loads into the port, and one the port writes loads into the JAX model: the
-  eval logits agree within 1e-4 of their largest magnitude (float32, the
-  same weights) and the hard-gate choices are identical.
+* A checkpoint the JAX package writes (``save_ckpt``, with the trainer's
+  optax state) loads into the port, and one the port writes loads into the
+  JAX model: the eval logits agree within 1e-4 of their largest magnitude
+  (float32, the same weights) and the hard-gate choices are identical; the
+  optimizer state resumes in the port and the port's is optax's layout; a
+  plain ``optax.sgd`` state raises in both packages' ``load_ckpt``
+  (``tests/test_torch_port_opt_state.py`` resumes every optimizer config
+  across the packages).
 * Resuming from the port's rolling checkpoint gives exactly the state that
   continuing gives (CPU, bit-equal), for SGD, Adam and a ``grad_accum``
   checkpoint taken between two accumulated batches.
@@ -33,6 +37,7 @@ from _port_train_setup import (H, W, batches, class_weights, compile_fast,
                                variable_shapes)
 from dynmm_tpu.models.esanet import ESANetConfig as JaxConfig
 from dynmm_tpu.models.skip_gate import SkipGateESANet as JaxSkipGate
+from dynmm_tpu.train import seg as jax_seg
 from dynmm_tpu.utils import checkpoint as jax_ckpt
 from dynmm_tpu_torch.data.nyuv2 import make_recipe_eval_batch
 from dynmm_tpu_torch.nn.layers import pack_weights
@@ -172,27 +177,54 @@ def _assert_eval_close(got, want):
     np.testing.assert_array_equal(w, ref_w)
 
 
-def test_jax_checkpoint_loads_into_port(tmp_path, jax_eval, capsys):
+def _jax_opt_state(params, steps: int = 1):
+    """The JAX trainer's default optimizer state (SGD, momentum 0.9,
+    nesterov) after ``steps`` updates with seeded random gradients."""
+    tx = jax_seg.make_seg_optimizer(jax_seg.SegTrainConfig(), params)
+    opt_state = tx.init(params)
+    rng = np.random.default_rng(8)
+    grads = jax.tree_util.tree_map(
+        lambda p: rng.standard_normal(p.shape).astype(np.float32), params)
+    update = jax.jit(tx.update)
+    for _ in range(steps):
+        _, opt_state = update(grads, opt_state, params)
+    return opt_state
+
+
+def test_jax_checkpoint_loads_into_port(tmp_path, jax_eval):
+    """A JAX checkpoint's weights load (eval logits as JAX's) and, into a
+    training state, its optax state resumes (count and momentum as the
+    file's); a plain ``optax.sgd`` state, which is not the trainer's
+    layout, raises in both packages' ``load_ckpt``."""
     v = random_variables(2)
     test = batches(1, phase="test", seed=5)[0]
     state = {"params": v["params"],
              "model_state": {"batch_stats": v["batch_stats"]},
-             "opt_state": optax.sgd(0.1, momentum=0.9).init(v["params"])}
+             "opt_state": _jax_opt_state(v["params"], steps=2)}
     path = jax_ckpt.save_ckpt(str(tmp_path), state, 3)
     model = port_model(random_variables(7))
     payload = load_checkpoint_into(model, path)
     assert payload["epoch"] == 3
     want = jax_eval(v, test["image"], test["depth"])
     _assert_eval_close(_port_eval(model, test["image"], test["depth"]), want)
-    # into a training state: the weights load, the optax state does not
+    # into a training state: the weights and the optax state load
     trainer = SegTrainer(port_model(random_variables(7)), SegTrainConfig(),
                          class_weights(), device="cpu")
     restored, epoch, best, best_epoch = load_ckpt(path, trainer.init_state())
     assert (epoch, best, best_epoch) == (3, 0.0, 0)
-    assert "optimizer starts fresh" in capsys.readouterr().out
-    assert restored.optimizer.count == 0
+    assert restored.optimizer.count == 2
+    _assert_same(restored.optimizer.state_tree(),
+                 payload["state"]["opt_state"])
     _assert_eval_close(_port_eval(restored.model, test["image"],
                                   test["depth"]), want)
+    # a plain optax.sgd state: neither package's load_ckpt takes it
+    state["opt_state"] = optax.sgd(0.1, momentum=0.9).init(v["params"])
+    path = jax_ckpt.save_ckpt(str(tmp_path), state, 4)
+    with pytest.raises(ValueError, match="SGD"):
+        load_ckpt(path, trainer.init_state())
+    target = {**state, "opt_state": _jax_opt_state(v["params"], steps=0)}
+    with pytest.raises(ValueError):
+        jax_ckpt.load_ckpt(path, target)
 
 
 def test_port_checkpoint_loads_into_jax(tmp_path, jax_eval):
@@ -215,11 +247,16 @@ def test_port_checkpoint_loads_into_jax(tmp_path, jax_eval):
                                                 payload["state"]["params"])
     stats = flax.serialization.from_state_dict(
         shapes["batch_stats"], payload["state"]["model_state"]["batch_stats"])
+    # the opt_state is the JAX trainer's optax layout, one update in
     opt = payload["state"]["opt_state"]
-    assert (opt["format"], opt["optimizer"], opt["count"]) == (
-        "dynmm_tpu_torch", "SGD", 1)
-    assert (jax.tree_util.tree_structure(opt["momentum"])
-            == jax.tree_util.tree_structure(payload["state"]["params"]))
+    assert int(opt["count"]) == 1
+    want_opt = flax.serialization.to_state_dict(
+        _jax_opt_state(v["params"], steps=0))
+    assert (jax.tree_util.tree_structure(opt)
+            == jax.tree_util.tree_structure(want_opt))
+    restored = flax.serialization.from_state_dict(
+        _jax_opt_state(v["params"], steps=0), opt)
+    assert int(restored.count) == 1
     want = jax_eval({"params": params, "batch_stats": stats}, test["image"],
                     test["depth"])
     _assert_eval_close(_port_eval(state.model, test["image"], test["depth"]),

@@ -100,7 +100,7 @@ def test_se_module_forward_and_scale_match_jax():
     with torch.no_grad():
         _close(tm(_nchw(x)), jm.apply(v, x))
         np.testing.assert_allclose(
-            tm.scale(torch.from_numpy(x)).numpy(),
+            tm.map_scale(_nchw(x)).numpy(),
             np.asarray(jm.apply(v, x, method="scale")), **TOL)
 
 
