@@ -262,6 +262,26 @@ Run from the root of a checkout on a machine with one NVIDIA GPU:
    takes a finite step. Prints ms per bf16 train step (median after the
    first, and of 5 more steps back to back on one batch after the resume)
    and peak memory beside phase 6's fp32 figures, and its seconds.
+18. (Runs after phase 17.) The modality experts' two steps, in one
+   temporary working directory, no kernel launch counter moving. Step 1:
+   the 14 expert CLIs (``imdb_uni --mod 0|1``, ``imdb_mm --fuse 0-3``,
+   ``affect_uni --mod 2 --enc transformer|gru``, ``affect_mm --fusion
+   0-5``; ``--synthetic --n-epochs 2 --device cuda``): finite losses, the
+   result lines, ms a train step (median after the first), each written
+   file holding the trained tree bit for bit; each trained expert's
+   forward at the JAX bench's serving batches (MM-IMDB B=4096, CMU-MOSEI
+   B=1024, T=50, ragged lengths) timed as phase 7's requests (ms, device
+   ms, kernels, busy share; only the device events between two
+   ``torch.cuda._sleep`` marks around the traced call counted, with tiny
+   launches before and after them to take the events a trace loses at its
+   edges late in a long run) and held to the CPU's forward on the same
+   weights (≤ 1e-4 relative, first 256 / 128 rows). Step 2: ``imdb_dyn``
+   and ``affect_dyn --synthetic --freeze --n-epochs 2`` without
+   ``--no-pretrain``: a graft line for each of the five and three files,
+   every leaf outside the gate bit-identical to the files after training,
+   every gate leaf moved, as phase 7 checks them. Step 3: ``imdb_dyn
+   --robust --eval-only`` on step 2's router: three curves of six finite
+   values. Prints its seconds by step.
 16. Prints the kernels' JSON line (launches summed over phases 3-6, 8-15
    and 17; phase 14's are its replays'), the card line, and last
    ``{"ok": true, "device": {...}}``.
@@ -2207,11 +2227,19 @@ MODALITY_REPS = 5  # timed repeats of each request, after one warm-up
 IMDB_B, MOSEI_B, MOSEI_T = 4096, 1024, 50  # the JAX bench's serving batches
 
 
-def _timed(fn, reps: int = MODALITY_REPS):
+MARK = "spin_kernel"  # the device kernel of torch.cuda._sleep
+
+
+def _timed(fn, reps: int = MODALITY_REPS, window: bool = False):
     """(median ms, every ms, last output, device) of ``fn`` on the host
     clock ending in ``torch.cuda.synchronize()``, after one warm-up call;
     ``device``: the device time of one more call and its busy share of that
-    call's window, from a ``torch.profiler`` trace."""
+    call's window, from a ``torch.profiler`` trace. With ``window`` the
+    traced call runs between two ``torch.cuda._sleep`` marks on the stream,
+    with 128 tiny launches before and after them, and only the device
+    events between the marks count, on the device's own clock: late in a
+    long run of this script a trace lost ~45 device events at its edge
+    and placed the host's window several ms off the device's."""
     import statistics
 
     from torch.autograd import DeviceType
@@ -2229,12 +2257,33 @@ def _timed(fn, reps: int = MODALITY_REPS):
         times.append((time.perf_counter() - t0) * 1e3)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
-    spans = [(e.time_range.start, e.time_range.end) for e in prof.events()
-             if e.device_type == DeviceType.CUDA]
+        if window:
+            pad = torch.zeros(1, device="cuda")
+            for _ in range(128):
+                pad.add_(1)
+            torch.cuda._sleep(1000)
+            fn()
+            torch.cuda._sleep(1000)
+            for _ in range(128):
+                pad.add_(1)
+            torch.cuda.synchronize()
+        else:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+    events = [(e.time_range.start, e.time_range.end, e.name)
+              for e in prof.events() if e.device_type == DeviceType.CUDA]
+    spans = [(a, b) for a, b, _ in events]
+    if window:
+        marks = sorted((a, b) for a, b, name in events if MARK in name)
+        if len(marks) != 2:
+            raise RuntimeError(f"the trace holds {len(marks)} of the 2 "
+                               f"{MARK} marks around the timed call")
+        lo, hi = marks[0][1], marks[1][0]
+        spans = [(a, b) for a, b, name in events
+                 if lo <= a and b <= hi and MARK not in name]
+        wall_us = hi - lo
     device = {"device_ms": sum(b - a for a, b in spans) / 1e3,
               "busy_share": _busy_us(spans) / wall_us, "kernels": len(spans)}
     return statistics.median(times), times, out, device
@@ -2338,9 +2387,12 @@ def serve_router(name: str, model, args: tuple, gate_fc) -> dict:
 
 
 def train_cli(name: str, cli, argv: list, router: str, ckpt: str,
-              test_batch) -> dict:
-    """One CLI's ``main(argv)`` in a temporary working directory, with its
-    train steps timed (see the module docstring)."""
+              test_batch, workdir: str | None = None,
+              start: dict | None = None) -> dict:
+    """One CLI's ``main(argv)`` in a temporary working directory (or in
+    ``workdir``, which it leaves in place), with its train steps timed (see
+    the module docstring). ``start``: the flax params the CLI starts from
+    (default: ``build_router(router, seed=0)``'s)."""
     import contextlib
     import io
     import os
@@ -2371,7 +2423,8 @@ def train_cli(name: str, cli, argv: list, router: str, ckpt: str,
 
     log = io.StringIO()
     cwd = os.getcwd()
-    with tempfile.TemporaryDirectory() as tmp:
+    with (contextlib.nullcontext(workdir) if workdir
+          else tempfile.TemporaryDirectory()) as tmp:
         os.chdir(tmp)
         SupervisedTrainer.train_step = timed_step
         try:
@@ -2399,8 +2452,10 @@ def train_cli(name: str, cli, argv: list, router: str, ckpt: str,
             else:
                 yield path + (k,), np.asarray(v)
 
-    start = build_router(router, seed=0, device="cpu")  # the CLI's start
-    before = dict(leaves(flax_variables(start)["params"]))
+    if start is None:  # the CLI's start
+        start = flax_variables(build_router(router, seed=0,
+                                            device="cpu"))["params"]
+    before = dict(leaves(start))
     after = dict(leaves(payload["state"]["params"]))
     gate = [p for p in before if p[0] == "gate"]
     frozen_same = all(np.array_equal(after[p], v) for p, v in before.items()
@@ -2429,7 +2484,7 @@ def train_cli(name: str, cli, argv: list, router: str, ckpt: str,
             and gate_moved and stats_finite and reload_err == 0):
         raise RuntimeError(f"{name}: CLI training check failed")
     return {"argv": argv, "steps": steps, "step_ms_median": step_ms,
-            "run_s": run_s, "result_line": result[0],
+            "run_s": run_s, "result_line": result[0], "output": out_lines,
             "frozen_params_identical": frozen_same, "gate_moved": gate_moved,
             "bn_statistics": len(stat_leaves),
             "checkpoint_reload_max_abs_err": reload_err}
@@ -2475,6 +2530,234 @@ def check_modality(report: dict) -> None:
                            f"{dict(LAUNCHES)}")
     print("  no kernel launch counter moved in this phase", flush=True)
     report["modality"] = section
+
+
+def _expert_table() -> list:
+    """Phase 18's expert CLI runs: (label, CLI module, argv, serving input
+    kind, files written under ``./log/``)."""
+    from dynmm_tpu_torch.cli import affect_mm, affect_uni, imdb_mm, imdb_uni
+
+    runs = [(f"imdb_uni --mod {m}", imdb_uni, ["--mod", str(m)], f"imdb{m}",
+             (f"imdb/encoder_{n}", f"imdb/head_{n}"))
+            for m, n in enumerate(imdb_uni.MOD_NAMES)]
+    runs += [(f"imdb_mm --fuse {f}", imdb_mm, ["--fuse", str(f)], "imdb",
+              (f"imdb/best_{n}",)) for f, n in enumerate(imdb_mm.FUSION_NAMES)]
+    runs += [(f"affect_uni --mod 2 --enc {e}", affect_uni,
+              ["--mod", "2", "--enc", e], "mosei2",
+              (f"mosei/reg_{e}_encoder_text", f"mosei/reg_{e}_head_text"))
+             for e in ("transformer", "gru")]
+    runs += [(f"affect_mm --fusion {f}", affect_mm, ["--fusion", str(f)],
+              "mosei", (f"mosei/{n}",))
+             for f, n in affect_mm.FUSION_NAMES.items()]
+    return runs
+
+
+def _expert_run(label: str, cli, argv: list, files: tuple) -> dict:
+    """One expert CLI's ``main(argv)`` in the working directory, its train
+    steps timed (host clock ending in a synchronize); returns the trained
+    model, the step times and losses, the result lines and the seconds.
+    Each file it wrote must hold the model's trained tree bit for bit."""
+    import statistics
+
+    import numpy as np
+
+    from dynmm_tpu_torch.train.experts import load_expert
+    from dynmm_tpu_torch.train.supervised import SupervisedTrainer
+    from dynmm_tpu_torch.utils.weights import flax_variables
+
+    steps, trainers = [], []
+    step = SupervisedTrainer.train_step
+
+    def timed_step(self, state, batch):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = step(self, state, batch)
+        torch.cuda.synchronize()
+        steps.append({"ms": (time.perf_counter() - t0) * 1e3,
+                      "loss": float(out[0])})
+        if not trainers:
+            trainers.append(self)
+        return out
+
+    SupervisedTrainer.train_step = timed_step
+    try:
+        t0 = time.perf_counter()
+        _, lines = _cli_run(cli.main, argv)
+        run_s = time.perf_counter() - t0
+    finally:
+        SupervisedTrainer.train_step = step
+    model = trainers[0].model.eval()
+    trained = flax_variables(model)
+
+    def leaves(tree, path=()):
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                yield from leaves(v, path + (k,))
+            else:
+                yield path + (k,), np.asarray(v)
+
+    same = True
+    for f in files:
+        payload = load_expert(f"./log/{f}.msgpack")
+        sub = f.rsplit("/", 1)[1].split("_")
+        want = trained["params"]
+        if "encoder" in sub or "head" in sub:  # a unimodal expert's half
+            want = want["encoder" if "encoder" in sub else "head"]
+        got = dict(leaves(payload["params"]))
+        same &= got.keys() == dict(leaves(want)).keys() and all(
+            np.array_equal(got[p], v) for p, v in leaves(want))
+    losses = [st["loss"] for st in steps]
+    result = [ln for ln in lines if ln.startswith(("Test ", "Loss ", "Corr "))]
+    step_ms = statistics.median(st["ms"] for st in steps[1:])
+    print(f"  {label}: {len(steps)} train steps, {step_ms:.3f} ms a step "
+          f"(median after the first), losses "
+          f"{[round(x, 4) for x in losses]}; run {run_s:.2f} s; wrote "
+          f"{', '.join(f + '.msgpack' for f in files)} (the trained tree, "
+          f"bit for bit: {same}); {' / '.join(result)}", flush=True)
+    if not (steps and all(math.isfinite(x) for x in losses) and same
+            and result):
+        raise RuntimeError(f"{label}: expert CLI check failed")
+    return {"model": model, "steps": steps, "step_ms_median": step_ms,
+            "run_s": run_s, "result": result, "files": list(files)}
+
+
+def _expert_inputs(inp: Inputs) -> dict:
+    """The serving inputs of each kind at the JAX bench's batches (MOSEI:
+    ragged lengths in [1, T])."""
+    text, image = inp.randn(IMDB_B, 300), inp.randn(IMDB_B, 4096)
+    streams = [inp.randn(MOSEI_B, MOSEI_T, d) for d in (35, 74, 300)]
+    g = torch.Generator(device="cuda").manual_seed(18)
+    lengths = torch.randint(1, MOSEI_T + 1, (MOSEI_B,), generator=g,
+                            device="cuda")
+    return {"imdb0": (text,), "imdb1": (image,), "imdb": ([text, image],),
+            "mosei2": (streams[2], lengths),
+            "mosei": (streams, [lengths] * 3)}
+
+
+def _rows(args, n: int):
+    """The first ``n`` rows of a forward's arguments, on the CPU."""
+    if isinstance(args, torch.Tensor):
+        return args[:n].cpu()
+    return type(args)(_rows(a, n) for a in args)
+
+
+def check_experts(report: dict) -> None:
+    """Phase 18 (see the module docstring)."""
+    import copy
+    import os
+    import tempfile
+
+    from dynmm_tpu_torch.cli import affect_dyn, imdb_dyn
+    from dynmm_tpu_torch.data.affect import synthetic_mosei_loaders
+    from dynmm_tpu_torch.data.imdb import synthetic_imdb_loaders
+    from dynmm_tpu_torch.kernels import LAUNCHES
+    from dynmm_tpu_torch.models.modality import build_router
+    from dynmm_tpu_torch.train.experts import inject_expert, load_expert
+    from dynmm_tpu_torch.utils.weights import flax_variables
+
+    t_phase = time.perf_counter()
+    before = dict(LAUNCHES)
+    inputs = _expert_inputs(Inputs(seed=18))
+    common = ["--synthetic", "--n-epochs", "2", "--device", "cuda"]
+    section = {"experts": {}}
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        os.chdir(tmp)
+        try:
+            t0 = time.perf_counter()
+            for label, cli, argv, kind, files in _expert_table():
+                run = _expert_run(label, cli, common + argv, files)
+                model = run.pop("model")
+                args = inputs[kind]
+                with torch.inference_mode():
+                    ms, times, out, device = _timed(lambda: model(*args),
+                                                    window=True)
+                    n = 256 if kind.startswith("imdb") else 128
+                    want = copy.deepcopy(model).cpu()(*_rows(args, n))
+                cpu_err = ((out[:n].cpu() - want).abs().max()
+                           / want.abs().max()).item()
+                finite = bool(torch.isfinite(out).all())
+                print(f"    forward at B={out.shape[0]}: {ms:.3f} ms (median "
+                      f"of {len(times)}; device {device['device_ms']:.3f} ms "
+                      f"in {device['kernels']} kernels, busy "
+                      f"{device['busy_share'] * 100:.1f} %); card vs CPU on "
+                      f"{n} rows: rel err {cpu_err:.3g}", flush=True)
+                if cpu_err > CPU_TOL or not finite:
+                    raise RuntimeError(f"{label}: the card's forward differs "
+                                       "from the CPU's")
+                if not device["kernels"]:
+                    raise RuntimeError(f"{label}: the trace shows no device "
+                                       "work")
+                section["experts"][label] = {
+                    **run, "request_ms": ms, "request_ms_all": times,
+                    **device, "batch": out.shape[0], "cpu_rows": n,
+                    "card_vs_cpu_rel_err": cpu_err}
+                del model
+            section["step1_s"] = time.perf_counter() - t0
+
+            t0 = time.perf_counter()
+            test = next(iter(synthetic_imdb_loaders(batch_size=128)[2]))
+            imdb_batch = ([torch.from_numpy(x).cuda() for x in test.inputs],)
+            test = next(iter(synthetic_mosei_loaders(batch_size=32)[2]))
+            mosei_batch = (
+                [torch.from_numpy(x).cuda() for x in test.inputs],
+                [torch.from_numpy(x).long().cuda() for x in test.lengths])
+            routers = (
+                ("imdb_dyn", imdb_dyn, "imdb", ["--reg", "0.1"],
+                 "imdb/DynMMNet_freezeTrue_reg_0.1.msgpack", imdb_batch,
+                 "loaded expert", imdb_dyn.EXPERTS),
+                ("affect_dyn", affect_dyn, "mosei", ["--reg", "0.01"],
+                 "mosei/dyn_enc_transformer_reg_0.01freezeTrue.msgpack",
+                 mosei_batch, "Loading model",
+                 (("text_encoder",
+                   "./log/mosei/reg_transformer_encoder_text.msgpack"),
+                  ("text_head",
+                   "./log/mosei/reg_transformer_head_text.msgpack"),
+                  ("branch2", "./log/mosei/lf_tran.msgpack"))))
+            for name, cli, router, extra, ckpt, batch, word, grafts in routers:
+                start = flax_variables(build_router(router, seed=0,
+                                                    device="cpu"))
+                for sub, path in grafts:
+                    start = inject_expert(start, sub, load_expert(path))
+                run = train_cli(name, cli, common + ["--freeze"] + extra,
+                                router, ckpt, batch, workdir=tmp,
+                                start=start["params"])
+                missing = [p for _, p in grafts
+                           if f"{word} {p}" not in run["output"]]
+                print(f"  {name} grafted {len(grafts) - len(missing)} of "
+                      f"{len(grafts)} expert files; every leaf outside the "
+                      "gate bit-identical to the files after training: "
+                      f"{run['frozen_params_identical']}", flush=True)
+                if missing:
+                    raise RuntimeError(f"{name}: no graft line for {missing}")
+                section[f"{name}_graft"] = run
+            section["step2_s"] = time.perf_counter() - t0
+
+            t0 = time.perf_counter()
+            _, lines = _cli_run(imdb_dyn.main, common + [
+                "--freeze", "--reg", "0.1", "--eval-only", "--robust"])
+            curves = [ln for ln in lines if ln.startswith("robustness (")]
+            for ln in curves:
+                print(f"    | {ln}", flush=True)
+            values = [float(v) for ln in curves for v in
+                      ln.split("[", 1)[1].split("]", 1)[0].split(",")]
+            if len(curves) != 3 or len(values) != 18 or not all(
+                    map(math.isfinite, values)):
+                raise RuntimeError(f"imdb_dyn --robust: curves {curves}")
+            section["robust"] = curves
+            section["step3_s"] = time.perf_counter() - t0
+        finally:
+            os.chdir(cwd)
+    if dict(LAUNCHES) != before:
+        raise RuntimeError(f"a port kernel launched in phase 18: {before} -> "
+                           f"{dict(LAUNCHES)}")
+    section["seconds"] = time.perf_counter() - t_phase
+    print("  no kernel launch counter moved in this phase; seconds: step 1 "
+          f"(14 expert CLIs and their requests) {section['step1_s']:.1f}, "
+          f"step 2 (the routers graft them) {section['step2_s']:.1f}, step 3 "
+          f"(--robust) {section['step3_s']:.1f}, phase "
+          f"{section['seconds']:.1f}", flush=True)
+    report["experts"] = section
 
 
 CLI_SAMPLES = 16  # the prepared test split of phase 8: two batches of 8
@@ -4291,6 +4574,10 @@ def main() -> int:
         (17, f"train the {HEIGHT}x{WIDTH} flagship in bf16: SegTrainer.fit, 2 "
              f"epochs of 2 steps of B={BATCH}; resume; phase 6's optax "
              "opt_state on the card", check_train_bf16),
+        (18, "the modality experts' two steps: the 14 expert CLIs, their "
+             f"requests at B={IMDB_B} (MM-IMDB) and B={MOSEI_B} T={MOSEI_T} "
+             "(CMU-MOSEI); imdb_dyn and affect_dyn grafting them; --robust",
+         check_experts),
     ]
     for n, title, check in phases:
         print(f"[{n}] {title}", flush=True)

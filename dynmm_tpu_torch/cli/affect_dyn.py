@@ -13,8 +13,15 @@ gates as posneg classification: accuracy, loss, correlation, expected FLOPs
 and branch ratio. Experts are grafted from ``./log/<data>/*.msgpack`` when
 present and the trained router is written to
 ``./log/<data>/dyn_enc_<enc>_reg_<λ>freeze<F>.msgpack``, in flax's msgpack
-layout. It runs on the card; ``--device cpu`` runs on the CPU.
-``--robust`` and ``--measure``/``--routed`` are not ported yet and raise.
+layout (``affect_uni --mod 2 --enc transformer`` and ``affect_mm --fusion
+3`` write the experts). With ``--enc gru`` the CLI grafts
+``reg_gru_encoder_text.msgpack`` into the text transformer, as the JAX
+CLI does: where that file exists, the graft raises ``ValueError`` in both
+packages (a GRU tree is not a transformer's). ``--robust`` sweeps Gaussian
+feature noise over the test set per modality (visual, audio, text;
+``train/robustness.py``) and prints each accuracy curve. It runs on the
+card; ``--device cpu`` runs on the CPU. ``--measure``/``--routed`` are not
+ported yet and raise.
 """
 
 from __future__ import annotations
@@ -25,11 +32,13 @@ import os
 import numpy as np
 import torch
 
-from dynmm_tpu_torch.cli.imdb_dyn import add_eval_flags, check_unported
+from dynmm_tpu_torch.cli.imdb_dyn import (add_eval_flags, check_unported,
+                                          print_robustness)
 from dynmm_tpu_torch.data.affect import mosei_loaders, synthetic_mosei_loaders
 from dynmm_tpu_torch.models.modality import MOSEI_FLOPS_M, build_router
 from dynmm_tpu_torch.train.adapters import dynmm_adapter
 from dynmm_tpu_torch.train.experts import inject_expert, load_expert
+from dynmm_tpu_torch.train.robustness import robustness_sweep
 from dynmm_tpu_torch.train.supervised import SupervisedConfig, SupervisedTrainer
 from dynmm_tpu_torch.utils.checkpoint import save_checkpoint
 from dynmm_tpu_torch.utils.device import resolve_device
@@ -126,6 +135,12 @@ def main(argv=None) -> None:
               f"Total Flops {flops:.2f}M | ratio {ratio:.3f}")
         log[n] = (metrics["accuracy"], metrics["loss"], metrics["corr"], flops,
                   ratio)
+
+        if args.robust:
+            curves = robustness_sweep(
+                lambda loader: hard_trainer.evaluate(state, loader),
+                test_loader, {"visual": [0], "audio": [1], "text": [2]})
+            print_robustness(curves, "accuracy")
 
     print("-" * 60)
     print(f"Finish {args.n_runs} runs")

@@ -12,9 +12,12 @@ prints f1 micro/macro, the expected FLOPs and the branch ratio. Experts are
 grafted from ``./log/imdb/*.msgpack`` when present (``--no-pretrain``
 skips them) and the trained router is written to
 ``./log/<data>/DynMMNet_freeze<F>_reg_<λ>.msgpack``, all in flax's msgpack
-layout, so either package reads the other's files. It runs on the card;
-``--device cpu`` runs on the CPU. ``--robust`` and ``--measure``/``--routed``
-are not ported yet and raise.
+layout, so either package reads the other's files (``imdb_uni --mod 0|1``
+and ``imdb_mm --fuse 1`` write the experts). ``--robust`` sweeps Gaussian
+feature noise over the test set per modality group (text, image, both;
+``train/robustness.py``) and prints each group's f1-macro curve. It runs on
+the card; ``--device cpu`` runs on the CPU. ``--measure``/``--routed`` are
+not ported yet and raise.
 """
 
 from __future__ import annotations
@@ -29,6 +32,8 @@ from dynmm_tpu_torch.data.imdb import imdb_loaders, synthetic_imdb_loaders
 from dynmm_tpu_torch.models.modality import IMDB_FLOPS_M, build_router
 from dynmm_tpu_torch.train.adapters import dynmm_adapter
 from dynmm_tpu_torch.train.experts import inject_expert, load_expert
+from dynmm_tpu_torch.train.robustness import (relative_robustness,
+                                              robustness_sweep)
 from dynmm_tpu_torch.train.supervised import SupervisedConfig, SupervisedTrainer
 from dynmm_tpu_torch.utils.checkpoint import save_checkpoint
 from dynmm_tpu_torch.utils.device import resolve_device
@@ -46,21 +51,26 @@ EXPERTS = (("text_encoder", "./log/imdb/encoder_text.msgpack"),
 def check_unported(args) -> None:
     """Flags of the JAX CLI that the port does not have yet raise, naming
     their ROADMAP item; none is silently ignored."""
-    if args.robust:
-        raise NotImplementedError(
-            "--robust: the noise-robustness sweep (train/robustness.py) is "
-            "not ported yet (ROADMAP A8, left item 4)")
     if args.measure or args.routed:
         raise NotImplementedError(
             "--measure/--routed: the latency harness (utils/profiling.py) is "
             "not ported yet (ROADMAP A8, left item 6)")
 
 
+def print_robustness(curves: dict, metric: str) -> None:
+    """The JAX CLIs' ``--robust`` lines: each group's curve of ``metric``
+    and its relative robustness."""
+    for mod, curve in curves.items():
+        rr = relative_robustness(curve[metric])
+        print(f"robustness ({mod}): {metric} curve "
+              f"{[round(v, 3) for v in curve[metric]]} | "
+              f"relative robustness {rr:.3f}")
+
+
 def add_eval_flags(ap: argparse.ArgumentParser) -> None:
     ap.add_argument("--synthetic", action="store_true")
     ap.add_argument("--robust", action="store_true",
-                    help="noise-robustness sweep over the test set (not "
-                         "ported yet)")
+                    help="noise-robustness sweep over the test set")
     ap.add_argument("--measure", action="store_true",
                     help="measure inference latency (not ported yet)")
     ap.add_argument("--routed", action="store_true",
@@ -148,6 +158,12 @@ def main(argv=None) -> None:
               f"Total Flops {flops:.2f}M | branch ratio {ratio:.3f}")
         log1[n] = ratio
         log2[n] = metrics["f1_micro"], metrics["f1_macro"], flops
+
+        if args.robust:
+            curves = robustness_sweep(
+                lambda loader: hard_trainer.evaluate(state, loader),
+                test_loader, {"text": [0], "image": [1], "both": [0, 1]})
+            print_robustness(curves, "f1_macro")
 
     print("-" * 60)
     print(f"Finish {args.n_runs} runs")

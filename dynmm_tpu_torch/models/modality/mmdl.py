@@ -5,6 +5,12 @@ per-modality encoders → fusion → head. Sequence encoders take an optional
 
 The encoders are a ``ModuleList`` (``encoders.0``, ...), which flax names
 ``encoders_0``, ...; ``utils/weights.py`` maps one onto the other.
+
+The fusion is called as the JAX package calls it, ``fusion(outs)``: with
+no lengths (a MulT fusion runs unmasked and summarises the last padded
+step) and no train flag, so it stays deterministic while the model trains
+(``MMDL.train`` keeps it in eval mode; in PyTorch ``model.train()`` would
+reach it).
 """
 
 from __future__ import annotations
@@ -38,6 +44,12 @@ class MMDL(nn.Module):
         self.encoders = nn.ModuleList(encoders)
         self.fusion, self.head = fusion, head
         self.has_padding = has_padding
+        self.fusion.eval()
+
+    def train(self, mode: bool = True) -> "MMDL":
+        super().train(mode)
+        self.fusion.eval()  # the JAX fusion never sees train=True
+        return self
 
     def forward(self, inputs: Sequence[torch.Tensor],
                 lengths: Optional[Sequence[torch.Tensor]] = None

@@ -23,11 +23,12 @@ import torch.nn.functional as F
 
 class Dropout(nn.Module):
     """Inverted dropout (flax ``nn.Dropout``: keep with 1 − rate, scale the
-    kept values by 1/(1 − rate)), a no-op in eval or at rate 0."""
+    kept values by 1/(1 − rate)), a no-op in eval or at rate 0. The mask is
+    shared along ``broadcast_dims`` (flax's ``broadcast_dims``)."""
 
-    def __init__(self, rate: float):
+    def __init__(self, rate: float, broadcast_dims: tuple = ()):
         super().__init__()
-        self.rate = rate
+        self.rate, self.broadcast_dims = rate, tuple(broadcast_dims)
         self.generator: Optional[torch.Generator] = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -36,7 +37,9 @@ class Dropout(nn.Module):
         if self.generator is None:
             raise RuntimeError("dropout in training needs a torch.Generator "
                                "(nn.mlp.set_dropout_generator)")
-        keep = torch.rand(x.shape, generator=self.generator,
+        shape = [1 if d in self.broadcast_dims else n
+                 for d, n in enumerate(x.shape)]
+        keep = torch.rand(shape, generator=self.generator,
                           device=x.device) >= self.rate
         return torch.where(keep, x / (1.0 - self.rate), torch.zeros_like(x))
 

@@ -36,6 +36,18 @@ def save_expert(path: str, params: dict, batch_stats: Optional[dict] = None
     return path
 
 
+def save_state_expert(path: str, variables: dict,
+                      sub: Optional[str] = None) -> str:
+    """``save_expert`` of a trainer state's ``{params, model_state}``
+    (``SupervisedState.variables()``), or of its submodule ``sub``, as the
+    JAX expert CLIs write them."""
+    params = variables["params"]
+    stats = variables["model_state"].get("batch_stats")
+    if sub is not None:
+        params, stats = params[sub], (stats or {}).get(sub)
+    return save_expert(path, params, stats)
+
+
 def load_expert(path: str) -> dict:
     with open(path, "rb") as f:
         return msgpack_restore(f.read())

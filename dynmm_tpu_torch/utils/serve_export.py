@@ -76,13 +76,20 @@ def export_serving_fn(module_fn: torch.nn.Module,
             if p != here:
                 module = copy.deepcopy(module_fn).to(p)
                 inputs = tuple(x.to(p) for x in example_inputs)
-            with torch.no_grad():
-                program = _read_weights_only(
-                    torch.export.export(module, tuple(inputs)))
             buf = io.BytesIO()
-            torch.export.save(program, buf)
+            torch.export.save(export_program(module, *inputs), buf)
             z.writestr(f"{p}.pt2", buf.getvalue())
     return out.getvalue()
+
+
+def export_program(module_fn: torch.nn.Module,
+                   *example_inputs: torch.Tensor) -> ExportedProgram:
+    """The ``ExportedProgram`` of one platform of an artifact:
+    ``module_fn`` traced under ``torch.no_grad`` at ``example_inputs``, on
+    their device, holding only the weights its graph reads."""
+    with torch.no_grad():
+        return _read_weights_only(
+            torch.export.export(module_fn, tuple(example_inputs)))
 
 
 def _read_weights_only(program: ExportedProgram) -> ExportedProgram:

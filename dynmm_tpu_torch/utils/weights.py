@@ -19,8 +19,11 @@ submodules after the flax tree itself, so their bridge is a tree walk
 dense kernels (in, out) ↔ (out, in); attention ``query``/``key``/``value``
 kernels (in, H, D) ↔ (H·D, in) and biases (H, D) ↔ (H·D,); the attention
 ``out`` kernel (H, D, out) ↔ (out, H·D); LayerNorm and BN ``scale`` ↔
-``weight``; BN ``mean``/``var`` ↔ running statistics. ``load_flax_variables``
-and ``flax_variables`` pick the rules from the model.
+``weight``; BN ``mean``/``var`` ↔ running statistics. A raw ``self.param``
+leaf of a flax module (the fusions' ``factor{i}``, ``rank_weights``,
+``W``, ``U``, ...) is a parameter of the same name and shape, carried as
+it is. ``load_flax_variables`` and ``flax_variables`` pick the rules from
+the model.
 
 The segmentation models' quantized convs (``nn/quant.py``) carry the flax
 ``quant`` collection both ways: ``in_scale``, ``in_pct`` and, once packed,
@@ -215,7 +218,8 @@ def _tree_state_dict(variables: dict) -> dict[str, torch.Tensor]:
                 arr = arr.T
             else:
                 name = {"scale": "weight"}.get(leaf, leaf)
-                arr = arr.reshape(-1)  # q/k/v biases are (H, D)
+                if mods and mods[-1] in _QKV:  # q/k/v biases are (H, D)
+                    arr = arr.reshape(-1)
             out[".".join(mods + [name])] = torch.tensor(np.ascontiguousarray(arr))
     return out
 

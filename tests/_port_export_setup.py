@@ -21,7 +21,8 @@ from dynmm_tpu_torch.data.seg_preprocessing import pack_stem_batch
 from dynmm_tpu_torch.models.esanet import ESANetConfig
 from dynmm_tpu_torch.models.skip_gate import SkipGateESANet
 from dynmm_tpu_torch.utils.quantize import quantize_int8
-from dynmm_tpu_torch.utils.serve_export import (export_serving_fn,
+from dynmm_tpu_torch.utils.serve_export import (export_program,
+                                                export_serving_fn,
                                                 load_serving_fn,
                                                 save_serving_artifact)
 from dynmm_tpu_torch.utils.weights import flax_variables
@@ -100,6 +101,21 @@ def roundtrip(tmp_path, module, *inputs):
     path = tmp_path / "artifact.pt2"
     save_serving_artifact(str(path), export_serving_fn(module, *inputs))
     return load_serving_fn(str(path))
+
+
+def in_memory(module, *inputs):
+    """The program an artifact of ``module`` at ``inputs`` would hold
+    (``export_program``), replayed as ``load_serving_fn`` replays it, with
+    no save and load: ``fn.program`` as in ``roundtrip``."""
+    program = export_program(module, *inputs)
+    replay = program.module()
+
+    def fn(*args):
+        with torch.no_grad():
+            return replay(*args)
+
+    fn.program = program
+    return fn
 
 
 def graph_ops(program) -> set:

@@ -10,7 +10,10 @@ on the CPU (``_port_export_setup``; the B=4 forms and the ops are in
   dense forward's mix at a one-hot weight): gate weights identical, logits
   within 1e-4 of max |JAX logits|;
 * ``switch`` with each forced path, a Python int: a static graph, no cond
-  (JAX's ``static_k``), equal to eager with error 0; path 0 fuses no stage;
+  (JAX's ``static_k``), equal to eager with error 0; path 0 fuses no stage.
+  Path 0 goes through the file; paths 1-4 replay the same program in
+  memory (``in_memory``: the save and load of ~68 MB took most of each
+  case);
 * the MM-IMDB router's dense forward, (text, image): equal to eager within
   1e-6, as the JAX package's ``test_export_modality_router``;
 * ``cli.predict --quant int8 --export_path``: the reloaded artifact writes
@@ -26,7 +29,7 @@ import torch
 
 from _port_eval_setup import lines_with, run_port_cli
 from _port_export_setup import (B, SITES, check_replay, close_to_jax, conds,
-                                jax_refs, make_nets, roundtrip)
+                                in_memory, jax_refs, make_nets, roundtrip)
 from _port_train_setup import one_torch_thread  # noqa: F401 (autouse)
 from dynmm_tpu_torch.cli import predict as predict_cli
 from dynmm_tpu_torch.serve import ServingForward
@@ -57,7 +60,8 @@ def test_switch_artifact_live_gate(nets, tmp_path):
 def test_switch_artifact_forced_path(nets, tmp_path, path):
     module = ServingForward(nets["fp32"], "switch", force_path=path)
     inputs = tuple(torch.from_numpy(a[:1]) for a in nets["inputs"])
-    fn = roundtrip(tmp_path, module, *inputs)
+    fn = (roundtrip(tmp_path, module, *inputs) if path == 0
+          else in_memory(module, *inputs))
     check_replay(fn, module, inputs,
                  SITES if path else SITES - {"se_fuse_mixed"})
     assert conds(fn.program) == 0

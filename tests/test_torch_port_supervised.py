@@ -11,8 +11,9 @@ objectives, metrics, ``SupervisedTrainer``, experts, checkpoints and the
   (loaders, metrics) against the JAX package's; ``fit`` returns the best
   epoch's copy.
 * Experts and checkpoints written by either package load into the other.
-* Both CLIs end to end on the CPU on the synthetic data; the flags not
-  ported yet raise; without a card the entry points raise.
+* Both CLIs end to end on the CPU on the synthetic data; ``--robust``
+  prints the JAX sweep's curves; the flags not ported yet raise; without a
+  card the entry points (the expert CLIs too) raise.
 """
 
 import re
@@ -33,7 +34,8 @@ from dynmm_tpu.train import metrics as jmetrics
 from dynmm_tpu.train import objectives as jobjectives
 from dynmm_tpu.train import supervised as jsup
 from dynmm_tpu.utils import checkpoint as jckpt
-from dynmm_tpu_torch.cli import affect_dyn, imdb_dyn
+from dynmm_tpu_torch.cli import (affect_dyn, affect_mm, affect_uni, imdb_dyn,
+                                 imdb_mm, imdb_uni)
 from dynmm_tpu_torch.data import affect, imdb
 from dynmm_tpu_torch.data.loader import ArrayLoader
 from dynmm_tpu_torch.train import adapters, experts, metrics, objectives
@@ -445,12 +447,55 @@ def test_cli_end_to_end_on_cpu(tmp_path, monkeypatch, capsys, name):
     assert re.findall(RESULT[name], capsys.readouterr().out) == lines
 
 
+ROBUST = {"imdb": ("imdb", "f1_macro", {"text": [0], "image": [1],
+                                         "both": [0, 1]}),
+          "affect": ("mosei", "accuracy", {"visual": [0], "audio": [1],
+                                           "text": [2]})}
+
+
+def _jax_robust_lines(name: str) -> list:
+    """The JAX CLI's ``--robust`` lines on the port CLI's start weights
+    (``build_router(seed=0)``): ``robustness_sweep`` over the JAX
+    trainer's hard-gate ``evaluate`` on the synthetic test split."""
+    from dynmm_tpu.train import robustness as jrob
+    from dynmm_tpu_torch.models.modality import build_router
+
+    kind, metric, groups = ROBUST[name]
+    variables = {k: v for k, v in flax_variables(
+        build_router(kind, seed=0, device="cpu")).items() if v}
+    test = (jimdb.synthetic_imdb_loaders(batch_size=128)[2] if kind == "imdb"
+            else jaffect.synthetic_mosei_loaders(batch_size=32)[2])
+    jt = jsup.SupervisedTrainer(
+        jadapters.dynmm_adapter(ROUTERS[kind][0](), temp=1.0, hard=True,
+                                infer_mode=0),
+        jsup.SupervisedConfig(**_cfg(kind)))
+    state = jt.init_state(variables)
+    curves = jrob.robustness_sweep(lambda l: jt.evaluate(state, l), test,
+                                   groups)
+    return [f"robustness ({mod}): {metric} curve "
+            f"{[round(v, 3) for v in curve[metric]]} | relative robustness "
+            f"{jrob.relative_robustness(curve[metric]):.3f}"
+            for mod, curve in curves.items()]
+
+
 @pytest.mark.parametrize("name", list(CLIS))
 @pytest.mark.parametrize("flag", ["--robust", "--measure", "--routed"])
-def test_cli_unported_flags_raise(name, flag):
-    item = "item 4" if flag == "--robust" else "item 6"
-    with pytest.raises(NotImplementedError, match=f"ROADMAP A8, left {item}"):
-        CLIS[name][0].parse_args(["--synthetic", flag, "--device", "cpu"])
+def test_cli_unported_flags_raise(tmp_path, monkeypatch, capsys, name, flag):
+    """``--measure``/``--routed`` raise, naming ROADMAP A8 item 6.
+    ``--robust`` (item 4) is ported: ``--robust --eval-only`` prints the
+    JAX CLI's robustness lines, computed by the JAX package's sweep on the
+    same start weights."""
+    if flag != "--robust":
+        with pytest.raises(NotImplementedError,
+                           match="ROADMAP A8, left item 6"):
+            CLIS[name][0].parse_args(["--synthetic", flag, "--device", "cpu"])
+        return
+    monkeypatch.chdir(tmp_path)
+    CLIS[name][0].main(["--synthetic", "--robust", "--eval-only", "--device",
+                        "cpu"])
+    got = [ln for ln in capsys.readouterr().out.splitlines()
+           if ln.startswith("robustness (")]
+    assert got == _jax_robust_lines(name)
 
 
 def test_entry_points_raise_without_a_card(monkeypatch):
@@ -462,6 +507,7 @@ def test_entry_points_raise_without_a_card(monkeypatch):
     model = build_router("imdb", device="cpu")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         SupervisedTrainer(adapters.dynmm_adapter(model), SupervisedConfig())
-    for cli in (imdb_dyn, affect_dyn):
+    for cli in (imdb_dyn, affect_dyn, imdb_uni, imdb_mm, affect_uni,
+                affect_mm):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             cli.main(["--synthetic", "--n-epochs", "1"])
