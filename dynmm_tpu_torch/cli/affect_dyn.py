@@ -19,9 +19,10 @@ layout (``affect_uni --mod 2 --enc transformer`` and ``affect_mm --fusion
 CLI does: where that file exists, the graft raises ``ValueError`` in both
 packages (a GRU tree is not a transformer's). ``--robust`` sweeps Gaussian
 feature noise over the test set per modality (visual, audio, text;
-``train/robustness.py``) and prints each accuracy curve. It runs on the
-card; ``--device cpu`` runs on the CPU. ``--measure``/``--routed`` are not
-ported yet and raise.
+``train/robustness.py``) and prints each accuracy curve. ``--measure``
+(``--routed``) times the dense (bucket-compacted) hard eval over the test
+set and prints the JAX CLI's line, as ``imdb_dyn`` does. It runs on the
+card; ``--device cpu`` runs on the CPU.
 """
 
 from __future__ import annotations
@@ -32,7 +33,7 @@ import os
 import numpy as np
 import torch
 
-from dynmm_tpu_torch.cli.imdb_dyn import (add_eval_flags, check_unported,
+from dynmm_tpu_torch.cli.imdb_dyn import (add_eval_flags, measure,
                                           print_robustness)
 from dynmm_tpu_torch.data.affect import mosei_loaders, synthetic_mosei_loaders
 from dynmm_tpu_torch.models.modality import MOSEI_FLOPS_M, build_router
@@ -68,9 +69,7 @@ def parse_args(argv=None):
     ap.add_argument("--data-path", type=str,
                     default="./data/mosei_senti_data.pkl")
     add_eval_flags(ap)
-    args = ap.parse_args(argv)
-    check_unported(args)
-    return args
+    return ap.parse_args(argv)
 
 
 def main(argv=None) -> None:
@@ -141,6 +140,9 @@ def main(argv=None) -> None:
                 lambda loader: hard_trainer.evaluate(state, loader),
                 test_loader, {"visual": [0], "audio": [1], "text": [2]})
             print_robustness(curves, "accuracy")
+        if args.measure:
+            measure(model, test_loader, hard_trainer, args.routed,
+                    lengths=True)
 
     print("-" * 60)
     print(f"Finish {args.n_runs} runs")

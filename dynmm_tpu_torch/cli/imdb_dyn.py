@@ -36,6 +36,7 @@ from dynmm_tpu_torch.train.robustness import (relative_robustness,
                                               robustness_sweep)
 from dynmm_tpu_torch.train.supervised import SupervisedConfig, SupervisedTrainer
 from dynmm_tpu_torch.utils.checkpoint import save_checkpoint
+from dynmm_tpu_torch.utils import profiling
 from dynmm_tpu_torch.utils.device import resolve_device
 from dynmm_tpu_torch.utils.weights import (flax_variables,
                                            load_checkpoint_into,
@@ -48,15 +49,6 @@ EXPERTS = (("text_encoder", "./log/imdb/encoder_text.msgpack"),
            ("branch3", "./log/imdb/best_lf.msgpack"))
 
 
-def check_unported(args) -> None:
-    """Flags of the JAX CLI that the port does not have yet raise, naming
-    their ROADMAP item; none is silently ignored."""
-    if args.measure or args.routed:
-        raise NotImplementedError(
-            "--measure/--routed: the latency harness (utils/profiling.py) is "
-            "not ported yet (ROADMAP A8, left item 6)")
-
-
 def print_robustness(curves: dict, metric: str) -> None:
     """The JAX CLIs' ``--robust`` lines: each group's curve of ``metric``
     and its relative robustness."""
@@ -67,15 +59,35 @@ def print_robustness(curves: dict, metric: str) -> None:
               f"relative robustness {rr:.3f}")
 
 
+def measure(model, loader, trainer, routed: bool,
+            lengths: bool = False) -> None:
+    """``--measure``: time the hard-gated eval forward of ``model`` (the
+    dense one, or ``forward_routed_compact`` under ``routed``) over
+    ``loader`` and print the JAX CLI's line. ``lengths``: the router takes
+    the batch's sequence lengths (MOSEI)."""
+    model.eval()
+
+    def forward(batch):
+        args = ((batch["inputs"], batch["lengths"]) if lengths
+                else (batch["inputs"],))
+        with torch.inference_mode():
+            if routed:
+                return model.forward_routed_compact(*args)[0]
+            return model(*args, hard=True)[0]
+
+    mean, std = profiling.test_time(forward, loader, trainer.to_device_batch)
+    print(f"Time measured over 10 reps: {mean:.4f} ± {std:.4f}s per pass")
+
+
 def add_eval_flags(ap: argparse.ArgumentParser) -> None:
     ap.add_argument("--synthetic", action="store_true")
     ap.add_argument("--robust", action="store_true",
                     help="noise-robustness sweep over the test set")
     ap.add_argument("--measure", action="store_true",
-                    help="measure inference latency (not ported yet)")
+                    help="measure inference latency")
     ap.add_argument("--routed", action="store_true",
                     help="with --measure: time the bucket-compacted routed "
-                         "forward (not ported yet)")
+                         "forward")
     ap.add_argument("--device", default=None,
                     help="torch device; the default is the card (cuda)")
 
@@ -97,9 +109,7 @@ def parse_args(argv=None):
     ap.add_argument("--data-path", type=str,
                     default="./data/multimodal_imdb.hdf5")
     add_eval_flags(ap)
-    args = ap.parse_args(argv)
-    check_unported(args)
-    return args
+    return ap.parse_args(argv)
 
 
 def main(argv=None) -> None:
@@ -164,6 +174,8 @@ def main(argv=None) -> None:
                 lambda loader: hard_trainer.evaluate(state, loader),
                 test_loader, {"text": [0], "image": [1], "both": [0, 1]})
             print_robustness(curves, "f1_macro")
+        if args.measure:
+            measure(model, test_loader, hard_trainer, args.routed)
 
     print("-" * 60)
     print(f"Finish {args.n_runs} runs")

@@ -15,8 +15,9 @@ hswish net: ``models/esanet.py``), with the 2×2 packed stem under
 layouts (``data/nyuv2.py``, ``data/other_datasets.py``) and ``synthetic``.
 ``check_supported`` raises ``NotImplementedError`` on every flag of a
 feature the port does not have yet, naming its ROADMAP item; none is
-silently ignored. ``--dtype bfloat16`` trains, serves and scores every
-model in bf16 (fp32 parameters). ``--quant int8`` builds the global-gate
+silently ignored (``--mesh-data``/``--mesh-model`` are ``cli.train``'s,
+which trains on a mesh). ``--dtype bfloat16`` trains, serves and scores
+every model in bf16 (fp32 parameters). ``--quant int8`` builds the global-gate
 net or the static ESANet (each fp32 or bf16) with quantized convs for
 cli.eval and cli.predict, which calibrate it; the local-gate net and the
 one-modality net raise, and so does training.
@@ -42,9 +43,6 @@ def check_supported(args, training: bool = False) -> None:
     """Raise on flags of features not ported yet (``training``: for
     ``cli.train``)."""
     missing = []
-    if args.mesh_data > 1 or args.mesh_model > 1:
-        missing.append("--mesh-data/--mesh-model above 1 (mesh training, "
-                       "ROADMAP A9)")
     if args.quant != "none" and training:
         missing.append(f"--quant {args.quant} in training (a serving-time "
                        "knob: cli.eval and cli.predict calibrate a trained "

@@ -23,6 +23,19 @@ trains: ``--dynamic --global-gate`` (SkipGateESANet), ``--dynamic``
 hswish (``--activation``); ``--freeze`` applies to the dynamic models
 only. Flags of features the port does not have yet raise
 (``cli/seg_build.py::check_supported``).
+
+``--mesh-data D --mesh-model M`` trains on a (D, M) mesh
+(``parallel/mesh.py``; ``--mesh-data 0``: every card over ``--mesh-model``),
+which equals the one-process step on the global batch ``--batch_size``.
+A mesh is made where the JAX CLI makes one: more than one card, or a flag
+above 1. The command starts the D·M ranks itself
+(``parallel/launch.py::run_ranks``: rank r on ``cuda:{r % cards}``, NCCL
+where every rank has its own card, gloo where ranks share one or run on
+the CPU), or, started by ``torchrun`` with D·M processes, joins the world
+that is already set up (``env://``). Rank 0 alone prints, logs and writes
+checkpoints (the msgpack file a one-process run writes, the 'model'
+slices gathered); ``--last_ckpt`` resumes a file of either package onto the
+mesh.
 """
 
 from __future__ import annotations
@@ -35,12 +48,16 @@ import warnings
 from datetime import datetime
 
 import torch
+import torch.distributed as dist
 
 from dynmm_tpu_torch.cli.seg_args import ArgumentParserRGBDSegmentation
 from dynmm_tpu_torch.cli.seg_build import (build_model, check_supported,
                                            compute_class_weights, prepare_data)
+from dynmm_tpu_torch.parallel.launch import default_backend, run_ranks
+from dynmm_tpu_torch.parallel.mesh import make_mesh, rank_device
 from dynmm_tpu_torch.train.seg import SegTrainConfig, SegTrainer
 from dynmm_tpu_torch.utils.checkpoint import load_ckpt
+from dynmm_tpu_torch.utils.device import resolve_device
 from dynmm_tpu_torch.utils.init import apply_he_init
 from dynmm_tpu_torch.utils.torch_import import (import_scenenet_pretrain,
                                                 load_any_checkpoint)
@@ -59,8 +76,57 @@ def parse_args(argv=None):
     return args
 
 
+def mesh_shape(args) -> tuple[int, int] | None:
+    """(D, M) of the mesh the flags ask for, or None: the JAX CLI's rule
+    (a mesh on more than one card, or under a mesh flag above 1;
+    ``--mesh-data 0`` fills the cards)."""
+    device = resolve_device(args.device)
+    cards = torch.cuda.device_count() if device.type == "cuda" else 1
+    if not (cards > 1 or args.mesh_data > 1 or args.mesh_model > 1):
+        return None
+    n_data = args.mesh_data or cards // args.mesh_model
+    if n_data < 1:
+        raise ValueError(f"--mesh-model {args.mesh_model} is more than the "
+                         f"{cards} device(s)")
+    return n_data, args.mesh_model
+
+
 def main(argv=None) -> None:
     args = parse_args(argv)
+    command = sys.argv if argv is None else ["train"] + list(argv)
+    shape = mesh_shape(args)
+    if shape is None:
+        return train(args, command)
+    if "RANK" in os.environ and "WORLD_SIZE" in os.environ:  # torchrun
+        device = rank_device(args.device)
+        if device.type == "cuda":
+            torch.cuda.set_device(device)
+        dist.init_process_group(default_backend(device, shape[0] * shape[1]),
+                                init_method="env://")
+        try:
+            return _rank_main(command)
+        finally:
+            dist.destroy_process_group()
+    run_ranks(_rank_main, shape[0] * shape[1], (command,),
+              device=args.device, timeout=None)
+
+
+def _rank_main(command: list) -> None:
+    """One rank of a mesh run of ``command`` (its flags after the first
+    word): rank 0 alone prints."""
+    args = parse_args(command[1:])
+    shape = mesh_shape(args)
+    if dist.get_rank() != 0:
+        sys.stdout = open(os.devnull, "w")
+    mesh = make_mesh(*shape, device=args.device)
+    print(f"Using device mesh {mesh.shape}")
+    train(args, command, mesh)
+
+
+def train(args, command: list, mesh=None) -> None:
+    """The CLI's run of parsed ``args`` (``command``: the command line, for
+    ``argsv.txt``), on one device or on ``mesh``."""
+    writes = mesh is None or mesh.rank == 0
     if args.batch_size != 8:
         args.lr = args.lr * args.batch_size / 8
         warnings.warn(
@@ -70,12 +136,12 @@ def main(argv=None) -> None:
     training_starttime = datetime.now().strftime("%d_%m_%Y-%H_%M_%S-%f")
     ckpt_dir = os.path.join(args.results_dir, args.dataset,
                             f"checkpoints_{training_starttime}")
-    os.makedirs(ckpt_dir, exist_ok=True)
-    with open(os.path.join(ckpt_dir, "args.json"), "w") as f:
-        json.dump(vars(args), f, sort_keys=True, indent=4)
-    with open(os.path.join(ckpt_dir, "argsv.txt"), "w") as f:
-        f.write(" ".join(sys.argv if argv is None else ["train"] + list(argv))
-                + "\n")
+    if writes:
+        os.makedirs(ckpt_dir, exist_ok=True)
+        with open(os.path.join(ckpt_dir, "args.json"), "w") as f:
+            json.dump(vars(args), f, sort_keys=True, indent=4)
+        with open(os.path.join(ckpt_dir, "argsv.txt"), "w") as f:
+            f.write(" ".join(command) + "\n")
 
     print("preparing data")
     train_loader, valid_loader, *_ = prepare_data(args)
@@ -97,7 +163,8 @@ def main(argv=None) -> None:
         dynamic=args.dynamic, global_gate=args.global_gate,
         grad_accum=args.grad_accum, modality=args.modality, debug=args.debug,
         packed_stem=args.packed_stem)
-    trainer = SegTrainer(model, cfg, class_weights, device=args.device)
+    trainer = SegTrainer(model, cfg, class_weights, device=args.device,
+                         mesh=mesh)
     # train.py draws a sample batch for its init here, which moves the
     # loader's shuffle and augmentation stream: drawn too, the same flags
     # train on the same batches

@@ -3,13 +3,42 @@
 
 ``straight_through`` is ``y_hard - y_soft.detach() + y_soft``: the value of
 the hard one-hot with the gradient of the soft distribution. Randomness
-takes an explicit ``torch.Generator``.
+takes an explicit ``torch.Generator``. Inside ``batch_rows`` (mesh
+training) a draw for this rank's rows of a batch is those rows of the draw
+for the global batch, so the noise does not depend on the mesh.
 """
 
 from __future__ import annotations
 
+import contextlib
+from typing import Callable
+
 import torch
 import torch.nn.functional as F
+
+_ROWS: tuple[int, int] | None = None  # (first row, global batch size)
+
+
+@contextlib.contextmanager
+def batch_rows(start: int, total: int):
+    """Within the block, random draws over a batch's rows are the rows
+    ``start:start + n`` of the same draw over a batch of ``total``."""
+    global _ROWS
+    previous, _ROWS = _ROWS, (start, total)
+    try:
+        yield
+    finally:
+        _ROWS = previous
+
+
+def draw_rows(draw: Callable, shape) -> torch.Tensor:
+    """``draw(shape)``, a draw whose first dimension is the batch; inside
+    ``batch_rows`` this rank's rows of ``draw`` over the global batch."""
+    shape = tuple(shape)
+    if _ROWS is None:
+        return draw(shape)
+    start, total = _ROWS
+    return draw((total,) + shape[1:])[start:start + shape[0]]
 
 
 def straight_through(y_hard: torch.Tensor, y_soft: torch.Tensor
@@ -79,9 +108,10 @@ def gumbel_softmax(logits: torch.Tensor, generator: torch.Generator,
                    ) -> torch.Tensor:
     """Gumbel-softmax sample with optional straight-through hard one-hot,
     drawing its noise from ``generator`` on the generator's device."""
-    g = sample_gumbel(logits.shape, generator,
-                      dtype=torch.promote_types(logits.dtype, torch.float32),
-                      device=generator.device).to(logits.device)
+    dtype = torch.promote_types(logits.dtype, torch.float32)
+    g = draw_rows(lambda shape: sample_gumbel(
+        shape, generator, dtype=dtype, device=generator.device),
+        logits.shape).to(logits.device)
     y_soft = softmax((logits + g.to(logits.dtype)) / tau, dim=dim)
     if not hard:
         return y_soft

@@ -57,7 +57,7 @@ import numpy as np
 import torch
 import torch.nn as nn
 
-from dynmm_tpu_torch.core.gates import diff_softmax
+from dynmm_tpu_torch.core.gates import diff_softmax, draw_rows
 from dynmm_tpu_torch.core.resource import expected_cost_loss
 from dynmm_tpu_torch.core.routing import permute_rows, scatter_rows
 from dynmm_tpu_torch.models.esanet import ESANetConfig, _DualEncoderParts
@@ -214,8 +214,8 @@ class SkipGateESANet(_DualEncoderParts):
     def random_paths(bs: int, generator: torch.Generator) -> torch.Tensor:
         """``ini_stage``'s uniform random paths in 0..4, (bs,) int64, drawn
         on the generator's device."""
-        return torch.randint(0, 5, (bs,), generator=generator,
-                             device=generator.device)
+        return draw_rows(lambda shape: torch.randint(
+            0, 5, shape, generator=generator, device=generator.device), (bs,))
 
     def gate_weights(self, rgb, depth, temp: float = 1.0, hard: bool = False,
                      baseline: bool = False, ini_stage: bool = False,

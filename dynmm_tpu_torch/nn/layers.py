@@ -56,13 +56,16 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from dynmm_tpu_torch.core.gates import gumbel_softmax
+from dynmm_tpu_torch.core.gates import draw_rows, gumbel_softmax
 from dynmm_tpu_torch.kernels.se import (channel_sums, channel_sums_plain,
                                         fused_se, map_scale, se_fuse_mixed,
                                         se_fuse_mixed_plain, se_reference,
                                         sigmoid)
 from dynmm_tpu_torch.kernels.stem_fuse import stem_se_fusion_pool
 from dynmm_tpu_torch.kernels.upsample import learned_upsample, learned_upsample_plain
+from dynmm_tpu_torch.parallel.collectives import (copy_to_group,
+                                                  gather_slices,
+                                                  sync_batch_norm)
 from dynmm_tpu_torch.nn.quant import (CALIB_PERCENTILES, QUANT_MODES,
                                       conv_int8_gemm, gemm_weight, observe,
                                       quantize_symmetric, quantize_weight)
@@ -191,9 +194,17 @@ class Conv2d(nn.Conv2d):
     (``pack``, from ``utils/quantize.py::pack_int8``: its GEMM matrix
     ``w_mat`` with ``w_scale``; ``weight_q`` reads it back as OIHW) or,
     unpacked, quantized from the float weight each call. A
-    ``load_state_dict`` drops the packed copy of the old weight."""
+    ``load_state_dict`` drops the packed copy of the old weight.
+
+    ``model_shard`` (a ``parallel/mesh.py::Mesh``, set by ``shard_params``
+    on a conv whose weight it splits over the mesh's 'model' axis): in
+    training the conv computes this rank's slice of the output channels
+    from its slice of the weight and gathers the full output over 'model';
+    its input's gradient is summed over 'model' and the bias is added
+    after the gather, replicated."""
 
     compute_dtype: torch.dtype | None = None
+    model_shard = None
 
     def __init__(self, *args, quant: str | None = None, **kwargs):
         super().__init__(*args, **kwargs)
@@ -261,11 +272,32 @@ class Conv2d(nn.Conv2d):
             return self.forward_int8(x)
         if self.quant == "calib":
             observe(self.in_scale, self.in_pct, x)
+        if self.model_shard is not None and self.training:
+            return self.forward_model_shard(x, self.model_shard)
         weight, bias = self.weights(x.dtype)
         if self.training and bias is not None and x.dtype != self.weight.dtype:
             # flax's order at a compute dtype: the sum rounded, then + bias
             return self._conv_forward(x, weight, None) + bias[:, None, None]
         return self._conv_forward(x, weight, bias)
+
+    def forward_model_shard(self, x, mesh):
+        """Training under a mesh's 'model' axis: this rank's output channels
+        from its weight slice, gathered over 'model'. A grouped conv (the
+        depthwise upsample) reads the input channels of its own groups."""
+        local = self.parametrizations.weight.original
+        group = mesh.model_group
+        x = copy_to_group(x, group)
+        groups = self.groups // mesh.n_model if self.groups > 1 else 1
+        if self.groups > 1:
+            c = self.in_channels // self.groups * groups
+            x = x.narrow(1, mesh.model_index * c, c)
+        w = local if local.dtype == x.dtype else local.to(x.dtype)
+        y = F.conv2d(x, w, None, self.stride, self.padding, self.dilation,
+                     groups)
+        y = gather_slices(y, group, mesh.model_index, dim=1)
+        if self.bias is not None:
+            y = y + self.bias.to(y.dtype)[:, None, None]
+        return y
 
     def forward_int8(self, x):
         """The int8 conv of an NCHW map: NCHW (channels_last) out, in the
@@ -351,7 +383,12 @@ class BatchNorm2d(nn.Module):
     carry none, so converted state_dicts load strictly). In training a
     map below fp32 (bf16) takes ``_WideBatchNorm``, the JAX BN's order,
     unless it is a channels-last map on the card, where ``F.batch_norm``
-    computes the same."""
+    computes the same. ``sync_group`` (set by ``parallel/mesh.py::
+    shard_params`` under a mesh whose 'data' axis has several ranks): the
+    train-mode statistics are the global batch's, summed over the group
+    (``parallel/collectives.py::sync_batch_norm``)."""
+
+    sync_group = None
 
     def __init__(self, channels: int, eps: float = BN_EPS,
                  momentum: float = BN_MOMENTUM):
@@ -363,6 +400,10 @@ class BatchNorm2d(nn.Module):
         self.register_buffer("running_var", torch.ones(channels))
 
     def forward(self, x):
+        if self.training and self.sync_group is not None:
+            return sync_batch_norm(x, self.weight, self.bias,
+                                   self.running_mean, self.running_var,
+                                   self.momentum, self.eps, self.sync_group)
         if (self.training and x.dtype != self.weight.dtype
                 and x.dtype.itemsize < 4 and not (
                     x.is_cuda and x.is_contiguous(
@@ -538,8 +579,9 @@ class SqueezeAndExciteReweigh(nn.Module):
                 use_kernels: bool = True):
         bs = rgb.shape[0]
         if random_policy:
-            b0 = torch.randint(0, 2, (bs,), generator=generator,
-                               device=generator.device).to(rgb)
+            b0 = draw_rows(lambda shape: torch.randint(
+                0, 2, shape, generator=generator, device=generator.device),
+                (bs,)).to(rgb)
             w_norm = torch.stack([b0, 1.0 - b0], dim=1)
         else:
             sums = channel_sums if use_kernels else channel_sums_plain

@@ -43,7 +43,18 @@ generator; validation samples hard under ``test`` from a generator seeded
 ESANetOneModality (``modality`` rgb | depth, one input); the last three
 have a zero FLOP loss. ``calibrate_quant`` is the int8 PTQ calibration
 of eval.py's ``--quant int8`` (the global-gate net and the static ESANet).
-The mesh is not ported.
+
+Under a mesh (``SegTrainer(mesh=...)``, ``parallel/mesh.py``; one process a
+rank) the step computes the one-process step on the global batch: the
+model is placed before the first step (rank 0's weights everywhere, the
+'model' slices of ``shard_params`` with their optimizer state, BN
+statistics over the global batch); each rank takes its rows of every batch
+(an eval batch that does not split runs whole on every rank, as in JAX);
+the class-weighted CE's sums, the FLOP loss's mean and the gate's random
+draws are the global batch's; each rank's loss is its 1/D share and the
+gradients are summed over 'data'. Validation sums the confusion matrices
+and the loss sums over 'data'. Only rank 0 writes logs and checkpoints;
+every rank takes part in gathering the state it writes.
 """
 
 from __future__ import annotations
@@ -61,6 +72,9 @@ import numpy as np
 import torch
 import torch.nn as nn
 
+from torch.nn.utils import parametrize
+
+from dynmm_tpu_torch.core.gates import batch_rows
 from dynmm_tpu_torch.core.resource import GateStats
 from dynmm_tpu_torch.core.schedules import ExpDecayTemp
 from dynmm_tpu_torch.data.seg_preprocessing import (inject_eval_noise,
@@ -68,6 +82,11 @@ from dynmm_tpu_torch.data.seg_preprocessing import (inject_eval_noise,
 from dynmm_tpu_torch.models.skip_gate import capacity_ladders
 from dynmm_tpu_torch.nn.layers import (first_argmax, pack_weights,
                                        resize_bilinear, resize_nearest_centers)
+from dynmm_tpu_torch.parallel.collectives import gather_slices
+from dynmm_tpu_torch.parallel.mesh import (canonical_name, full_state_dict,
+                                           is_sharded, local_slice,
+                                           place_model, shard_batch,
+                                           sum_gradients)
 from dynmm_tpu_torch.train.metrics import ConfusionMatrix, confusion_update_counts
 from dynmm_tpu_torch.train.seg_losses import StreamingValidLoss, multiscale_ce
 from dynmm_tpu_torch.utils.checkpoint import save_ckpt, save_ckpt_every_epoch
@@ -219,6 +238,40 @@ class SegOptimizer:
         self.count = 0
         self.mini_step = 0
         self.acc: dict[str, torch.Tensor] = {}
+        self.mesh, self.sharded = None, frozenset()
+
+    def place(self, model: nn.Module, mesh, sharded) -> None:
+        """Re-point at ``model``'s parameters after ``place_model`` left
+        this rank only its 'model' slices of the weights named in
+        ``sharded``: their moments and accumulated gradients are sliced
+        too."""
+        self.mesh, self.sharded = mesh, frozenset(sharded)
+
+        def cut(name, t):
+            if name in self.sharded and torch.is_tensor(t) and t.dim():
+                return local_slice(t, mesh)
+            return t
+
+        params = {canonical_name(n): p for n, p in model.named_parameters()}
+        state = {n: {k: cut(n, v) for k, v in self.opt.state[p].items()}
+                 for n, p in self.named.items() if p in self.opt.state}
+        lr = self.opt.param_groups[0]["lr"]
+        self.named = {n: params[n] for n in self.named}
+        self.frozen = {n: params[n] for n in self.frozen}
+        self.opt = type(self.opt)(list(self.named.values()),
+                                  **{**self.opt.defaults, "lr": lr})
+        for n, st in state.items():
+            self.opt.state[self.named[n]] = st
+        self.acc = {n: cut(n, t) for n, t in self.acc.items()}
+
+    def _full(self, name: str, t: torch.Tensor) -> torch.Tensor:
+        """``t`` of parameter ``name`` whole: a sharded one's slices
+        gathered over 'model' (every rank of the mesh calls this)."""
+        if name not in self.sharded:
+            return t
+        with torch.no_grad():
+            return gather_slices(t, self.mesh.model_group,
+                                 self.mesh.model_index, 0)
 
     def set_lr(self, lr: float) -> None:
         for group in self.opt.param_groups:
@@ -261,6 +314,7 @@ class SegOptimizer:
             values = {n: self.opt.state.get(p, {}).get(key,
                                                        torch.zeros_like(p))
                       for n, p in self.named.items()}
+        values = {n: self._full(n, t) for n, t in values.items()}
         return flax_params_tree(values, self.frozen)
 
     def state_tree(self) -> dict:
@@ -394,7 +448,7 @@ class TrainState:
         self.optimizer = optimizer
 
     def tree(self) -> dict:
-        v = flax_from_state_dict(self.model.state_dict())
+        v = flax_from_state_dict(full_state_dict(self.model))
         return {"params": v["params"],
                 "model_state": {"batch_stats": v["batch_stats"]},
                 "opt_state": self.optimizer.state_tree()}
@@ -404,23 +458,35 @@ class TrainState:
         raises before anything changes) and the weights."""
         if "opt_state" not in tree:
             raise ValueError("checkpoint state holds no opt_state")
+        if is_sharded(self.model):
+            raise ValueError("load a checkpoint before the mesh places the "
+                             "model (before the first step)")
         self.optimizer.load_state_tree(tree["opt_state"])
         load_flax_variables(self.model, {
             "params": tree["params"],
             "batch_stats": tree.get("model_state", {}).get("batch_stats")})
 
 
+def _quiet(*args, **kwargs) -> None:
+    """The log of a mesh rank other than 0."""
+
+
 class SegTrainer:
     """Engine for the segmentation models on one device (``None``: the
-    card; pass ``device="cpu"`` for the CPU). The model moves there in
-    channels_last memory."""
+    card; pass ``device="cpu"`` for the CPU), or on this rank's place of a
+    ``mesh`` (``parallel/mesh.py``; its device; weights of at least
+    ``min_out`` output channels split over its 'model' axis, by default
+    ``MODEL_SHARDING_RULES``). The model moves there in channels_last
+    memory."""
 
     def __init__(self, model: nn.Module, cfg: SegTrainConfig, class_weights,
-                 device=None):
+                 device=None, mesh=None, min_out: Optional[int] = None):
         if cfg.dynamic and cfg.modality != "rgbd":
             raise ValueError("the dynamic models take --modality rgbd")
         self.cfg = cfg
-        self.device = resolve_device(device)
+        self.mesh, self.min_out = mesh, min_out
+        self.device = mesh.device if mesh is not None else resolve_device(
+            device)
         self.model = model.to(self.device, memory_format=torch.channels_last)
         self.class_weights = torch.as_tensor(
             np.asarray(class_weights, np.float32), device=self.device)
@@ -430,8 +496,39 @@ class SegTrainer:
 
     def init_state(self) -> TrainState:
         """The model (which holds its weights already, where the JAX
-        trainer initialises them here) and a fresh optimizer."""
+        trainer initialises them here) and a fresh optimizer. Under a mesh
+        the first step places them (``place``): load checkpoints before."""
         return TrainState(self.model, make_seg_optimizer(self.cfg, self.model))
+
+    def place(self, state) -> None:
+        """Under a mesh, once: the model (a ``TrainState``'s, with its
+        optimizer, or a bare one) on the mesh (``parallel/mesh.py::
+        place_model``)."""
+        model = state.model if hasattr(state, "model") else state
+        if self.mesh is None or getattr(model, "mesh_placed", False):
+            return
+        sharded = place_model(model, self.mesh, self.min_out)
+        if hasattr(state, "optimizer"):
+            state.optimizer.place(model, self.mesh, sharded)
+        model.mesh_placed = True
+
+    @contextlib.contextmanager
+    def _on_mesh(self, start: int, total: int):
+        """A forward over rows ``start:`` of a global batch of ``total``:
+        the gathered weights cached for the pass, the random draws the
+        global batch's rows."""
+        if self.mesh is None:
+            yield
+            return
+        with parametrize.cached(), batch_rows(start, total):
+            yield
+
+    def _shard(self, n: int) -> Optional[slice]:
+        """This rank's rows of a batch of ``n``, or None: no mesh, or a
+        batch that does not split over 'data' (it runs whole)."""
+        if self.mesh is None or n % self.mesh.n_data:
+            return None
+        return self.mesh.rows(n)
 
     def _tensor(self, x) -> torch.Tensor:
         return torch.as_tensor(np.asarray(x)).to(self.device)
@@ -464,28 +561,41 @@ class SegTrainer:
                    hard: bool, ini: bool, generator: torch.Generator):
         """One forward/backward/update on a batch: (total, per-scale losses
         (4,), loss_flop), as tensors."""
-        cfg = self.cfg
+        cfg, mesh = self.cfg, self.mesh
         model = state.model
         model.train()
         inputs = self._inputs(image, depth)
-        if self._global:
-            preds, loss_flop = model(*inputs, temp=temp, hard=hard,
-                                     baseline=cfg.baseline, ini_stage=ini,
-                                     generator=generator)
-        else:
-            if cfg.dynamic:  # local gates: sampled, no resource loss
-                preds = model(*inputs, generator, temp=temp, hard=hard,
-                              ini_stage=ini)
+        n = image.shape[0]
+        start = 0 if mesh is None else mesh.data_index * n
+        with self._on_mesh(start, n if mesh is None else n * mesh.n_data):
+            if self._global:
+                preds, loss_flop = model(*inputs, temp=temp, hard=hard,
+                                         baseline=cfg.baseline, ini_stage=ini,
+                                         generator=generator)
             else:
-                preds = model(*inputs)
-            loss_flop = preds[0].new_zeros(())
-        loss_seg, per_scale = multiscale_ce(preds, targets, self.class_weights)
+                if cfg.dynamic:  # local gates: sampled, no resource loss
+                    preds = model(*inputs, generator, temp=temp, hard=hard,
+                                  ini_stage=ini)
+                else:
+                    preds = model(*inputs)
+                loss_flop = preds[0].new_zeros(())
+        reduce = None
+        if mesh is not None and mesh.n_data > 1:
+            reduce = mesh.sum_data
+            if self._global:  # the mean over the global batch
+                loss_flop = reduce(loss_flop) / mesh.n_data
+        loss_seg, per_scale = multiscale_ce(preds, targets, self.class_weights,
+                                            reduce)
         total = loss_seg
         if cfg.loss_ratio > 0:
             total = total + cfg.loss_ratio * torch.clamp(
                 loss_flop - cfg.flop_budget, min=0.0)
         state.optimizer.zero_grad()
-        total.backward()
+        if mesh is None:
+            total.backward()
+        else:  # every rank's share of the global loss; Σ over 'data'
+            (total / mesh.n_data).backward()
+            sum_gradients(state.optimizer.named.values(), mesh)
         state.optimizer.step()
         return total.detach(), torch.stack(per_scale).detach(), loss_flop.detach()
 
@@ -494,17 +604,22 @@ class SegTrainer:
                         lr: float, temp: float):
         cfg = self.cfg
         hard, ini = epoch >= cfg.epoch_hard, epoch < cfg.epoch_ini
+        self.place(state)
         state.optimizer.set_lr(lr)
         generator = torch.Generator().manual_seed(epoch)
         t0 = time.time()
         totals, per_scales, flops = [], [], []
         for batch in loader:
-            targets = [self._tensor(batch["label"])] + [
-                self._tensor(batch["label_down"][r]) for r in DOWN_RATES]
+            targets = [batch["label"]] + [batch["label_down"][r]
+                                          for r in DOWN_RATES]
             image, depth = self._packed(batch["image"], batch["depth"])
+            arrays = [image, depth, *targets]
+            # a mesh rank's rows (a batch that does not split raises)
+            image, depth, *targets = (
+                [self._tensor(a) for a in arrays] if self.mesh is None
+                else shard_batch(arrays, self.mesh))
             total, per_scale, loss_flop = self.train_step(
-                state, self._tensor(image), self._tensor(depth), targets,
-                temp, hard, ini, generator)
+                state, image, depth, targets, temp, hard, ini, generator)
             total = float(total)
             if np.isnan(total):
                 raise ValueError("Loss is None")
@@ -560,7 +675,18 @@ class SegTrainer:
         """Per-camera eval: returns ({camera: miou}, logs). ``noise_mode``
         ≥ 0 injects eval.py's noise (``inject_eval_noise``) from one
         generator seeded with ``run_seed``. ``out_cms`` (if given) is filled
-        with {camera: confusion matrix array}."""
+        with {camera: confusion matrix array}. Under a mesh every rank
+        calls it and gets the global results."""
+        self.place(state)
+        cached = (parametrize.cached() if self.mesh is not None
+                  else contextlib.nullcontext())
+        with cached:  # a sharded weight gathered once for the pass
+            return self._validate(state, loader, logs, noise_mode, noise,
+                                  run_seed, valid_loss, collect_weights,
+                                  ini_stage, out_cms)
+
+    def _validate(self, state, loader, logs, noise_mode, noise, run_seed,
+                  valid_loss, collect_weights, ini_stage, out_cms):
         logs = logs if logs is not None else {}
         n_classes = int(self.class_weights.shape[0])
         cameras = getattr(loader.dataset, "cameras", ("kv1",))
@@ -584,6 +710,8 @@ class SegTrainer:
                 self._validate_camera(model, loader, cm, noise_mode, noise,
                                       rng, valid_loss, collect_weights,
                                       ini_stage)
+            if self.mesh is not None:
+                cm.matrix = self._sum_data(cm.matrix)
             miou[camera] = cm.miou()
             logs[f"mIoU_{split}_{camera}"] = miou[camera]
             if out_cms is not None:
@@ -593,8 +721,17 @@ class SegTrainer:
         logs["time_post_processing"] = self._phase_post
         logs["time_confusion_matrix"] = self._phase_cm
         if valid_loss is not None:
+            if self.mesh is not None:
+                valid_loss.total, valid_loss.pixels = (float(v) for v in (
+                    self._sum_data(np.array([valid_loss.total,
+                                             valid_loss.pixels]))))
             logs[f"loss_{split}"] = valid_loss.compute()
         return miou, logs
+
+    def _sum_data(self, a: np.ndarray) -> np.ndarray:
+        """Σ of a host array over the mesh's 'data' axis."""
+        t = torch.as_tensor(a).to(self.device)
+        return self.mesh.sum_data(t).cpu().numpy().astype(a.dtype)
 
     def _eval_forward(self, model, image, depth, ini_stage, generator):
         """(logits, weight) of the eval chain: the dense forward, or under
@@ -647,12 +784,26 @@ class SegTrainer:
             # packed after the noise: the draws are those of the raw layout
             image, depth = self._packed(image, depth)
             label_orig = batch.get("label_orig", batch.get("label"))
+            label = batch.get("label")
+            n = len(image)
+            # a mesh rank scores its rows; a batch that does not split runs
+            # whole everywhere and counts on the first data rank only
+            rows = self._shard(n)
+            counts = rows is not None or self.mesh is None or (
+                self.mesh.data_index == 0)
+            if rows is not None:
+                image, depth, label_orig = (image[rows], depth[rows],
+                                            label_orig[rows])
+                label = None if label is None else label[rows]
+            draws = (batch_rows(rows.start, n) if rows is not None
+                     else contextlib.nullcontext())
             out_hw = (label_orig.shape[1], label_orig.shape[2])
             t0 = time.time()
             with torch.inference_mode():
-                logits, weight = self._eval_forward(
-                    model, self._tensor(image), self._tensor(depth),
-                    ini_stage, generator)
+                with draws:
+                    logits, weight = self._eval_forward(
+                        model, self._tensor(image), self._tensor(depth),
+                        ini_stage, generator)
                 if cfg.low_res_eval:
                     pred_full = resize_nearest_centers(first_argmax(logits),
                                                        out_hw)
@@ -662,10 +813,12 @@ class SegTrainer:
                 self._phase_forward += time.time() - t0
 
                 t0 = time.time()
-                if (valid_loss is not None and "label" in batch
+                if (valid_loss is not None and label is not None and counts
                         and not cfg.low_res_eval):  # H/4 logits: no loss
-                    valid_loss.add_batch(logits, self._tensor(batch["label"]))
+                    valid_loss.add_batch(logits, self._tensor(label))
                 if collect_weights is not None:
+                    if rows is not None:
+                        weight = self.mesh.gather_rows(weight.contiguous())
                     collect_weights.append(weight)
                 label = self._tensor(label_orig)
                 mask = label > 0
@@ -674,8 +827,9 @@ class SegTrainer:
                 self._phase_post += time.time() - t0
 
                 t0 = time.time()
-                cm.matrix += confusion_update_counts(
-                    lab, pred_m, n_classes).cpu().numpy()
+                if counts:
+                    cm.matrix += confusion_update_counts(
+                        lab, pred_m, n_classes).cpu().numpy()
                 self._phase_cm += time.time() - t0
             if cfg.debug:
                 break
@@ -686,9 +840,15 @@ class SegTrainer:
             best_miou_epoch: int = 0, log_fn=print):
         """Train ``cfg.epochs`` epochs from ``start_epoch``; returns
         (best state tree, best mIoU, its epoch). ``state`` holds the last
-        epoch's model and optimizer afterwards."""
+        epoch's model and optimizer afterwards. Under a mesh only rank 0
+        logs and writes files."""
         cfg = self.cfg
-        os.makedirs(os.path.join(ckpt_dir, "confusion_matrices"), exist_ok=True)
+        writes = self.mesh is None or self.mesh.rank == 0
+        if not writes:
+            log_fn = _quiet
+        else:
+            os.makedirs(os.path.join(ckpt_dir, "confusion_matrices"),
+                        exist_ok=True)
         lr_sched = onecycle_lr(cfg)
         temp_sched = ExpDecayTemp(cfg.temp, cfg.end_temp, cfg.epoch_hard)
         cameras = getattr(valid_loader.dataset, "cameras", ("kv1",))
@@ -703,7 +863,9 @@ class SegTrainer:
             + ["time_training", "time_validation", "time_forward",
                "time_post_processing", "time_confusion_matrix"]
         )
-        csvlogger = CSVLogger(log_keys, os.path.join(ckpt_dir, "logs.csv"))
+        csvlogger = (CSVLogger(log_keys, os.path.join(ckpt_dir, "logs.csv"))
+                     if writes else None)
+        self.place(state)
         best_tree = state.tree()
         try:
             for epoch in range(start_epoch, cfg.epochs):
@@ -722,10 +884,12 @@ class SegTrainer:
                         state, valid_loader, logs,
                         valid_loss=StreamingValidLoss(self.class_weights),
                         ini_stage=epoch < cfg.epoch_ini, out_cms=cms)
-                    with open(os.path.join(ckpt_dir, "confusion_matrices",
-                                           f"cm_epoch_{epoch}.pickle"),
-                              "wb") as f:
-                        pickle.dump(cms, f, protocol=pickle.HIGHEST_PROTOCOL)
+                    if writes:
+                        with open(os.path.join(ckpt_dir, "confusion_matrices",
+                                               f"cm_epoch_{epoch}.pickle"),
+                                  "wb") as f:
+                            pickle.dump(cms, f,
+                                        protocol=pickle.HIGHEST_PROTOCOL)
                     cam0 = cameras[0]
                     if miou[cam0] > best_miou:
                         best_miou = miou[cam0]
@@ -733,15 +897,20 @@ class SegTrainer:
                         best_tree = state.tree()
                     log_fn(f"Test mIoU {miou[cam0]:.4f} | Best mIoU "
                            f"{best_miou:.4f} | Best epoch {best_miou_epoch}")
-                csvlogger.write_logs(logs)
-                save_ckpt_every_epoch(ckpt_dir, state, epoch, best_miou,
-                                      best_miou_epoch)
-                if epoch >= 10 and epoch % cfg.save_every == cfg.save_every - 1:
-                    save_ckpt(ckpt_dir, state, epoch)
-            save_ckpt(ckpt_dir, best_tree, best_miou_epoch)
-            with open(os.path.join(ckpt_dir, "finished.txt"), "w") as f:
-                f.write(f"best miou: {best_miou}\n")
-                f.write(f"best miou epoch: {best_miou_epoch}\n")
+                tree = state.tree()  # under a mesh: gathered on every rank
+                if writes:
+                    csvlogger.write_logs(logs)
+                    save_ckpt_every_epoch(ckpt_dir, tree, epoch, best_miou,
+                                          best_miou_epoch)
+                    if epoch >= 10 and (epoch % cfg.save_every
+                                        == cfg.save_every - 1):
+                        save_ckpt(ckpt_dir, tree, epoch)
+            if writes:
+                save_ckpt(ckpt_dir, best_tree, best_miou_epoch)
+                with open(os.path.join(ckpt_dir, "finished.txt"), "w") as f:
+                    f.write(f"best miou: {best_miou}\n")
+                    f.write(f"best miou epoch: {best_miou_epoch}\n")
         finally:
-            csvlogger.close()
+            if csvlogger is not None:
+                csvlogger.close()
         return best_tree, best_miou, best_miou_epoch

@@ -11,7 +11,7 @@ Logits are NHWC (B, H, W, C), labels (B, H, W) integers with 0 = void.
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Callable, Optional, Sequence
 
 import torch
 import torch.nn.functional as F
@@ -43,19 +43,27 @@ def _nll_and_valid(logits: torch.Tensor, targets: torch.Tensor):
 
 
 def weighted_ce_2d(logits: torch.Tensor, targets: torch.Tensor,
-                   class_weights: torch.Tensor) -> torch.Tensor:
-    """Class-weighted, void-ignoring CE over the weighted pixel count."""
+                   class_weights: torch.Tensor,
+                   reduce: Optional[Callable] = None) -> torch.Tensor:
+    """Class-weighted, void-ignoring CE over the weighted pixel count.
+    ``reduce`` (mesh training: the sum over the 'data' axis) takes the
+    numerator and the count over the global batch."""
     nll, valid, tc = _nll_and_valid(logits, targets)
     w = class_weights[tc] * valid.to(logits.dtype)
-    return (nll * w).sum() / w.sum().clamp_min(1e-12)
+    num, den = (nll * w).sum(), w.sum()
+    if reduce is not None:
+        num, den = reduce(num), reduce(den)
+    return num / den.clamp_min(1e-12)
 
 
 def multiscale_ce(preds: Sequence[torch.Tensor],
                   targets: Sequence[torch.Tensor],
-                  class_weights: torch.Tensor
+                  class_weights: torch.Tensor,
+                  reduce: Optional[Callable] = None
                   ) -> tuple[torch.Tensor, list[torch.Tensor]]:
-    """Sum of per-scale weighted CE losses; returns (total, per-scale list)."""
-    losses = [weighted_ce_2d(p, t, class_weights)
+    """Sum of per-scale weighted CE losses; returns (total, per-scale list).
+    ``reduce``: as ``weighted_ce_2d``'s."""
+    losses = [weighted_ce_2d(p, t, class_weights, reduce)
               for p, t in zip(preds, targets)]
     return sum(losses), losses
 

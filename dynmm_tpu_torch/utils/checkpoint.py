@@ -14,8 +14,12 @@ trainer's config raises ``ValueError``.
 
 ``state`` is a nested dict of numpy arrays, or any object with a ``tree()``
 method that returns one (``train/seg.py::TrainState``); ``load_ckpt`` with a
-``target`` restores into it through ``target.load_tree``. Orbax
-checkpoints are not ported.
+``target`` restores into it through ``target.load_tree``. Under a mesh
+(``train/seg.py``) rank 0 writes the same file, the 'model' slices
+gathered. Orbax checkpoints (the JAX package's ``save_orbax`` and
+``load_orbax``) are not ported: they need ``orbax`` and ``tensorstore``,
+which the card's installation lacks and the port may not import; the port
+reads and writes msgpack only.
 """
 
 from __future__ import annotations

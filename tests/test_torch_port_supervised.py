@@ -481,16 +481,24 @@ def _jax_robust_lines(name: str) -> list:
 @pytest.mark.parametrize("name", list(CLIS))
 @pytest.mark.parametrize("flag", ["--robust", "--measure", "--routed"])
 def test_cli_unported_flags_raise(tmp_path, monkeypatch, capsys, name, flag):
-    """``--measure``/``--routed`` raise, naming ROADMAP A8 item 6.
-    ``--robust`` (item 4) is ported: ``--robust --eval-only`` prints the
-    JAX CLI's robustness lines, computed by the JAX package's sweep on the
-    same start weights."""
-    if flag != "--robust":
-        with pytest.raises(NotImplementedError,
-                           match="ROADMAP A8, left item 6"):
-            CLIS[name][0].parse_args(["--synthetic", flag, "--device", "cpu"])
-        return
+    """The flags that raised before they were ported, each now held to the
+    JAX CLI: ``--robust --eval-only`` prints the JAX CLI's robustness
+    lines, computed by the JAX package's sweep on the same start weights;
+    ``--measure`` (and ``--measure --routed``) prints the JAX CLI's timing
+    line (``examples/*_dyn.py``: ``Time measured over 10 reps: %.4f ±
+    %.4fs per pass``) after the test line, once."""
     monkeypatch.chdir(tmp_path)
+    if flag != "--robust":
+        flags = ["--measure"] + (["--routed"] if flag == "--routed" else [])
+        CLIS[name][0].main(["--synthetic", "--eval-only", "--device", "cpu",
+                            *flags])
+        out = capsys.readouterr().out.splitlines()
+        timed = [i for i, ln in enumerate(out) if ln.startswith("Time ")]
+        assert len(timed) == 1, out
+        assert re.fullmatch(r"Time measured over 10 reps: \d+\.\d{4} ± "
+                            r"\d+\.\d{4}s per pass", out[timed[0]])
+        assert re.match(RESULT[name], out[timed[0] - 1])
+        return
     CLIS[name][0].main(["--synthetic", "--robust", "--eval-only", "--device",
                         "cpu"])
     got = [ln for ln in capsys.readouterr().out.splitlines()

@@ -7,9 +7,9 @@ checkpoint loads into the JAX model and gives the port's eval logits
 ``--last_ckpt`` resumes at the next epoch; ``--activation swish`` trains
 as JAX's ``train.py`` does on the same flags and weights, and so does
 ``--dtype bfloat16`` (within bf16's bounds); flags of
-features not ported raise (those ported since parse and build their
-models); ``--finetune`` reads a reference-style
-``.pth``; ``--he_init`` re-draws the same kernels as the JAX package's."""
+features not ported raise (those ported since train as JAX's do:
+``--mesh-data 2`` as the one-process CLI); ``--finetune`` reads a
+reference-style ``.pth``; ``--he_init`` re-draws the same kernels as the JAX package's."""
 
 import csv
 import json
@@ -54,7 +54,9 @@ TINY = ["--device", "cpu", "--dataset", "synthetic", "--height", str(H),
         "--global-gate", "--loss-ratio", "1e-4", "--eval-every", "1"]
 
 
-def _train(results: Path, *extra: str) -> Path:
+def _train_output(results: Path, *extra: str) -> str:
+    """What ``python -m dynmm_tpu_torch.cli.train`` printed for the TINY
+    flags and ``extra`` (its ranks' output too)."""
     proc = subprocess.run(
         [sys.executable, "-m", "dynmm_tpu_torch.cli.train", *TINY,
          "--results_dir", str(results), *extra],
@@ -62,6 +64,11 @@ def _train(results: Path, *extra: str) -> Path:
         env={**os.environ, "OMP_NUM_THREADS": "1"})
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert "Training completed" in proc.stdout
+    return proc.stdout
+
+
+def _train(results: Path, *extra: str) -> Path:
+    _train_output(results, *extra)
     (run,) = (results / "synthetic").iterdir()
     return run
 
@@ -145,9 +152,45 @@ def test_last_ckpt_resumes_at_the_next_epoch(run_dir, tmp_path):
 
 @pytest.mark.parametrize("flags", [["--mesh-data", "2"], ["--quant", "int8"]],
                          ids=lambda f: f[0].lstrip("-"))
-def test_unported_flags_raise(flags):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        parse_args([*TINY, *flags])
+def test_unported_flags_raise(run_dir, tmp_path, flags):
+    """``--quant`` in training raises, as JAX's ``train.py`` refuses it.
+    ``--mesh-data 2`` (ported) trains on a 2×1 mesh of two ranks the
+    command starts itself: from the same weights (``--finetune``) its
+    epoch line and test-mIoU line equal the one-process CLI's, the numbers
+    within the last printed digit (fp32 sums in other orders); rank 0
+    alone prints (the JAX CLI's mesh line once) and writes, and its
+    ``logs.csv`` losses lie within 1e-5 relative of the one-process
+    run's."""
+    if flags[0] == "--quant":
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            parse_args([*TINY, *flags])
+        return
+    common = ["--epochs", "1", "--finetune",
+              str(run_dir / "ckpt_latest.msgpack")]
+    mesh_out = _train_output(tmp_path / "mesh", *common, *flags)
+    one_out = run_port_cli(train_cli, [
+        *(a for a in TINY if a not in ("--device", "cpu")), *common,
+        "--results_dir", str(tmp_path / "one")])
+    assert mesh_out.count("Using device mesh {'data': 2, 'model': 1}") == 1
+    assert mesh_out.count("Training completed") == 1
+    got, want = _epoch_lines(mesh_out), _epoch_lines(one_out)
+    print("mesh:", got, "\none: ", want)
+    assert len(got) == len(want) == 2
+    for g, w in zip(got, want):
+        assert len(g) == len(w)
+        for a, b in zip(g, w):
+            try:
+                assert float(a) == pytest.approx(float(b), rel=0, abs=2e-4)
+            except ValueError:
+                assert a == b
+    rows = {}
+    for name in ("mesh", "one"):
+        (run,) = (tmp_path / name / "synthetic").iterdir()
+        with open(run / "logs.csv", newline="") as f:
+            rows[name] = list(csv.DictReader(f))
+    for key in ("loss_train_total", "loss_flop", "loss_train_full_size"):
+        assert float(rows["mesh"][0][key]) == pytest.approx(
+            float(rows["one"][0][key]), rel=1e-5), key
 
 
 def _epoch_lines(text: str) -> list[list[str]]:

@@ -115,9 +115,11 @@ def _imports(path: Path):
 
 
 def _forbidden(name: str) -> bool:
-    """JAX, flax, the JAX package, and what the card lacks (msgpack, cv2)."""
+    """JAX, flax, the JAX package, and what the card lacks (msgpack, cv2,
+    orbax, tensorstore)."""
     top = name.split(".")[0]
-    return (top in ("jax", "jaxlib", "flax", "msgpack", "cv2")
+    return (top in ("jax", "jaxlib", "flax", "msgpack", "cv2", "orbax",
+                    "tensorstore")
             or top == "dynmm_tpu")
 
 
@@ -133,6 +135,7 @@ def test_port_imports_no_jax():
     assert not _forbidden("dynmm_tpu_torch.utils.msgpack")
     assert _forbidden("dynmm_tpu") and _forbidden("dynmm_tpu.native")
     assert _forbidden("msgpack") and _forbidden("cv2")
+    assert _forbidden("orbax.checkpoint") and _forbidden("tensorstore")
 
 
 def test_entry_points_raise_without_a_card(monkeypatch):
