@@ -314,8 +314,21 @@ Run from the root of a checkout on a machine with one NVIDIA GPU:
    rank launched no depth stage's kernel and the other every one
    (``path_launches``). The ranks' launches join phase 16's counts.
    Prints its seconds.
+21. The dataset converters, which import no h5py, OpenCV or PIL (this
+   machine has no h5py): every fixture JPEG of ``tests/fixtures_torch_prepare/jpeg``
+   decoded (``data/jpeg.py``) under IMREAD_COLOR and IMREAD_UNCHANGED
+   against its stored ``cv2.imread`` pixels (error 0; the progressive one
+   raises); the four converters (``python -m dynmm_tpu_torch.data.
+   prepare_*``'s ``convert``) on the raw trees ``tests/_torch_prepare_raw.py``
+   builds from the fixtures (MATLAB v7.3 files read by ``data/hdf5.py``,
+   the v5 ones written by ``scipy.io.savemat``), every written PNG, ``.npy``
+   and list equal to what the JAX converter wrote (``expected.npz``);
+   then ``cli.eval`` on the converted NYUv2 layout (its test split: one
+   sample at 480x640) with the recipe-gate flagship, fp32, relu, its
+   launches those of a dense batch. Prints each converter's seconds a
+   sample, eval's seconds a batch, the card line and its seconds.
 16. Prints the kernels' JSON line (launches summed over phases 3-6, 8-15,
-   17 and 20; phase 14's are its replays'), the card line, and last
+   17, 20 and 21; phase 14's are its replays'), the card line, and last
    ``{"ok": true, "device": {...}}``.
 
 TF32 is switched off for cuDNN convolutions and matmuls here, so the kernels
@@ -4920,6 +4933,135 @@ def check_mesh(report: dict) -> dict:
     return launches
 
 
+# ------------------------------------------------------------------ phase 21
+def check_prepare(report: dict) -> dict:
+    """Phase 21: JPEG decoding, the four dataset converters and cli.eval on
+    the converted NYUv2 layout (module docstring)."""
+    import contextlib
+    import io
+    import shutil
+
+    import numpy as np
+
+    sys.path.insert(0, str(ROOT / "tests"))
+    import _torch_prepare_raw as raw
+
+    from dynmm_tpu_torch.cli import eval as eval_cli
+    from dynmm_tpu_torch.data import (jpeg, png, prepare_cityscapes,
+                                      prepare_nyuv2, prepare_scenenet,
+                                      prepare_sunrgbd)
+    from dynmm_tpu_torch.kernels import LAUNCHES, reset_launches
+    from dynmm_tpu_torch.serve import build_flagship
+    from dynmm_tpu_torch.train.seg import SegTrainer
+    from dynmm_tpu_torch.utils.checkpoint import save_checkpoint
+    from dynmm_tpu_torch.utils.device import card_line
+    from dynmm_tpu_torch.utils.weights import (flax_from_state_dict,
+                                               load_recipe_gate)
+
+    card = card_line()
+    section: dict = {"jpeg": {}, "converters": {}}
+    root = ROOT / "build" / "chip_smoke_prepare"
+    shutil.rmtree(root, ignore_errors=True)
+
+    # the fixture JPEGs against their stored cv2 pixels
+    folder = raw.FIXTURES / "jpeg"
+    with np.load(folder / "expected.npz") as want:
+        for path in sorted(folder.glob("*.jpg")):
+            if path.stem == "progressive":
+                continue
+            errs = []
+            for color, mode in ((True, "color"), (False, "unchanged")):
+                got, ref = jpeg.read(str(path), color), want[
+                    f"{path.stem}:{mode}"]
+                if got.shape != ref.shape:
+                    raise RuntimeError(f"{path.name} ({mode}): shape "
+                                       f"{got.shape} != {ref.shape}")
+                errs.append(int(np.abs(got.astype(int) - ref).max()))
+            section["jpeg"][path.name] = max(errs)
+    try:
+        jpeg.read(str(folder / "progressive.jpg"), True)
+        raise RuntimeError("a progressive JPEG decoded")
+    except ValueError as e:
+        progressive = str(e)
+    print(f"  {len(section['jpeg'])} fixture JPEGs vs cv2.imread (colour and "
+          f"unchanged): max abs err {max(section['jpeg'].values())}; "
+          f"progressive raises: {progressive.split(': ', 1)[1]}", flush=True)
+    if any(section["jpeg"].values()):
+        raise RuntimeError(f"JPEG pixels differ from cv2's: {section['jpeg']}")
+
+    # the converters on raw trees built from the fixtures
+    converters = {"nyuv2": prepare_nyuv2, "sunrgbd": prepare_sunrgbd,
+                  "cityscapes": prepare_cityscapes,
+                  "scenenet": prepare_scenenet}
+    for kind, module in converters.items():
+        kw = raw.BUILDERS[kind](root / kind / "in")
+        out = root / kind / "out"
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            module.convert(str(out), **kw)
+        seconds = time.perf_counter() - t0
+        got = raw.written(out, png.read)
+        bad = raw.differences(got, raw.expected(kind))
+        samples = sum(1 for k in got if "/rgb/" in k)
+        row = {"files": len(got), "samples": samples,
+               "s_per_sample": seconds / samples, "differences": bad}
+        section["converters"][kind] = row
+        print(f"  prepare_{kind}: {samples} samples, {len(got)} files equal "
+              f"to the JAX converter's: {not bad}; "
+              f"{row['s_per_sample']:.4f} s a sample [{card}]", flush=True)
+        if bad:
+            raise RuntimeError(f"prepare_{kind} differs from the JAX "
+                               f"converter: {bad[:5]}")
+
+    # cli.eval on the converted NYUv2 layout
+    layout = root / "nyuv2" / "out"
+    model = build_flagship(HEIGHT, WIDTH, CLASSES, seed=0)
+    load_recipe_gate(model)
+    v = flax_from_state_dict(model.state_dict())
+    ckpt = str(root / "flagship.msgpack")
+    save_checkpoint(ckpt, {"params": v["params"], "model_state": {
+        "batch_stats": v["batch_stats"]}}, epoch=0)
+    del model
+    n_test = len((layout / "test.txt").read_text().split())
+    n_batches = -(-n_test // BATCH)
+    expected = _add({}, path_launches([True] * 4, False), n_batches)
+    validate, timings = SegTrainer.validate, []
+
+    def timed_validate(self, *a, **k):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        result = validate(self, *a, **k)
+        torch.cuda.synchronize()
+        timings.append(time.perf_counter() - t0)
+        return result
+
+    argv = ["--dataset", "nyuv2", "--dataset_dir", str(layout), "--height",
+            str(HEIGHT), "--width", str(WIDTH), "--batch_size", str(BATCH),
+            "--dynamic", "--global-gate", "--hard", "--ckpt_path", ckpt]
+    SegTrainer.validate = timed_validate
+    try:
+        reset_launches()  # counts at 0 just before the run, read just after
+        result, lines = _cli_run(eval_cli.main, argv)
+        got = {k: v for k, v in LAUNCHES.items() if v}
+    finally:
+        SegTrainer.validate = validate
+    miou = [float(m) for m in result]
+    s_batch = sum(timings) / (len(timings) * n_batches)
+    section["eval"] = {"miou": miou, "launches": got,
+                       "s_per_batch": s_batch, "samples": n_test}
+    print(f"  cli.eval on the converted NYUv2 layout ({n_test} test sample at "
+          f"{HEIGHT}x{WIDTH}, fp32, recipe gate): mIoU {miou}, "
+          f"{s_batch:.4f} s a batch [{card}]; "
+          f"launches {got}", flush=True)
+    if got != expected:
+        raise RuntimeError(f"phase 21 eval: launches {got} != {expected}")
+    if not all(math.isfinite(m) for m in miou):
+        raise RuntimeError(f"phase 21 eval: mIoU {miou}")
+    report["prepare"] = section
+    shutil.rmtree(root, ignore_errors=True)
+    return got
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this check runs on the card",
@@ -5001,6 +5143,10 @@ def main() -> int:
              f"2x2 mesh train step of the {HEIGHT}x{WIDTH} flagship and the "
              f"sharded routed forwards over D=2, four ranks on this card",
          check_mesh),
+        (21, "the dataset converters on the card's machine: the fixture "
+             "JPEGs, prepare_{nyuv2,sunrgbd,cityscapes,scenenet} against the "
+             "JAX converters' outputs, cli.eval on the converted NYUv2 "
+             "layout", check_prepare),
     ]
     for n, title, check in phases:
         print(f"[{n}] {title}", flush=True)

@@ -17,6 +17,7 @@ from __future__ import annotations
 
 import numpy as np
 
+from dynmm_tpu_torch.data import hdf5
 from dynmm_tpu_torch.data.loader import ArrayLoader
 
 TEXT_DIM, IMAGE_DIM, N_CLASSES = 300, 4096, 23
@@ -25,16 +26,10 @@ SPLITS = {"train": (0, 15552), "dev": (15552, 18160), "test": (18160, None)}
 
 def load_imdb_hdf5(path: str, split: str):
     """Read (text, image, labels) arrays for a split from the MultiBench
-    hdf5; raises when ``h5py`` is not installed (no synthetic fallback)."""
-    try:
-        import h5py
-    except ImportError as e:
-        raise ImportError(
-            f"reading {path} needs the h5py package, which is not installed; "
-            "install h5py or pass --synthetic") from e
-
+    hdf5, through the port's own HDF5 reader (``data/hdf5.py``: the card's
+    machine has no h5py); a file it cannot read raises."""
     lo, hi = SPLITS[split]
-    with h5py.File(path, "r") as f:
+    with hdf5.File(path) as f:
         text = np.asarray(f["features"][lo:hi], dtype=np.float32)
         image = np.asarray(f["vgg_features"][lo:hi], dtype=np.float32)
         labels = np.asarray(f["genres"][lo:hi], dtype=np.float32)

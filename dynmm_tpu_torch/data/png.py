@@ -1,5 +1,5 @@
 """PNG reading and writing for the prepared RGB-D layouts, in place of the
-JAX package's ``cv2.imread`` / ``cv2.imwrite`` (the card's machine has
+JAX package's ``cv2.imread`` / ``cv2.imwrite`` (the port imports
 neither cv2 nor PIL).
 
 ``read`` decodes what the prepared layouts hold: 8-bit RGB, 8-bit grey and

@@ -1,15 +1,16 @@
 """ctypes bindings of the native preprocessing library (a copy of
 ``dynmm_tpu/native``: ``augment.cpp`` is the same source), plus the PNG row
-unfiltering of ``png.cpp``.
+unfiltering of ``png.cpp`` and the JPEG decoder of ``jpeg.cpp``.
 
-``augment.cpp`` and ``png.cpp`` build with ``g++ -O3 -fopenmp`` into one
-library at first use, into ``build/dynmm_tpu_torch/native-<source hash>/``
+``augment.cpp``, ``png.cpp`` and ``jpeg.cpp`` build with ``g++ -O3
+-fopenmp`` into one library at first use, into ``build/dynmm_tpu_torch/native-<source hash>/``
 at the root of the checkout (written to a temporary name and renamed, so
-concurrent first uses do not clash). The port has no cv2 fallback: the
-card's machine has no cv2, so a failed build raises. Bound here: ``resize``
+concurrent first uses do not clash). The port imports no cv2, so there is
+no fallback: a failed build raises. Bound here: ``resize``
 (cv2 semantics, which the mIoU numbers depend on) for
 ``data/seg_preprocessing.py``, ``space_to_depth`` (the packed stem's host
-feed) and ``png_unfilter`` for ``data/png.py``.
+feed), ``png_unfilter`` for ``data/png.py`` and ``jpeg_decode`` for
+``data/jpeg.py``.
 """
 
 from __future__ import annotations
@@ -24,7 +25,7 @@ from pathlib import Path
 import numpy as np
 
 _SRCS = tuple(Path(__file__).resolve().parent / name
-              for name in ("augment.cpp", "png.cpp"))
+              for name in ("augment.cpp", "png.cpp", "jpeg.cpp"))
 _FLAGS = ("-O3", "-fPIC", "-shared", "-fopenmp", "-std=c++17")
 _BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "dynmm_tpu_torch"
 _lock = threading.Lock()
@@ -76,6 +77,12 @@ def lib() -> ctypes.CDLL:
         u8p = ctypes.POINTER(ctypes.c_uint8)
         lb.png_unfilter.argtypes = [u8p] + [ctypes.c_int] * 3 + [u8p]
         lb.png_unfilter.restype = ctypes.c_int
+        for name, out in (("jpeg_info", ctypes.POINTER(ctypes.c_int)),
+                          ("jpeg_decode", u8p)):
+            fn = getattr(lb, name)
+            fn.argtypes = [ctypes.c_char_p, ctypes.c_long, out,
+                           ctypes.c_char_p, ctypes.c_int]
+            fn.restype = ctypes.c_int
         _lib = lb
         return _lib
 
@@ -139,4 +146,24 @@ def png_unfilter(data: bytes, height: int, rowbytes: int, bpp: int
     if bad:
         raise ValueError(f"row {bad - 1} has filter type "
                          f"{src[(bad - 1) * (rowbytes + 1)]}, not 0..4")
+    return out
+
+
+def jpeg_decode(data: bytes) -> np.ndarray:
+    """Decode a baseline or extended-sequential Huffman JPEG held in
+    ``data`` as libjpeg-turbo (``cv2.imread``) decodes it: (H, W, 3) uint8
+    RGB for a 3-component file, (H, W) uint8 for a grey one. Raises
+    ``ValueError`` with the decoder's message (the marker of a kind it does
+    not decode: progressive, arithmetic, 12-bit, CMYK, RGB-coded)."""
+    lb = lib()
+    err = ctypes.create_string_buffer(256)
+    dims = (ctypes.c_int * 3)()
+    if lb.jpeg_info(data, len(data), dims, err, len(err)):
+        raise ValueError(err.value.decode())
+    h, w, c = dims
+    out = np.empty((h, w, 3) if c == 3 else (h, w), np.uint8)
+    if lb.jpeg_decode(data, len(data),
+                      out.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
+                      err, len(err)):
+        raise ValueError(err.value.decode())
     return out

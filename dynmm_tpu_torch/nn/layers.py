@@ -174,6 +174,20 @@ class Packed(nn.Module):
         _set_buffer(self, name, value)
 
 
+def conv2d_lowp_cpu(x, weight, bias, stride, padding, dilation, groups):
+    """A conv of a map below fp32 (bf16) on the CPU, rounded where XLA:CPU
+    rounds it: the sum of the operands' exact products rounded once to the
+    map's dtype, then ``+ bias`` in that dtype (flax's order); its
+    gradients are such convs rounded once too. The sum is taken in float64,
+    so it rounds the same on every x86 host: oneDNN's bf16 convs, forward
+    and backward, and its fp32 ones round differently with the instruction
+    set it dispatches (AVX-512 BF16 or AVX2). XLA:CPU sums in fp32, which
+    moves one output in ~10^4 by one bf16 step from this."""
+    y = F.conv2d(x.double(), weight.double(), None, stride, padding,
+                 dilation, groups).to(x.dtype)
+    return y if bias is None else y + bias[:, None, None]
+
+
 class Conv2d(nn.Conv2d):
     """``nn.Conv2d`` (same parameters and names) that computes in its
     input's dtype. In eval, a map of the model's ``compute_dtype`` (bf16)
@@ -275,6 +289,9 @@ class Conv2d(nn.Conv2d):
         if self.model_shard is not None and self.training:
             return self.forward_model_shard(x, self.model_shard)
         weight, bias = self.weights(x.dtype)
+        if x.dtype != self.weight.dtype and not x.is_cuda:
+            return conv2d_lowp_cpu(x, weight, bias, self.stride, self.padding,
+                                   self.dilation, self.groups)
         if self.training and bias is not None and x.dtype != self.weight.dtype:
             # flax's order at a compute dtype: the sum rounded, then + bias
             return self._conv_forward(x, weight, None) + bias[:, None, None]
@@ -292,8 +309,12 @@ class Conv2d(nn.Conv2d):
             c = self.in_channels // self.groups * groups
             x = x.narrow(1, mesh.model_index * c, c)
         w = local if local.dtype == x.dtype else local.to(x.dtype)
-        y = F.conv2d(x, w, None, self.stride, self.padding, self.dilation,
-                     groups)
+        if x.dtype != local.dtype and not x.is_cuda:
+            y = conv2d_lowp_cpu(x, w, None, self.stride, self.padding,
+                                self.dilation, groups)
+        else:
+            y = F.conv2d(x, w, None, self.stride, self.padding,
+                         self.dilation, groups)
         y = gather_slices(y, group, mesh.model_index, dim=1)
         if self.bias is not None:
             y = y + self.bias.to(y.dtype)[:, None, None]

@@ -59,9 +59,32 @@ class SupervisedConfig:
     auprc: bool = False         # report AUPRC for binary classification
 
 
+class RMSprop(torch.optim.Optimizer):
+    """``optax.rmsprop(lr)`` with optax's defaults: ``nu = (1 − decay)·g²
+    + decay·nu`` from ``nu = 0``, then ``p −= lr · g / sqrt(nu + eps)``
+    (decay 0.9, eps 1e-8 inside the square root; no momentum, not
+    centred). ``torch.optim.RMSprop`` adds eps outside the square root."""
+
+    def __init__(self, params, lr: float, decay: float = 0.9,
+                 eps: float = 1e-8):
+        super().__init__(params, {"lr": lr, "decay": decay, "eps": eps})
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        for group in self.param_groups:
+            decay, eps = group["decay"], group["eps"]
+            for p in group["params"]:
+                if p.grad is None:
+                    continue
+                nu = self.state[p].setdefault("nu", torch.zeros_like(p))
+                g = p.grad
+                nu.copy_((1 - decay) * g.square() + decay * nu)
+                p.sub_(group["lr"] * (g * torch.rsqrt(nu + eps)))
+
+
 def make_optimizer(cfg: SupervisedConfig, params) -> torch.optim.Optimizer:
-    """optax's ``adamw``/``adam`` (b1 0.9, b2 0.999, eps 1e-8) and
-    ``sgd(momentum=0.9, nesterov=True)`` over ``params``."""
+    """optax's ``adamw``/``adam`` (b1 0.9, b2 0.999, eps 1e-8),
+    ``sgd(momentum=0.9, nesterov=True)`` and ``rmsprop`` over ``params``."""
     if cfg.optimizer == "adamw":
         return torch.optim.AdamW(params, lr=cfg.lr, betas=(0.9, 0.999),
                                  eps=1e-8, weight_decay=cfg.weight_decay)
@@ -72,9 +95,7 @@ def make_optimizer(cfg: SupervisedConfig, params) -> torch.optim.Optimizer:
         return torch.optim.SGD(params, lr=cfg.lr, momentum=0.9,
                                nesterov=True)
     if cfg.optimizer == "rmsprop":
-        raise NotImplementedError(
-            "rmsprop is not ported: optax's puts eps inside the square root, "
-            "torch.optim.RMSprop outside it")
+        return RMSprop(params, lr=cfg.lr)
     raise ValueError(cfg.optimizer)
 
 

@@ -29,7 +29,9 @@ step's gradients are mostly rounding noise, and JAX's own bf16 step moves
 its updates further than ½ × its fp32 distance when one input pixel moves
 by one bf16 step (asserted, the witness). They are held closer to JAX's
 bf16 updates than the port's fp32 updates are, at a norm within a factor
-2 of JAX's (a zero update fails). The eval after the step reads the
+2 of JAX's (a zero update fails). The local-gate net's loss is as noisy:
+JAX's own bf16 step moves it further than the ½ rule allows under the
+same nudge (asserted), so it is held within twice that move. The eval after the step reads the
 trained weights (its stale copies differ) and agrees with JAX's eval of
 them by ``tests/test_torch_port_bf16.py``'s net bound, 5e-2 of max |JAX
 fp32 logits|, with the same gate choices.
@@ -411,11 +413,14 @@ def _nudged(batch: dict) -> dict:
     return dict(batch, image=image)
 
 
-def _whole_step(name, runs, variables):
+def _whole_step(name, runs, variables, noisy_loss=False):
     """One bf16 train step of the port against the JAX package's (module
     docstring). ``runs``: (state, logs) of the port at bf16 and fp32, of
     JAX at bf16 (strict rounding), at fp32, and at bf16 on the nudged
-    batch."""
+    batch. ``noisy_loss``: the net's bf16 loss moves further than the ½
+    rule allows when one input pixel moves by one bf16 step (asserted on
+    JAX's own step, the witness), so the loss is held within twice that
+    move, and the BN statistics alone take the ½ rule and its control."""
     m = {k: _moves(v, variables) for k, v in runs.items()}
     err = lambda part, a: _rel(m[a][part], m["jax16"][part])
     for part in ("loss", "BN statistics"):
@@ -424,6 +429,13 @@ def _whole_step(name, runs, variables):
         print(f"{name}: {part} err(port bf16, JAX bf16) {ours:.3g}, bound "
               f"½ err(JAX fp32, JAX bf16) {bound:.3g}; the port's fp32 step "
               f"{control:.3g}")
+        if noisy_loss and part == "loss":
+            jax_noise = err(part, "nudged")
+            print(f"{name}: loss of JAX's bf16 step on the nudged batch "
+                  f"{jax_noise:.3g}")
+            assert jax_noise > bound, (name, "the loss is not noisy")
+            assert np.isfinite(ours) and ours <= 2 * jax_noise, (name, part)
+            continue
         assert np.isfinite(ours) and ours <= bound, (name, part)
         assert control > bound, (name, part, "the control passes")
     ours, fp32 = err("updates", "port16"), err("updates", "port32")
@@ -528,4 +540,4 @@ def test_local_gate_bf16_step_matches_jax(monkeypatch):
             dataclasses.replace(pcfg, dtype=dtype), block_rule=rule),
         variables, b, class_weights(), kw, monkeypatch,
         jax_gumbel_draws(sub, STEP_B))
-    _whole_step("local gate", runs, variables)
+    _whole_step("local gate", runs, variables, noisy_loss=True)

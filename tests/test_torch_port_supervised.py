@@ -86,11 +86,12 @@ def _jax_batch(batch, dtype):
 STEPS = [("imdb", False), ("imdb", True), ("mosei", False), ("mosei", True)]
 
 
-@pytest.mark.parametrize("kind,freeze", STEPS,
-                         ids=[f"{k}-{'freeze' if f else 'all'}" for k, f in STEPS])
-def test_three_steps_match_jax_float64(kind, freeze):
+def _steps(kind, freeze, n_steps, **cfg):
+    """``n_steps`` train steps of the router in float64 in both packages
+    from the same variables: (the port's losses, JAX's, the port's
+    variables, JAX's state, the initial variables)."""
     variables = jax_variables(kind, seed=2)
-    loader = _loader(kind, 48 if kind == "imdb" else 24,
+    loader = _loader(kind, n_steps * (16 if kind == "imdb" else 8),
                      16 if kind == "imdb" else 8)
     batches = list(loader)
     pred = _gate_only if freeze else None
@@ -98,7 +99,7 @@ def test_three_steps_match_jax_float64(kind, freeze):
         jm = ROUTERS[kind][0]()
         jt = jsup.SupervisedTrainer(
             jadapters.dynmm_adapter(jm, temp=1.0, hard=False),
-            jsup.SupervisedConfig(**_cfg(kind)), trainable_pred=pred)
+            jsup.SupervisedConfig(**_cfg(kind, **cfg)), trainable_pred=pred)
         v64 = jax.tree_util.tree_map(lambda a: jnp.asarray(a, jnp.float64),
                                      variables)
         state = jt.init_state(v64)
@@ -114,12 +115,19 @@ def test_three_steps_match_jax_float64(kind, freeze):
     model = port_router(kind, variables, torch.float64).train()
     trainer = SupervisedTrainer(
         adapters.dynmm_adapter(model, temp=1.0, hard=False),
-        SupervisedConfig(**_cfg(kind)), trainable_pred=pred, device="cpu")
+        SupervisedConfig(**_cfg(kind, **cfg)), trainable_pred=pred,
+        device="cpu")
     pstate = trainer.init_state()
     losses = [float(trainer.train_step(pstate, trainer.to_device_batch(b))[0])
               for b in batches]
+    return losses, j_losses, flax_variables(model), j_state, variables
+
+
+@pytest.mark.parametrize("kind,freeze", STEPS,
+                         ids=[f"{k}-{'freeze' if f else 'all'}" for k, f in STEPS])
+def test_three_steps_match_jax_float64(kind, freeze):
+    losses, j_losses, ours, j_state, variables = _steps(kind, freeze, 3)
     np.testing.assert_allclose(losses, j_losses, rtol=1e-10)
-    ours = flax_variables(model)
     worst = {}
     for coll, want in (("params", j_state["params"]),
                        ("batch_stats",
@@ -134,6 +142,23 @@ def test_three_steps_match_jax_float64(kind, freeze):
             k for k in moved if k.startswith("/gate")}
     else:  # weight decay moves every leaf, the unreached image branch too
         assert min(moved.values()) > 0
+
+
+@pytest.mark.parametrize("kind", ["imdb", "mosei"])
+def test_rmsprop_steps_match_optax_float64(kind):
+    """``optimizer="rmsprop"`` (``optax.rmsprop(lr)``, inside the global-norm
+    clip) for five steps: the losses within 1e-6 relative, every parameter
+    within 1e-5 of its leaf's largest entry (the float64 step bounds of
+    ``tests/test_torch_port_train_steps.py``)."""
+    losses, j_losses, ours, j_state, variables = _steps(
+        kind, False, 5, optimizer="rmsprop")
+    np.testing.assert_allclose(losses, j_losses, rtol=1e-6)
+    errs = leaf_errors(ours["params"], j_state["params"])
+    worst = max(errs.items(), key=lambda kv: kv[1])
+    print(f"{kind} rmsprop, five steps: worst leaf {worst}")
+    assert worst[1] < 1e-5, worst
+    moved = leaf_errors(ours["params"], variables["params"])
+    assert max(moved.values()) > 1e-3  # the steps moved the weights
 
 
 def _experts(name: str):
@@ -265,9 +290,26 @@ def test_synthetic_loaders_match_jax(kind):
 
 
 def test_imdb_hdf5_without_h5py_raises(monkeypatch, tmp_path):
+    """Without h5py the port reads the MultiBench file (its own HDF5
+    reader) as the JAX loader reads it with h5py; a missing file raises."""
+    h5py = pytest.importorskip("h5py")
+    path = str(tmp_path / "multimodal_imdb.hdf5")
+    rng = np.random.default_rng(0)
+    with h5py.File(path, "w") as f:
+        f["features"] = rng.standard_normal((12, 1, 300)).astype(np.float32)
+        f.create_dataset("vgg_features", data=rng.standard_normal(
+            (12, 4096)).astype(np.float32), chunks=(5, 512),
+            compression="gzip")
+        f["genres"] = (rng.random((12, 23)) > 0.7).astype(np.int64)
+    want = {"train": jimdb.load_imdb_hdf5(path, "train")}
     monkeypatch.setitem(sys.modules, "h5py", None)
-    with pytest.raises(ImportError, match="h5py"):
-        imdb.load_imdb_hdf5(str(tmp_path / "multimodal_imdb.hdf5"), "train")
+    for split, arrays in want.items():
+        got = imdb.load_imdb_hdf5(path, split)
+        for g, w in zip(got, arrays):
+            assert g.dtype == w.dtype and g.shape == w.shape
+            np.testing.assert_array_equal(g, w)
+    with pytest.raises(FileNotFoundError, match="missing.hdf5"):
+        imdb.load_imdb_hdf5(str(tmp_path / "missing.hdf5"), "train")
 
 
 @pytest.mark.parametrize("name", list(objectives.OBJECTIVES))

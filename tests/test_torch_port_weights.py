@@ -116,10 +116,10 @@ def _imports(path: Path):
 
 def _forbidden(name: str) -> bool:
     """JAX, flax, the JAX package, and what the card lacks (msgpack, cv2,
-    orbax, tensorstore)."""
+    h5py, PIL, orbax, tensorstore)."""
     top = name.split(".")[0]
-    return (top in ("jax", "jaxlib", "flax", "msgpack", "cv2", "orbax",
-                    "tensorstore")
+    return (top in ("jax", "jaxlib", "flax", "msgpack", "cv2", "h5py", "PIL",
+                    "orbax", "tensorstore")
             or top == "dynmm_tpu")
 
 
@@ -135,6 +135,7 @@ def test_port_imports_no_jax():
     assert not _forbidden("dynmm_tpu_torch.utils.msgpack")
     assert _forbidden("dynmm_tpu") and _forbidden("dynmm_tpu.native")
     assert _forbidden("msgpack") and _forbidden("cv2")
+    assert _forbidden("h5py") and _forbidden("PIL.Image")
     assert _forbidden("orbax.checkpoint") and _forbidden("tensorstore")
 
 
