@@ -327,8 +327,20 @@ Run from the root of a checkout on a machine with one NVIDIA GPU:
    sample at 480x640) with the recipe-gate flagship, fp32, relu, its
    launches those of a dense batch. Prints each converter's seconds a
    sample, eval's seconds a batch, the card line and its seconds.
+22. Orbax checkpoints (``utils/orbax.py``; no orbax, tensorstore or zstd
+   package): phase 6's trained fp32 state of the flagship (params, BN
+   statistics, the optax SGD ``opt_state``) in a trainer state,
+   ``save_orbax``, then ``load_orbax`` without a target (every leaf
+   bit-equal to the source tree) and into a fresh trainer state (its tree
+   bit-equal). A dense B=8 ``serve()`` from the restored weights: launches
+   those of a dense batch, class map and gate choices equal to the source
+   weights', and the logits of both models equal (error 0). Then the
+   JAX-written ``tests/fixtures_torch_orbax/ckpt`` (several chunks a
+   sharded array, tensorstore's zstd frames) decoded equal to its
+   ``expected.msgpack``. Prints the state's bytes and the save and restore
+   seconds beside the card line.
 16. Prints the kernels' JSON line (launches summed over phases 3-6, 8-15,
-   17, 20 and 21; phase 14's are its replays'), the card line, and last
+   17 and 20-22; phase 14's are its replays'), the card line, and last
    ``{"ok": true, "device": {...}}``.
 
 TF32 is switched off for cuDNN convolutions and matmuls here, so the kernels
@@ -4934,6 +4946,124 @@ def check_mesh(report: dict) -> dict:
 
 
 # ------------------------------------------------------------------ phase 21
+ORBAX_SEED = 22  # phase 22's request
+
+
+def _bf16_bits(tree):
+    """A restored tree with its bfloat16 tensors as uint16 numpy bits."""
+    if isinstance(tree, dict):
+        return {k: _bf16_bits(v) for k, v in tree.items()}
+    if isinstance(tree, torch.Tensor):
+        return tree.view(torch.int16).numpy().view("<u2")
+    return tree
+
+
+def _nbytes(tree) -> int:
+    if isinstance(tree, dict):
+        return sum(_nbytes(v) for v in tree.values())
+    return getattr(tree, "nbytes", 0)
+
+
+def check_orbax(report: dict) -> dict:
+    """Phase 22: phase 6's trained state through ``save_orbax`` and
+    ``load_orbax``, served from the restored weights; the JAX-written
+    fixture decoded (module docstring)."""
+    import shutil
+
+    from dynmm_tpu_torch.kernels import LAUNCHES, reset_launches
+    from dynmm_tpu_torch.nn.layers import pack_weights
+    from dynmm_tpu_torch.serve import build_flagship, serve
+    from dynmm_tpu_torch.train.seg import SegTrainer
+    from dynmm_tpu_torch.utils.checkpoint import load_orbax, save_orbax
+    from dynmm_tpu_torch.utils.device import card_line
+    from dynmm_tpu_torch.utils.msgpack import msgpack_restore
+
+    if not PHASE6_CKPT:
+        raise RuntimeError("phase 6's checkpoint is not held: run phase 6 "
+                           "first")
+    card = card_line()
+    _, _, class_weights, cfg = _train_data()
+    root = ROOT / "build" / "chip_smoke_orbax"
+    shutil.rmtree(root, ignore_errors=True)
+
+    def trainer_state(seed: int):
+        model = build_flagship(HEIGHT, WIDTH, CLASSES, seed=seed)
+        return SegTrainer(model, cfg, class_weights).init_state()
+
+    source = trainer_state(3)
+    source.load_tree(PHASE6_CKPT["state"])
+    want, epoch = source.tree(), PHASE6_CKPT["epoch"]
+    nbytes = _nbytes(want)
+    t0 = time.perf_counter()
+    path = save_orbax(str(root / "flagship"), source, epoch=epoch)
+    save_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    payload = load_orbax(path)
+    load_s = time.perf_counter() - t0
+    target = trainer_state(4)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    load_orbax(path, target=target)
+    torch.cuda.synchronize()
+    target_s = time.perf_counter() - t0
+    bad = _same_bits(payload["state"], want)
+    bad_target = _same_bits(target.tree(), want)
+    on_disk = sum(f.stat().st_size for f in Path(path).rglob("*")
+                  if f.is_file())
+    print(f"  the flagship's trained fp32 state ({nbytes} bytes of arrays, "
+          f"{on_disk} on disk): save_orbax {save_s:.3f} s, load_orbax "
+          f"{load_s:.3f} s, into a fresh trainer state {target_s:.3f} s "
+          f"[{card}]; leaves differing: {len(bad)} without a target, "
+          f"{len(bad_target)} in the target", flush=True)
+    if bad or bad_target or payload["epoch"] != epoch:
+        raise RuntimeError(f"orbax round trip differs: {bad[:5]} "
+                           f"{bad_target[:5]}, epoch {payload['epoch']}")
+
+    # a dense request from the restored weights and from the source's
+    inp = Inputs(seed=ORBAX_SEED)
+    rgb = inp.randn(BATCH, HEIGHT, WIDTH, 3)
+    depth = inp.randn(BATCH, HEIGHT, WIDTH, 1)
+    models = [source.model.eval(), target.model.eval()]
+    for m in models:
+        pack_weights(m)
+    with torch.inference_mode():
+        logits = [m(rgb, depth, hard=True) for m in models]
+    logits_err = (logits[0] - logits[1]).abs().max().item()
+    ref_map, ref_w = serve(models[0], rgb, depth, mode="dense")
+    torch.cuda.synchronize()
+    reset_launches()  # counts at 0 just before the request, read just after
+    class_map, weight = serve(models[1], rgb, depth, mode="dense")
+    torch.cuda.synchronize()
+    got = {k: v for k, v in LAUNCHES.items() if v}
+    same = bool(torch.equal(class_map, ref_map) and torch.equal(weight, ref_w))
+    print(f"  dense B={BATCH} serve() from the restored weights: class map "
+          f"and gate choices equal to the source's: {same}; logits max abs "
+          f"err {logits_err}; launches {got}", flush=True)
+    if not same or logits_err != 0 or got != EXPECTED:
+        raise RuntimeError(f"phase 22 serve: same {same}, logits err "
+                           f"{logits_err}, launches {got} vs {EXPECTED}")
+    del source, target, models, logits
+
+    # the JAX-written fixture
+    fixture = ROOT / "tests" / "fixtures_torch_orbax"
+    expected = msgpack_restore((fixture / "expected.msgpack").read_bytes())
+    t0 = time.perf_counter()
+    restored = load_orbax(str(fixture / "ckpt"))
+    fixture_s = time.perf_counter() - t0
+    bad_fixture = _same_bits(_bf16_bits(restored["state"]), expected["state"])
+    print(f"  the JAX-written fixture (tests/fixtures_torch_orbax): epoch "
+          f"{restored['epoch']}, leaves differing from expected.msgpack: "
+          f"{len(bad_fixture)}, {fixture_s:.3f} s", flush=True)
+    if bad_fixture or restored["epoch"] != expected["epoch"]:
+        raise RuntimeError(f"the fixture decodes wrong: {bad_fixture}")
+    report["orbax"] = {"state_bytes": nbytes, "disk_bytes": on_disk,
+                       "save_s": save_s, "load_s": load_s,
+                       "load_target_s": target_s, "logits_max_abs_err":
+                       logits_err, "launches": got, "fixture_s": fixture_s}
+    shutil.rmtree(root, ignore_errors=True)
+    return got
+
+
 def check_prepare(report: dict) -> dict:
     """Phase 21: JPEG decoding, the four dataset converters and cli.eval on
     the converted NYUv2 layout (module docstring)."""
@@ -5147,6 +5277,9 @@ def main() -> int:
              "JPEGs, prepare_{nyuv2,sunrgbd,cityscapes,scenenet} against the "
              "JAX converters' outputs, cli.eval on the converted NYUv2 "
              "layout", check_prepare),
+        (22, f"orbax checkpoints: the {HEIGHT}x{WIDTH} flagship's trained "
+             "state through save_orbax and load_orbax, served; the "
+             "JAX-written fixture", check_orbax),
     ]
     for n, title, check in phases:
         print(f"[{n}] {title}", flush=True)

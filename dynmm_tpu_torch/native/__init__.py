@@ -1,16 +1,18 @@
 """ctypes bindings of the native preprocessing library (a copy of
 ``dynmm_tpu/native``: ``augment.cpp`` is the same source), plus the PNG row
-unfiltering of ``png.cpp`` and the JPEG decoder of ``jpeg.cpp``.
+unfiltering of ``png.cpp``, the JPEG decoder of ``jpeg.cpp`` and the zstd
+decoder and CRC-32C of ``zstd.cpp``.
 
-``augment.cpp``, ``png.cpp`` and ``jpeg.cpp`` build with ``g++ -O3
--fopenmp`` into one library at first use, into ``build/dynmm_tpu_torch/native-<source hash>/``
-at the root of the checkout (written to a temporary name and renamed, so
-concurrent first uses do not clash). The port imports no cv2, so there is
-no fallback: a failed build raises. Bound here: ``resize``
-(cv2 semantics, which the mIoU numbers depend on) for
-``data/seg_preprocessing.py``, ``space_to_depth`` (the packed stem's host
-feed), ``png_unfilter`` for ``data/png.py`` and ``jpeg_decode`` for
-``data/jpeg.py``.
+``augment.cpp``, ``png.cpp``, ``jpeg.cpp`` and ``zstd.cpp`` build with
+``g++ -O3 -fopenmp`` into one library at first use, into
+``build/dynmm_tpu_torch/native-<source hash>/`` at the root of the checkout
+(written to a temporary name and renamed, so concurrent first uses do not
+clash). The port imports no cv2 and no zstd package, so there is no
+fallback: a failed build raises. Bound here: ``resize`` (cv2 semantics,
+which the mIoU numbers depend on) for ``data/seg_preprocessing.py``,
+``space_to_depth`` (the packed stem's host feed), ``png_unfilter`` for
+``data/png.py``, ``jpeg_decode`` for ``data/jpeg.py``, and
+``zstd_decompress`` and ``crc32c`` for ``utils/orbax.py``.
 """
 
 from __future__ import annotations
@@ -25,7 +27,7 @@ from pathlib import Path
 import numpy as np
 
 _SRCS = tuple(Path(__file__).resolve().parent / name
-              for name in ("augment.cpp", "png.cpp", "jpeg.cpp"))
+              for name in ("augment.cpp", "png.cpp", "jpeg.cpp", "zstd.cpp"))
 _FLAGS = ("-O3", "-fPIC", "-shared", "-fopenmp", "-std=c++17")
 _BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "dynmm_tpu_torch"
 _lock = threading.Lock()
@@ -83,6 +85,14 @@ def lib() -> ctypes.CDLL:
             fn.argtypes = [ctypes.c_char_p, ctypes.c_long, out,
                            ctypes.c_char_p, ctypes.c_int]
             fn.restype = ctypes.c_int
+        lb.zstd_decompress.argtypes = [ctypes.c_char_p, ctypes.c_long,
+                                       ctypes.c_void_p, ctypes.c_long,
+                                       ctypes.c_char_p, ctypes.c_int]
+        lb.zstd_decompress.restype = ctypes.c_long
+        lb.zstd_content_size.argtypes = [ctypes.c_char_p, ctypes.c_long]
+        lb.zstd_content_size.restype = ctypes.c_longlong
+        lb.crc32c.argtypes = [ctypes.c_char_p, ctypes.c_long, ctypes.c_uint32]
+        lb.crc32c.restype = ctypes.c_uint32
         _lib = lb
         return _lib
 
@@ -167,3 +177,38 @@ def jpeg_decode(data: bytes) -> np.ndarray:
                       err, len(err)):
         raise ValueError(err.value.decode())
     return out
+
+
+def zstd_decompress(data: bytes, size: int | None = None) -> np.ndarray:
+    """The content of the zstd frames in ``data`` (RFC 8878; concatenated
+    frames joined, skippable ones skipped) as uint8. ``size``: the
+    content's expected size, checked; by default the frames' declared
+    sizes, or a buffer grown until it fits. Raises ``ValueError`` on a
+    corrupt or truncated frame, one that needs a dictionary, or a size
+    that differs from ``size``."""
+    lb = lib()
+    declared = lb.zstd_content_size(data, len(data))
+    if declared == -2:
+        raise ValueError("not a whole zstd frame (bad magic, header or length)")
+    if size is not None and declared >= 0 and declared != size:
+        raise ValueError(f"zstd frames hold {declared} bytes, expected {size}")
+    cap = size if size is not None else (
+        declared if declared >= 0 else 4 * len(data) + 1024)
+    err = ctypes.create_string_buffer(256)
+    while True:
+        out = np.empty(max(cap, 1), np.uint8)
+        n = lb.zstd_decompress(data, len(data), out.ctypes.data, cap, err,
+                               len(err))
+        if n == -2 and size is None and declared < 0:
+            cap *= 2
+            continue
+        if n < 0:
+            raise ValueError(f"corrupt zstd frame: {err.value.decode()}")
+        if size is not None and n != size:
+            raise ValueError(f"zstd frames hold {n} bytes, expected {size}")
+        return out[:n]
+
+
+def crc32c(data: bytes, crc: int = 0) -> int:
+    """CRC-32C (Castagnoli) of ``data``, continued from ``crc``."""
+    return lib().crc32c(data, len(data), crc)

@@ -11,11 +11,12 @@ Symmetric, zero-point-free, consumer-side activation quantization:
 
 Between convs everything stays float (BN, activations, SE cells, residual
 adds). The conv itself is an int8 im2col of ``x_q`` (NHWC, taps in
-(kh, kw, c) order) times the (K, C_out) weight matrix through
-``torch._int_mm``: cuBLASLt on the card, an integer GEMM on the CPU; both
-exact. A float conv of the integer values would not be: the decoder's 3×3
-over 512 channels sums 4608 products up to 127² (7.4e7), beyond fp32's
-exact integers (2^24). ``_int_mm`` takes M > 16 rows and K, N multiples of
+(kh, kw, c) order) times the (K, C_out) weight matrix (``int_mm``):
+``torch._int_mm`` (cuBLASLt) on the card, and on the CPU a float64 GEMM of
+the int8 values, since oneDNN's ``_int_mm`` saturates its pair sums under
+AVX2; both exact. An fp32 conv of the integer values would not be: the
+decoder's 3×3 over 512 channels sums 4608 products up to 127² (7.4e7),
+beyond fp32's exact integers (2^24). ``_int_mm`` takes M > 16 rows and K, N multiples of
 8 on the card; ``conv_int8`` pads the im2col with zero columns and rows and
 the weight matrix with zero rows, which leaves the int32 sums unchanged, on
 every device alike.
@@ -28,8 +29,8 @@ over 127, into ``in_pct``) or ``"int8"``. The quant buffers (``in_scale``,
 state_dict is the float model's, as the flax ``params`` are;
 ``utils/weights.py`` carries them as the flax ``quant`` collection.
 ``INT8_CONVS`` counts the int8 convs run, by device type; a program that
-``torch.export`` traced counts none (its ``aten._int_mm`` nodes are its
-int8 convs).
+``torch.export`` traced counts none (its int8 convs are its
+``aten._int_mm`` nodes, on the CPU its float64 ``aten.mm`` ones).
 """
 
 from __future__ import annotations
@@ -112,7 +113,12 @@ def im2col(x_q: torch.Tensor, kernel_size, stride=1, padding=0,
 
 def int_mm(a: torch.Tensor, w_mat: torch.Tensor) -> torch.Tensor:
     """(M, N_pad) int32 = a (M, K_pad) int8 · w_matᵀ, w_mat (N_pad, K_pad)
-    int8, with M padded to ``MIN_ROWS`` by zero rows for the GEMM."""
+    int8. On the card ``_int_mm``, with M padded to ``MIN_ROWS`` by zero
+    rows; on the CPU a float64 GEMM of the int8 values, exact since every
+    partial sum is an integer below K·127² < 2^53 (oneDNN's ``_int_mm``
+    saturates under AVX2)."""
+    if a.device.type == "cpu":
+        return torch.mm(a.double(), w_mat.double().t()).to(torch.int32)
     m = a.shape[0]
     if m < MIN_ROWS:
         a = F.pad(a, (0, 0, 0, MIN_ROWS - m))

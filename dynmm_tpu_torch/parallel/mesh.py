@@ -248,9 +248,24 @@ def local_slice(full: torch.Tensor, mesh: Mesh) -> torch.Tensor:
     return full.chunk(mesh.n_model, 0)[mesh.model_index].clone()
 
 
+def local_flax_slice(leaf, mesh: Mesh):
+    """This rank's slice of a flax kernel (or any array shaped like one,
+    e.g. its optimizer moment) whose torch weight splits over 'model':
+    torch's dim 0 is flax's last axis. A lazy leaf
+    (``utils/orbax.py::OrbaxArray``) reads only the chunks it covers."""
+    k = leaf.shape[-1] // mesh.n_model
+    return leaf[..., mesh.model_index * k:(mesh.model_index + 1) * k]
+
+
 def canonical_name(name: str) -> str:
     """A parameter's name as the unsharded model names it."""
     return name.replace(_SLICE, ".weight")
+
+
+def slice_name(name: str) -> str:
+    """The state_dict key of a split weight's slice (``name`` ends with
+    ``.weight``): the inverse of ``canonical_name``."""
+    return name[:-len(".weight")] + _SLICE
 
 
 def shard_params(model: nn.Module, mesh: Mesh,

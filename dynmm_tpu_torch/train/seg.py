@@ -84,17 +84,19 @@ from dynmm_tpu_torch.nn.layers import (first_argmax, pack_weights,
                                        resize_bilinear, resize_nearest_centers)
 from dynmm_tpu_torch.parallel.collectives import gather_slices
 from dynmm_tpu_torch.parallel.mesh import (canonical_name, full_state_dict,
-                                           is_sharded, local_slice,
-                                           place_model, shard_batch,
+                                           is_sharded, local_flax_slice,
+                                           local_slice, place_model,
+                                           shard_batch, slice_name,
                                            sum_gradients)
 from dynmm_tpu_torch.train.metrics import ConfusionMatrix, confusion_update_counts
 from dynmm_tpu_torch.train.seg_losses import StreamingValidLoss, multiscale_ce
 from dynmm_tpu_torch.utils.checkpoint import save_ckpt, save_ckpt_every_epoch
 from dynmm_tpu_torch.utils.device import resolve_device
 from dynmm_tpu_torch.utils.logger import CSVLogger
-from dynmm_tpu_torch.utils.weights import (flax_from_state_dict,
+from dynmm_tpu_torch.utils.weights import (flax_from_state_dict, flax_leaf,
                                            flax_params_tree,
                                            load_flax_variables,
+                                           state_dict_from_flax,
                                            tensors_from_flax_tree)
 
 DOWN_RATES = (8, 16, 32)
@@ -378,8 +380,8 @@ class SegOptimizer:
         for tree_key, state_key in keys.items():
             if tree_key not in moments:
                 continue
-            for name, t in tensors_from_flax_tree(moments[tree_key],
-                                                  self.named).items():
+            for name, t in tensors_from_flax_tree(
+                    moments[tree_key], self.named, self._take).items():
                 p = self.named[name]
                 self.opt.state[p][state_key] = t.to(p.device, p.dtype)
         if self.cfg.optimizer == "Adam":
@@ -387,7 +389,15 @@ class SegOptimizer:
                 st["step"] = torch.tensor(float(self.count))
         self.acc = ({} if acc is None else {
             n: t.to(self.named[n].device, self.named[n].dtype)
-            for n, t in tensors_from_flax_tree(acc, self.named).items()})
+            for n, t in tensors_from_flax_tree(acc, self.named,
+                                               self._take).items()})
+
+    def _take(self, name: str, leaf):
+        """What this rank reads of a flax leaf of parameter ``name``: its
+        'model' slice once placed (``place``), else the whole leaf."""
+        if name in self.sharded:
+            return local_flax_slice(leaf, self.mesh)
+        return leaf
 
 
 def layout_name(tree) -> str:
@@ -441,7 +451,8 @@ class TrainState:
     """The model and its optimizer; ``tree()`` is the checkpoint's ``state``
     (``{params, model_state: {batch_stats}, opt_state}``, flax layout, numpy
     copies on the host) and ``load_tree`` restores one written by either
-    package."""
+    package. Once the mesh has placed the state, ``load_tree`` reads of
+    each split weight and its moments only this rank's 'model' slice."""
 
     def __init__(self, model: nn.Module, optimizer: SegOptimizer):
         self.model = model
@@ -453,18 +464,38 @@ class TrainState:
                 "model_state": {"batch_stats": v["batch_stats"]},
                 "opt_state": self.optimizer.state_tree()}
 
+    def model_shards(self):
+        """(n_model, flax paths of the params split over 'model' along
+        their last axis) once the mesh has split weights, else None."""
+        opt = self.optimizer
+        if not opt.sharded:
+            return None
+        ndim = {canonical_name(n): p.dim()
+                for n, p in self.model.named_parameters()}
+        return opt.mesh.n_model, [flax_leaf(n, ndim[n])[0]
+                                  for n in sorted(opt.sharded)]
+
     def load_tree(self, tree: dict) -> None:
         """Load the optimizer state (first: a layout that does not fit
-        raises before anything changes) and the weights."""
+        raises before anything changes) and the weights. On the mesh (every
+        rank calls this) a split weight loads its slice."""
         if "opt_state" not in tree:
             raise ValueError("checkpoint state holds no opt_state")
-        if is_sharded(self.model):
-            raise ValueError("load a checkpoint before the mesh places the "
-                             "model (before the first step)")
         self.optimizer.load_state_tree(tree["opt_state"])
-        load_flax_variables(self.model, {
+        variables = {
             "params": tree["params"],
-            "batch_stats": tree.get("model_state", {}).get("batch_stats")})
+            "batch_stats": tree.get("model_state", {}).get("batch_stats")}
+        if not is_sharded(self.model):
+            load_flax_variables(self.model, variables)
+            return
+        opt = self.optimizer
+        named = {canonical_name(n): p for n, p in self.model.named_parameters()}
+        sd = state_dict_from_flax({}, variables["batch_stats"])
+        sd.update(tensors_from_flax_tree(variables["params"], named,
+                                         opt._take))
+        self.model.load_state_dict(
+            {slice_name(n) if n in opt.sharded else n: t
+             for n, t in sd.items()}, strict=True)
 
 
 def _quiet(*args, **kwargs) -> None:
@@ -497,7 +528,8 @@ class SegTrainer:
     def init_state(self) -> TrainState:
         """The model (which holds its weights already, where the JAX
         trainer initialises them here) and a fresh optimizer. Under a mesh
-        the first step places them (``place``): load checkpoints before."""
+        the first step places them (``place``); ``TrainState.load_tree``
+        loads a checkpoint before that or after."""
         return TrainState(self.model, make_seg_optimizer(self.cfg, self.model))
 
     def place(self, state) -> None:

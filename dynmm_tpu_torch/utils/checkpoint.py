@@ -13,13 +13,15 @@ resumes the other's optimizer, and a layout that does not fit the
 trainer's config raises ``ValueError``.
 
 ``state`` is a nested dict of numpy arrays, or any object with a ``tree()``
-method that returns one (``train/seg.py::TrainState``); ``load_ckpt`` with a
-``target`` restores into it through ``target.load_tree``. Under a mesh
+method that returns one (``train/seg.py::TrainState``); ``load_ckpt`` with
+a ``target`` restores into it through ``target.load_tree``. Under a mesh
 (``train/seg.py``) rank 0 writes the same file, the 'model' slices
-gathered. Orbax checkpoints (the JAX package's ``save_orbax`` and
-``load_orbax``) are not ported: they need ``orbax`` and ``tensorstore``,
-which the card's installation lacks and the port may not import; the port
-reads and writes msgpack only.
+gathered.
+
+Orbax checkpoints (the JAX package's ``save_orbax`` and ``load_orbax``,
+orbax's ``StandardCheckpointer`` directories) are ``utils/orbax.py``,
+re-exported here: read and written without ``orbax``, ``tensorstore`` or
+a zstd package, onto the port's mesh too.
 """
 
 from __future__ import annotations
@@ -32,6 +34,7 @@ import numpy as np
 import torch
 
 from dynmm_tpu_torch.utils.msgpack import msgpack_restore, msgpack_serialize
+from dynmm_tpu_torch.utils.orbax import load_orbax, save_orbax  # noqa: F401
 
 
 def _to_host(tree: Any) -> Any:

@@ -149,17 +149,21 @@ def _set_path(tree: dict, path: tuple[str, ...], value) -> None:
     tree[path[-1]] = value
 
 
-def tensors_from_flax_tree(tree: dict, like: dict[str, torch.Tensor]
-                           ) -> dict[str, torch.Tensor]:
+def tensors_from_flax_tree(tree: dict, like: dict[str, torch.Tensor],
+                           take=None) -> dict[str, torch.Tensor]:
     """``{torch_name: tensor}`` (CPU) of the names in ``like`` from a flax
     params tree of tensors shaped like them (``flax_from_state_dict(
-    named)["params"]``, e.g. optimizer moments), kernels back in OIHW."""
+    named)["params"]``, e.g. optimizer moments), kernels back in OIHW.
+    ``take(name, leaf)``, if given, picks what to read of each leaf (a
+    mesh rank's slice)."""
     out = {}
     for name, t in like.items():
         path, _ = flax_leaf(name, t.dim())
         node = tree
         for k in path:
             node = node[k]
+        if take is not None:
+            node = take(name, node)
         out[name] = torch.tensor(_torch_layout(path[-1], np.asarray(node)))
     return out
 

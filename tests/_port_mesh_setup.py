@@ -14,6 +14,7 @@ from dynmm_tpu_torch.parallel.routing import make_sharded_routed_forward
 from dynmm_tpu_torch.train.seg import SegTrainConfig, SegTrainer
 from dynmm_tpu_torch.train.seg_losses import StreamingValidLoss
 from dynmm_tpu_torch.utils.checkpoint import save_ckpt_every_epoch
+from dynmm_tpu_torch.utils.orbax import OrbaxCheckpoint, save_orbax
 from dynmm_tpu_torch.utils.weights import load_flax_variables
 
 
@@ -106,3 +107,34 @@ def routed(model_kw, variables, rgb, depth, n_data, methods) -> list:
         logits = fn(torch.from_numpy(rgb), torch.from_numpy(depth))
         out.append({"out": logits.numpy(), "stages": list(stages)})
     return out
+
+
+def orbax_on_mesh(model_kw, variables, path, out, mesh_shape, min_out):
+    """On a (D, M) mesh: a trainer state placed from ``variables``; the
+    orbax checkpoint ``path`` restored into it (``load_orbax(path,
+    target=state)``), the state saved to ``out`` (rank 0 writes the
+    gathered state) and ``out`` restored into it. Returns, for each
+    restore, the chunk keys this rank read and its split weights' slices
+    and momenta after it."""
+    mesh = make_mesh(*mesh_shape, device="cpu")
+    model = port_model(model_kw, variables, torch.float32)
+    trainer = SegTrainer(model, SegTrainConfig(epochs=1),
+                         np.ones(5, np.float32), device="cpu", mesh=mesh,
+                         min_out=min_out)
+    state = trainer.init_state()
+    trainer.place(state)
+    opt = state.optimizer
+    reads = []
+    for src in (path, out):
+        if src == out:
+            save_orbax(out, state, epoch=5)
+        ckpt = OrbaxCheckpoint(src)  # load_orbax's steps, its reads kept
+        state.load_tree(ckpt.tree()["state"])
+        reads.append({
+            "read": sorted(ckpt.chunks_read),
+            "slices": {n: opt.named[n].detach().numpy().copy()
+                       for n in opt.sharded},
+            "momenta": {n: opt.opt.state[opt.named[n]]["momentum_buffer"]
+                        .numpy().copy() for n in opt.sharded}})
+    return {"model_index": mesh.model_index, "shards": state.model_shards(),
+            "reads": reads}

@@ -5,7 +5,7 @@ against the JAX package's (``dynmm_tpu/nn/quant.py``,
 
 * ``weight_scales`` and ``quantize_symmetric``: bit-equal, ties included.
 * ``conv_int8`` (int8 im2col times the weight matrix through
-  ``torch._int_mm``): equal to a float64 conv of the same int8 operands on
+  ``int_mm``): equal to a float64 conv of the same int8 operands on
   every conv shape the nets use, with K, N and M padded where the card's
   GEMM needs it, and exact where fp32 is not (sums beyond 2^24).
 * One quantized conv against the JAX ``QConv`` on the same input, kernel

@@ -116,10 +116,10 @@ def _imports(path: Path):
 
 def _forbidden(name: str) -> bool:
     """JAX, flax, the JAX package, and what the card lacks (msgpack, cv2,
-    h5py, PIL, orbax, tensorstore)."""
+    h5py, PIL, orbax, tensorstore, zstandard, zarr, numcodecs)."""
     top = name.split(".")[0]
     return (top in ("jax", "jaxlib", "flax", "msgpack", "cv2", "h5py", "PIL",
-                    "orbax", "tensorstore")
+                    "orbax", "tensorstore", "zstandard", "zarr", "numcodecs")
             or top == "dynmm_tpu")
 
 
@@ -137,6 +137,8 @@ def test_port_imports_no_jax():
     assert _forbidden("msgpack") and _forbidden("cv2")
     assert _forbidden("h5py") and _forbidden("PIL.Image")
     assert _forbidden("orbax.checkpoint") and _forbidden("tensorstore")
+    assert _forbidden("zstandard") and _forbidden("zarr.storage")
+    assert _forbidden("numcodecs")
 
 
 def test_entry_points_raise_without_a_card(monkeypatch):
